@@ -5,18 +5,32 @@
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build of every CUDA kernel from ``src/repro_torch/csrc`` (timed);
-  3. each kernel against its plain PyTorch version on the card, at the
-     shapes full-width bert-large gives it and at one ragged shape: max
-     abs error and tolerance, kernel / plain / library ms, and the least
-     time the card could take (bytes over 3.35 TB/s or bf16 operations
-     over 989 TFLOP/s, whichever is larger);
-  4. full-width bert-large trained with mkor(lamb) through the kernels:
-     step 0 against the plain route from the same state (banks, update,
-     and the loss after the step), then the main
-     path (counts reset, fresh optimizer state, several steps) with
-     losses, step time, peak memory, per-kernel launch counts and
-     fallbacks, and a profiler breakdown of one more step;
+  2. build of every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per
+     source, in parallel, timed);
+  3. each of the six kernels against its plain PyTorch version on the
+     card, at the shapes full-width bert-large gives it and at ragged
+     shapes: max abs error and tolerance, kernel / plain / library ms, and
+     the least time the card could take (bytes over 3.35 TB/s, or
+     operations over the peak of their type -- 989 TFLOP/s for the bf16
+     tensor cores, 67 TFLOP/s for fp32 -- whichever is larger);
+  4. full-width bert-large (24 layers, random weights from seed 0, batch 8
+     x 128) trained with mkor(lamb) through the kernels on three paths,
+     each with the launch counts set to 0 just before it and read just
+     after:
+     a. rank 1, staleness 0 (inv_freq 3): step 0 against the plain route
+        from the same state (banks, update, loss after the step), then 6
+        steps with losses, step time, peak memory, launches and fallbacks,
+        a profiler breakdown and phase times of one more step;
+     b. block rank 4 (inv_freq 4, stagger), 8 steps: every bucket consumes
+        a partial and a full window; at each bucket's first full window
+        the banks after the kernel update against the plain route from
+        the same state; profiler breakdown and phase times of a step;
+     c. staleness 1 at rank 1 (inv_freq 3), 9 steps: precompute runs
+        before each forward pass, every tick's launched banks against the
+        plain route from the same state, and every bucket's promoted
+        active bank leaves the identity; profiler breakdown and phase
+        times of a step;
+     each profiled step also lists the host's waits on the device;
   5. one JSON line listing every kernel, the card's name and power limit,
      and, last, ``{"ok": true, "device": {...}}``.
 
@@ -37,17 +51,41 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_BF16_OPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
+PEAK_FP32_OPS_PER_S = 67e12       # H100 SXM fp32, outside the tensor cores
 REPLACES = {
     "fused_smw": "src/repro/kernels/rank1_smw.py:355",
     "fused_precond": "src/repro/kernels/precond.py:108",
     "matmul": "src/repro/kernels/matmul.py:35",
+    "fused_block_smw": "src/repro/kernels/rank1_smw.py:294",
+    "matvec": "src/repro/kernels/rank1_smw.py:57",
+    "rank1_update": "src/repro/kernels/rank1_smw.py:87",
 }
 SOURCES = {
     "fused_smw": "src/repro_torch/csrc/rank1_smw.cu",
     "fused_precond": "src/repro_torch/csrc/precond.cu",
     "matmul": "src/repro_torch/csrc/matmul.cu",
+    "fused_block_smw": "src/repro_torch/csrc/block_smw.cu",
+    "matvec": "src/repro_torch/csrc/rank1_smw.cu",
+    "rank1_update": "src/repro_torch/csrc/rank1_smw.cu",
 }
-TRAIN_STEPS = 6                   # two full inv_freq=3 windows
+# the peak rate of each kernel's operations: tensor-core GEMMs in bf16,
+# the SMW kernels' fp32 FMAs on the CUDA cores
+PEAK_OPS = {"fused_smw": PEAK_FP32_OPS_PER_S,
+            "fused_precond": PEAK_BF16_OPS_PER_S,
+            "matmul": PEAK_BF16_OPS_PER_S,
+            "fused_block_smw": PEAK_FP32_OPS_PER_S,
+            "matvec": PEAK_FP32_OPS_PER_S,
+            "rank1_update": PEAK_FP32_OPS_PER_S}
+# the kernels each training path must launch (and must not)
+PATH_KERNELS = {
+    "rank1": (("fused_smw", "fused_precond", "matmul"), ("fused_block_smw",)),
+    "rank4": (("fused_block_smw", "fused_precond", "matmul"), ("fused_smw",)),
+    "staleness1": (("fused_block_smw", "fused_precond", "matmul"),
+                   ("fused_smw",)),
+}
+TRAIN_STEPS = 6                   # rank 1: two full inv_freq=3 windows
+RANK4_STEPS = 8                   # rank 4, inv_freq 4: two windows a bucket
+STALE_STEPS = 9                   # staleness 1, inv_freq 3: three ticks
 
 
 class SmokeFailure(RuntimeError):
@@ -59,9 +97,9 @@ def require(ok: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, peak_ops: float):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_BF16_OPS_PER_S * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -101,8 +139,11 @@ class KernelRow:
         if library_ms is not None:
             self.library_ms = (self.library_ms or 0.0) + library_ms
 
+    def bound(self, n_bytes, n_ops):
+        return bound_ms(n_bytes, n_ops, PEAK_OPS[self.name])
+
     def as_json(self, launches: int):
-        b_ms, b_by = bound_ms(self.bytes, self.ops)
+        b_ms, b_by = self.bound(self.bytes, self.ops)
         return {"name": self.name, "route": "cuda",
                 "source": SOURCES[self.name], "replaces": REPLACES[self.name],
                 "launches": launches, "max_abs_err": self.err, "ms": self.ms,
@@ -110,19 +151,21 @@ class KernelRow:
                 "bound_by": b_by, "library_ms": self.library_ms}
 
 
-def bf16_close(got, want):
-    """(max abs error, worst ratio to the elementwise bf16 tolerance).
+def bf16_close(got, want, rel=2.0 ** -7, floor=1e-5):
+    """(max abs error, worst ratio to the elementwise tolerance
+    rel·|want| + floor·max|want|).
 
-    Kernel and plain version round the same fp32 value to bf16, but their
-    fp32 sums run in another order, so an element may land on the
-    neighbouring bf16 value: one ulp, at most 2^-7 of the element itself.
-    The floor 1e-5·max|want| covers elements near zero, whose fp32
-    rounding differences are ~1e-7 of the largest entry.  Being
-    elementwise, the bound sees the rank-1 term of an SMW update even
-    where it is small beside the diagonal."""
+    For bf16 outputs (the defaults): kernel and plain version round the
+    same fp32 value to bf16, but their fp32 sums run in another order, so
+    an element may land on the neighbouring bf16 value: one ulp, at most
+    2^-7 of the element itself.  The floor 1e-5·max|want| covers elements
+    near zero, whose fp32 rounding differences are ~1e-7 of the largest
+    entry.  Being elementwise, the bound sees the rank-1 (rank-r) term of
+    an SMW update even where it is small beside the diagonal.  fp32
+    outputs pass a tighter (rel, floor)."""
     got, want = got.float(), want.float()
     diff = (got - want).abs()
-    tol = 2.0 ** -7 * want.abs() + 1e-5 * want.abs().max()
+    tol = rel * want.abs() + floor * want.abs().max()
     return diff.max().item(), (diff / tol).max().item()
 
 
@@ -164,7 +207,7 @@ def check_fused_smw(torch, rows):
                                                               gamma=0.9))
             n_bytes = b * (2 * d * d * 2 + d * 4)
             n_ops = b * 4.0 * d * d
-            bms, by = bound_ms(n_bytes, n_ops)
+            bms, by = row.bound(n_bytes, n_ops)
             print(f"fused_smw {b}x{d}x{d}: {ms:.4f} ms, plain {plain:.4f} ms,"
                   f" bound {bms:.4f} ms ({by})")
             row.add(0.0, ms, plain, n_bytes, n_ops)
@@ -201,7 +244,7 @@ def check_fused_precond(torch, rows):
             plain = time_ms(torch, lambda: pc.fused_precond_plain(r, g, l))
             n_bytes = b * ((di * di + do * do + di * do) * 2 + di * do * 4)
             n_ops = b * 2.0 * di * do * (di + do)
-            bms, by = bound_ms(n_bytes, n_ops)
+            bms, by = row.bound(n_bytes, n_ops)
             print(f"fused_precond {b}x{di}x{do}: {ms:.4f} ms, plain "
                   f"{plain:.4f} ms, bound {bms:.4f} ms ({by}), "
                   f"{n_ops / ms / 1e9:.1f} TFLOP/s")
@@ -253,12 +296,145 @@ def check_matmul(torch, rows):
             lib = time_ms(torch, lib_fn)
             n_bytes = b * ((m * k + k * n) * 2 + m * n * 4)
             n_ops = b * 2.0 * m * k * n
-            bms, by = bound_ms(n_bytes, n_ops)
+            bms, by = row.bound(n_bytes, n_ops)
             print(f"matmul {b}x{m}x{k}x{n}: {ms:.4f} ms, plain {plain:.4f} "
                   f"ms, {lib_name} {lib:.4f} ms, bound {bms:.4f} ms "
                   f"({by}), {n_ops / ms / 1e9:.1f} TFLOP/s")
             row.add(0.0, ms, plain, n_bytes, n_ops, library_ms=lib)
         del a, w
+
+
+def check_fused_block_smw(torch, rows):
+    from repro_torch.core.mkor import block_weights
+    from repro_torch.kernels import rank1_smw as rk
+    row = rows["fused_block_smw"]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    # (bank, d, r, dtype, window fills, with_pivot, main-path shape): the
+    # three bert-large bank sides at rank 4 with full windows, one of them
+    # with the pivot, one with windows filled to 0, 1 and r; then a ragged
+    # shape in both dtypes with mixed fills
+    cases = [(96, 1024, 4, torch.bfloat16, "full", False, True),
+             (24, 1024, 4, torch.bfloat16, "full", True, True),
+             (24, 4096, 4, torch.bfloat16, "full", False, True),
+             (24, 1024, 4, torch.bfloat16, "mixed", False, False),
+             (3, 1001, 3, torch.float32, "mixed", True, False),
+             (3, 1001, 3, torch.bfloat16, "mixed", False, False)]
+    for b, d, r, dtype, fill, pivot, main in cases:
+        j = near_identity(torch, b, d, gen, dtype)
+        # v ~ N(0, 1): the rank-r term U M Uᵀ is ~r/d an element, beside
+        # off-diagonal entries of J of ~0.7/d, so a kernel that drops or
+        # misweights it fails the elementwise bound
+        v = torch.randn((b, r, d), generator=gen, device="cuda")
+        n = torch.full((b,), r, device="cuda") if fill == "full" else \
+            torch.tensor([(0, 1, r)[i % 3] for i in range(b)], device="cuda")
+        sq, gm = block_weights(n, r, 0.9)
+        vt = (v * sq[..., None]).contiguous()
+        # fp32 out: the same fp32 values, summed in another order and
+        # solved by Gauss-Jordan in place of LU: 1e-5 relative, floor
+        # 1e-6 of the largest entry
+        rel, floor = (2.0 ** -7, 1e-5) if dtype == torch.bfloat16 else \
+            (1e-5, 1e-6)
+        for variant in ("paper", "exact_smw"):
+            res = rk.fused_block_smw(j, vt, gm, variant=variant,
+                                     with_pivot=pivot)
+            want = rk.fused_block_smw_plain(j, vt, gm, variant=variant,
+                                            with_pivot=pivot)
+            torch.cuda.synchronize()
+            got = res[0] if pivot else res
+            err, ratio = bf16_close(got, want[0] if pivot else want, rel,
+                                    floor)
+            tag = (f"fused_block_smw {b}x{d}x{d} r={r} {str(dtype)[6:]} "
+                   f"fill={fill} {variant}")
+            print(f"{tag}: max_abs_err {err:.3e}, worst |got-want| / "
+                  f"({rel:.3g}|want| + {floor:g} max|want|) {ratio:.3f} "
+                  "(tol 1)")
+            require(math.isfinite(ratio) and ratio <= 1.0,
+                    f"{tag} disagrees with its plain version")
+            if fill == "mixed":
+                empty = n == 0
+                require(bool(torch.equal(got[empty], j[empty])),
+                        f"{tag}: an empty window changed its slice")
+            if pivot:
+                # Gauss-Jordan pivots against the plain version's squared
+                # Cholesky diagonal: the same fp32 numbers, 1e-3 relative
+                p_err = ((res[1] - want[1]).abs()
+                         / want[1].abs()).max().item()
+                print(f"{tag}: pivot min {res[1].min().item():.6g} vs "
+                      f"{want[1].min().item():.6g}, max rel err "
+                      f"{p_err:.3e} (tol 1e-3)")
+                require(p_err <= 1e-3, f"{tag}: pivot disagrees")
+            row.add(err)
+        if main:
+            ms = time_ms(torch, lambda: rk.fused_block_smw(j, vt, gm))
+            plain = time_ms(torch, lambda: rk.fused_block_smw_plain(j, vt,
+                                                                    gm))
+            n_bytes = b * (2 * d * d * j.element_size() + r * d * 4 + 4)
+            n_ops = b * ((4.0 * r + 1) * d * d + 4.0 * r * r * d)
+            bms, by = row.bound(n_bytes, n_ops)
+            print(f"fused_block_smw {b}x{d}x{d} r={r}: {ms:.4f} ms, plain "
+                  f"{plain:.4f} ms, bound {bms:.4f} ms ({by})")
+            row.add(0.0, ms, plain, n_bytes, n_ops)
+        del j, v, vt
+
+
+def check_matvec_and_rank1_update(torch, rows):
+    """The two unfused building blocks, at d = 1024, 4096 and 1001 (bf16
+    J, fp32 vectors).  They are on no training path; ms, plain, library
+    and bound sum the three shapes."""
+    from repro_torch.kernels import rank1_smw as rk
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for d in (1024, 4096, 1001):
+        j = near_identity(torch, 1, d, gen, torch.bfloat16)[0]
+        v = torch.randn((d, 1), generator=gen, device="cuda")
+        got = rk.matvec(j, v)
+        want = rk.matvec_plain(j, v)
+        torch.cuda.synchronize()
+        # fp32 out, the same products summed in another order
+        err, ratio = bf16_close(got, want, 0.0, 1e-5)
+        print(f"matvec {d}x{d}: max_abs_err {err:.3e}, worst |got-want| / "
+              f"(1e-5 max|want|) {ratio:.3f} (tol 1)")
+        require(math.isfinite(ratio) and ratio <= 1.0,
+                f"matvec {d} disagrees with its plain version")
+        vb = v.to(torch.bfloat16)
+        ms = time_ms(torch, lambda: rk.matvec(j, v), reps=50)
+        plain = time_ms(torch, lambda: rk.matvec_plain(j, v), reps=50)
+        lib = time_ms(torch, lambda: torch.mv(j, vb[:, 0]), reps=50)
+        n_bytes = d * d * 2 + 2 * d * 4
+        n_ops = 2.0 * d * d
+        bms, by = rows["matvec"].bound(n_bytes, n_ops)
+        print(f"matvec {d}x{d}: {ms:.4f} ms, plain {plain:.4f} ms, torch.mv "
+              f"(bf16 vector and output) {lib:.4f} ms, bound {bms:.4f} ms "
+              f"({by})")
+        rows["matvec"].add(err, ms, plain, n_bytes, n_ops, library_ms=lib)
+
+        u = (want / math.sqrt(d)).contiguous()
+        coef = torch.full((1, 1), 0.37, device="cuda")
+        got = rk.rank1_update(j, u, coef, gamma=0.9)
+        want = rk.rank1_update_plain(j, u, coef, gamma=0.9)
+        torch.cuda.synchronize()
+        err, ratio = bf16_close(got, want)
+        print(f"rank1_update {d}x{d}: max_abs_err {err:.3e}, worst "
+              f"|got-want| / (2^-7|want| + 1e-5 max|want|) {ratio:.3f} "
+              "(tol 1)")
+        require(math.isfinite(ratio) and ratio <= 1.0,
+                f"rank1_update {d} disagrees with its plain version")
+        ub = u[:, 0].to(torch.bfloat16)
+        c = coef.item()
+        ms = time_ms(torch, lambda: rk.rank1_update(j, u, coef, gamma=0.9),
+                     reps=50)
+        plain = time_ms(torch, lambda: rk.rank1_update_plain(
+            j, u, coef, gamma=0.9), reps=50)
+        lib = time_ms(torch, lambda: torch.addr(j, ub, ub, beta=0.9,
+                                                alpha=c), reps=50)
+        n_bytes = 2 * d * d * 2 + d * 4 + 4
+        n_ops = 3.0 * d * d
+        bms, by = rows["rank1_update"].bound(n_bytes, n_ops)
+        print(f"rank1_update {d}x{d}: {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"torch.addr (bf16 vectors) {lib:.4f} ms, bound {bms:.4f} ms "
+              f"({by})")
+        rows["rank1_update"].add(err, ms, plain, n_bytes, n_ops,
+                                 library_ms=lib)
+        del j, v
 
 
 # ----------------------------------------------------------------------- #
@@ -273,7 +449,8 @@ def _max_rel(torch, xs, ys):
 
 def bert_large_setup(dev, cfg=None):
     """Full-width bert-large with random weights from seed 0, its synthetic
-    data (batch 8 x 128), and a maker of mkor(lamb) train steps."""
+    data (batch 8 x 128), and a maker of mkor(lamb) optimizers and their
+    train steps."""
     from repro_torch.configs import bert_large
     from repro_torch.core import firstorder
     from repro_torch.core.mkor import MKORConfig, mkor
@@ -288,11 +465,11 @@ def bert_large_setup(dev, cfg=None):
           f"{cfg.dtype}")
     ds = pipeline.make_dataset(cfg, global_batch=8, seq_len=128, seed=0)
 
-    def make(use_kernels, stagger=True):
-        opt = mkor(firstorder.lamb(1e-3),
-                   MKORConfig(inv_freq=3, stagger=stagger,
-                              use_kernels=use_kernels))
-        return opt, train_lib.make_train_step(cfg, opt)
+    def make(use_kernels, **kw):
+        kw.setdefault("inv_freq", 3)
+        mcfg = MKORConfig(use_kernels=use_kernels, **kw)
+        opt = mkor(firstorder.lamb(1e-3), mcfg)
+        return opt, train_lib.make_train_step(cfg, opt), mcfg
     return cfg, params, ds, make
 
 
@@ -304,19 +481,12 @@ def check_step0(torch, dev, cfg, params, ds, make):
     from repro_torch.training import loop as train_lib
     from repro_torch.tree import tree_leaves
 
-    opt_0k, step_0k = make(True, stagger=False)
-    opt_0p, step_0p = make(False, stagger=False)
+    opt_0k, step_0k, _ = make(True, stagger=False)
+    opt_0p, step_0p, _ = make(False, stagger=False)
     batch0 = train_lib.batch_to_device(pipeline.make_batch(ds, 0), dev)
     pk, sk, mk = step_0k(params, opt_0k.init(params), batch0)
     pp, sp, mp = step_0p(params, opt_0p.init(params), batch0)
-    for bid, bank in sk["factor_banks"].items():
-        for side in ("l_inv", "r_inv"):
-            err, ratio = bf16_close(bank[side], sp["factor_banks"][bid][side])
-            print(f"step 0 bank {bid}/{side}: max_abs_err {err:.3e}, worst "
-                  f"|got-want| / (2^-7|want| + 1e-5 max|want|) {ratio:.3f} "
-                  "(tol 1)")
-            require(math.isfinite(ratio) and ratio <= 1.0,
-                    f"step 0 bank {bid}/{side} differs")
+    compare_banks("step 0", sk["factor_banks"], sp["factor_banks"])
     p0 = tree_leaves(params)
     dk = [a.float() - b.float() for a, b in zip(tree_leaves(pk), p0)]
     dp = [a.float() - b.float() for a, b in zip(tree_leaves(pp), p0)]
@@ -344,51 +514,214 @@ def check_step0(torch, dev, cfg, params, ds, make):
     del pk, pp
 
 
-def train_bert_large(torch, dev, cfg=None):
+def compare_banks(tag, got, want, bucket_ids=None):
+    """Every bank side of ``bucket_ids`` (default all), kernel route
+    against plain route, with the elementwise bf16 bound."""
+    for bid in (bucket_ids if bucket_ids is not None else sorted(got)):
+        for side in ("l_inv", "r_inv"):
+            err, ratio = bf16_close(got[bid][side], want[bid][side])
+            print(f"{tag} bank {bid}/{side}: max_abs_err {err:.3e}, worst "
+                  f"|got-want| / (2^-7|want| + 1e-5 max|want|) {ratio:.3f} "
+                  "(tol 1)")
+            require(math.isfinite(ratio) and ratio <= 1.0,
+                    f"{tag} bank {bid}/{side} differs")
+
+
+class PlainTee:
+    """An optimizer that runs the kernel route and, at the listed counts,
+    also the plain route on the same inputs, and holds the banks of the
+    buckets that invert against each other.  The plain route launches no
+    kernel, so the launch counts stay those of the main path.  ``events``
+    records the call order of precompute and update."""
+
+    def __init__(self, torch, opt_k, opt_p, phases, inv_freq,
+                 update_at=(), tick_at=()):
+        self.torch, self.opt_k, self.opt_p = torch, opt_k, opt_p
+        self.phases, self.inv_freq = phases, inv_freq
+        self.update_at, self.tick_at = set(update_at), set(tick_at)
+        self.events, self.compared = [], []
+
+    def due(self, count):
+        return [b for b, ph in sorted(self.phases.items())
+                if count % self.inv_freq == ph]
+
+    def transformation(self):
+        from repro_torch.core.firstorder import GradientTransformation
+        return GradientTransformation(
+            self.opt_k.init, self.update,
+            self.precompute if self.opt_k.precompute is not None else None)
+
+    def precompute(self, state, params=None, **kw):
+        self.events.append("precompute")
+        new = self.opt_k.precompute(state, params=params, **kw)
+        count = state["count"]
+        if count in self.tick_at:
+            plain = self.opt_p.precompute(state, params=params, **kw)
+            self.torch.cuda.synchronize()
+            compare_banks(f"tick {count} pending", new["pending_banks"],
+                          plain["pending_banks"], self.due(count))
+            self.compared.append(count)
+        return new
+
+    def update(self, grads, state, params=None, stats=None, **kw):
+        self.events.append("update")
+        out = self.opt_k.update(grads, state, params=params, stats=stats,
+                                **kw)
+        count = state["count"]
+        if count in self.update_at:
+            plain = self.opt_p.update(grads, state, params=params,
+                                      stats=stats, **kw)
+            self.torch.cuda.synchronize()
+            compare_banks(f"step {count}", out[1]["factor_banks"],
+                          plain[1]["factor_banks"], self.due(count))
+            self.compared.append(count)
+        return out
+
+
+def run_path(torch, dev, name, step_fn, opt, params, ds, steps,
+             skip_times=()):
+    """One counted training path: launch counts and fallbacks set to 0
+    just before it, read just after; fresh optimizer state.  Returns
+    (params, state, counts)."""
     from repro_torch.data import pipeline
     from repro_torch.kernels import ops
     from repro_torch.training import loop as train_lib
 
-    cfg, params, ds, make = bert_large_setup(dev, cfg)
-    check_step0(torch, dev, cfg, params, ds, make)
-
-    # the main path (staggered inversions): fresh state, counts from zero
-    opt_k, step_k = make(True)
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     ops.reset_fallback_counts()
-    sync()
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    state = opt_k.init(params)
+    state = opt.init(params)
     losses, times = [], []
-    for step in range(TRAIN_STEPS):
+    for step in range(steps):
         batch = train_lib.batch_to_device(pipeline.make_batch(ds, step), dev)
         t0 = time.perf_counter()
-        params, state, metrics = step_k(params, state, batch)
-        sync()
+        params, state, metrics = step_fn(params, state, batch)
+        torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(metrics["loss"]))
     counts = ops.launch_counts()
     fallbacks = ops.fallback_counts()
-    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 \
-        if dev.type == "cuda" else float("nan")
-    print(f"train losses {losses}")
-    require(all(math.isfinite(x) for x in losses), "non-finite loss")
-    print(f"step ms {[round(t, 3) for t in times]} (median of steps "
-          f"1-{TRAIN_STEPS - 1} {statistics.median(times[1:]):.3f} ms), "
-          f"peak memory {peak:.3f} GiB")
-    print(f"launch counts {counts}, fallbacks {fallbacks}")
-    for name in REPLACES:
-        require(counts.get(name, 0) > 0,
-                f"{name} was not launched on the training path")
-    require(not fallbacks, f"fallbacks on the bert-large path: {fallbacks}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"[{name}] train losses {losses}")
+    require(all(math.isfinite(x) for x in losses), f"{name}: non-finite loss")
+    clean = [t for i, t in enumerate(times) if i > 0 and i not in skip_times]
+    print(f"[{name}] step ms {[round(t, 3) for t in times]} (median of "
+          f"steps {[i for i in range(1, steps) if i not in skip_times]} "
+          f"{statistics.median(clean):.3f} ms), peak memory {peak:.3f} GiB")
+    print(f"[{name}] launch counts {counts}, fallbacks {fallbacks}")
+    must, must_not = PATH_KERNELS[name]
+    for k in must:
+        require(counts.get(k, 0) > 0,
+                f"{name}: {k} was not launched on the training path")
+    for k in must_not:
+        require(counts.get(k, 0) == 0,
+                f"{name}: {k} was launched on the training path")
+    require(not fallbacks, f"{name}: fallbacks on the path: {fallbacks}")
+    return params, state, counts
 
-    # one more step under the profiler, then the step split into phases
-    batch = train_lib.batch_to_device(pipeline.make_batch(ds, TRAIN_STEPS),
-                                      dev)
-    profile_step(torch, lambda: step_k(params, state, batch))
-    phase_breakdown(torch, cfg, opt_k, params, state, batch, sync)
+
+def profile_and_phases(torch, dev, cfg, ds, step_fn, opt, params, state,
+                       step):
+    from repro_torch.data import pipeline
+    from repro_torch.training import loop as train_lib
+    batch = train_lib.batch_to_device(pipeline.make_batch(ds, step), dev)
+    profile_step(torch, lambda: step_fn(params, state, batch))
+    phase_breakdown(torch, cfg, opt, params, state, batch,
+                    torch.cuda.synchronize)
+
+
+def train_rank1(torch, dev, setup):
+    """Path a: PR 12's rank-1 main path, unchanged."""
+    cfg, params, ds, make = setup
+    check_step0(torch, dev, cfg, params, ds, make)
+    opt_k, step_k, _ = make(True)
+    params, state, counts = run_path(torch, dev, "rank1", step_k, opt_k,
+                                     params, ds, TRAIN_STEPS)
+    profile_and_phases(torch, dev, cfg, ds, step_k, opt_k, params, state,
+                       TRAIN_STEPS)
+    return counts
+
+
+def _phases(params, mcfg):
+    from repro_torch.core import stats as statlib
+    from repro_torch.core.mkor import manifest_for
+    return statlib.bucket_phases(manifest_for(params, mcfg), mcfg.inv_freq,
+                                 mcfg.stagger)
+
+
+def train_rank4(torch, dev, setup):
+    """Path b: block rank 4, inv_freq 4, stagger.  Bucket i consumes at
+    counts i and i + 4: first a partial window (i + 1 rows), then a full
+    one, which is held against the plain route."""
+    from repro_torch.training import loop as train_lib
+    cfg, params, ds, make = setup
+    opt_k, _, mcfg = make(True, rank=4, inv_freq=4)
+    opt_p, _, _ = make(False, rank=4, inv_freq=4)
+    phases = _phases(params, mcfg)
+    first_full = [ph + mcfg.inv_freq for ph in sorted(set(phases.values()))]
+    tee = PlainTee(torch, opt_k, opt_p, phases, mcfg.inv_freq,
+                   update_at=first_full)
+    opt = tee.transformation()
+    step_fn = train_lib.make_train_step(cfg, opt)
+    params, state, counts = run_path(torch, dev, "rank4", step_fn, opt,
+                                     params, ds, RANK4_STEPS,
+                                     skip_times=first_full)
+    require(tee.compared == first_full,
+            f"rank4: compared at {tee.compared}, expected {first_full}")
+    # one more step (bucket 0 consumes its second full window), profiled
+    profile_and_phases(torch, dev, cfg, ds, train_lib.make_train_step(
+        cfg, opt_k), opt_k, params, state, RANK4_STEPS)
+    return counts
+
+
+def train_staleness1(torch, dev, setup):
+    """Path c: staleness 1 at rank 1, inv_freq 3, stagger.  Bucket i ticks
+    at counts i, i + 3, i + 6: its first launch consumes an empty window,
+    its second one row; the promoted active bank leaves the identity at
+    the third tick."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.training import loop as train_lib
+    cfg, params, ds, make = setup
+    opt_k, _, mcfg = make(True, staleness=1)
+    opt_p, _, _ = make(False, staleness=1)
+    phases = _phases(params, mcfg)
+    # the first tick that launches, then each bucket's first tick with a
+    # non-empty window
+    ticks = [0] + [ph + mcfg.inv_freq for ph in sorted(set(phases.values()))]
+    tee = PlainTee(torch, opt_k, opt_p, phases, mcfg.inv_freq, tick_at=ticks)
+    opt = tee.transformation()
+    step_fn = train_lib.make_train_step(cfg, opt)
+    forward = model_lib.forward
+
+    def traced_forward(*args, **kwargs):
+        tee.events.append("forward")
+        return forward(*args, **kwargs)
+
+    model_lib.forward = traced_forward
+    try:
+        params, state, counts = run_path(torch, dev, "staleness1", step_fn,
+                                         opt, params, ds, STALE_STEPS,
+                                         skip_times=ticks)
+    finally:
+        model_lib.forward = forward
+    require(tee.events == ["precompute", "forward", "update"] * STALE_STEPS,
+            f"staleness1: call order {tee.events[:6]}...")
+    print(f"[staleness1] every step ran precompute, then the forward, then "
+          f"update ({STALE_STEPS} steps); compared ticks {tee.compared}")
+    require(tee.compared == ticks, f"staleness1: compared at {tee.compared}")
+    for bid, bank in sorted(state["factor_banks"].items()):
+        d = bank["l_inv"].shape[-1]
+        eye = torch.eye(d, dtype=bank["l_inv"].dtype, device=dev)
+        moved = (bank["l_inv"] - eye).abs().max().item()
+        print(f"[staleness1] active bank {bid}/l_inv: max |F - I| "
+              f"{moved:.3e} after {STALE_STEPS} steps")
+        require(moved > 0, f"staleness1: active bank {bid} is still the "
+                "identity")
+    # one more step (a tick that launches for the 1024x1024 bucket),
+    # profiled; the phase times run the tick inline inside the update
+    profile_and_phases(torch, dev, cfg, ds, train_lib.make_train_step(
+        cfg, opt_k), opt_k, params, state, STALE_STEPS)
     return counts
 
 
@@ -458,7 +791,8 @@ def profile_step(torch, fn):
         by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
         by_name[e.name][1] += 1
     port = ("mkor::gemm_kernel", "smw_uv_kernel", "smw_write_kernel",
-            "sumsq_kernel", "rescale_kernel")
+            "sumsq_kernel", "rescale_kernel", "block_uv_kernel",
+            "block_mid_kernel", "block_write_kernel")
 
     def is_port(n):
         return any(p in n for p in port)
@@ -477,6 +811,22 @@ def profile_step(torch, fn):
           f"{t_all - t_port - t_gemm:.3f} ms")
     for n, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"  {t:10.3f} ms {c:5d}x  {n[:100]}")
+    # host waits: runtime calls that hold the host until the device is done
+    # (the step's own closing synchronize is one of them)
+    host = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    t_first = min(e.time_range.start for e in host)
+    waits = {}
+    for e in host:
+        if any(k in e.name for k in ("Synchronize", "cudaMemcpy",
+                                     "_local_scalar_dense")):
+            w = waits.setdefault(e.name, [0.0, 0, math.inf])
+            w[0] += (e.time_range.end - e.time_range.start) / 1e3
+            w[1] += 1
+            w[2] = min(w[2], (e.time_range.start - t_first) / 1e3)
+    print("host waits in the step: " + (", ".join(
+        f"{n} {c}x {t:.3f} ms (first at +{f:.1f} ms)"
+        for n, (t, c, f) in sorted(waits.items())) or "none"))
 
 
 def main() -> int:
@@ -508,10 +858,23 @@ def main() -> int:
     check_fused_smw(torch, rows)
     check_fused_precond(torch, rows)
     check_matmul(torch, rows)
+    check_fused_block_smw(torch, rows)
+    check_matvec_and_rank1_update(torch, rows)
     ops.reset_launch_counts()
 
-    counts = train_bert_large(torch, torch.device("cuda"))
-    print(json.dumps({"kernels": [rows[n].as_json(counts.get(n, 0))
+    dev = torch.device("cuda")
+    setup = bert_large_setup(dev)
+    paths = {"rank1": train_rank1, "rank4": train_rank4,
+             "staleness1": train_staleness1}
+    launches = {name: 0 for name in REPLACES}
+    for name, fn in paths.items():
+        t0 = time.perf_counter()
+        counts = fn(torch, dev, setup)
+        torch.cuda.empty_cache()
+        print(f"[{name}] path done in {time.perf_counter() - t0:.1f} s")
+        for k, c in counts.items():
+            launches[k] += c
+    print(json.dumps({"kernels": [rows[n].as_json(launches[n])
                                   for n in REPLACES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

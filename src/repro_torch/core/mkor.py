@@ -1,5 +1,5 @@
 """MKOR: Momentum-Enabled Kronecker-Factor-Based Optimizer Using Rank-1
-Updates — the port of the main path of ``repro/core/mkor.py``.
+Updates — the port of the bank-layout paths of ``repro/core/mkor.py``.
 
 Per eligible 2-D layer with weight W (d_in, d_out), gradient G, rank-1
 statistics ā = E[a] (d_in,) and ḡ = E[g] (d_out,):
@@ -22,23 +22,42 @@ SMW → precondition → rescale once per bucket over the whole bank.  With
 (a Python branch on the host-side step count, where the reference uses
 ``lax.cond``).
 
-``use_kernels=True`` (the reference's ``use_pallas``) routes the banked
-SMW and the precondition through the hand-written CUDA kernels
-(``kernels/ops.py``: one ``fused_smw`` launch per bucket side per phase
-step, one ``fused_precond`` launch per bucket per step); otherwise the
-same math runs as plain batched PyTorch.  Either way ``update`` is
-functional: the state passed in is not modified (the SMW kernel updates
-the freshly stabilized copy of a bank in place, which saves a second
-bank-sized buffer).
+Block rank-r (``rank > 1``, paper §4): every step pushes the layer's stat
+vectors into an fp32 ring window of the last r steps
+(``state["stat_windows"][bucket] = {"a", "g", "n"}``, core/stats.py), and
+the bucket's phase step consumes the whole window with ONE block-Woodbury
+update per bank side (:func:`smw_block_update`), then resets the per-slot
+write count ``n``.
 
-Ported so far: the main-path configuration — bank layout, rank 1,
-staleness 0, stagger on or off, ``variant`` ``paper`` and ``exact_smw``,
-factor storage ``none`` / ``bf16``, health, int8 and dist off.  Other
-settings raise ``NotImplementedError`` naming their ROADMAP item.
-``MKORConfig`` keeps every field of the reference with the same default,
-with ``use_pallas`` renamed ``use_kernels`` and the Pallas-only
-``interpret`` dropped.  The state holds ``count``, ``factor_banks`` and
-``backend``; the reference's ``hybrid`` entry arrives with ``mkor_h``.
+Overlap-hidden inversions (``staleness=1``): the inverse state is double
+buffered.  ``precompute`` (the tick, run by the train step before the
+forward pass) promotes each phase bucket's *pending* bank to *active* and
+launches the next pending bank from the carried window (stats through
+the previous step); ``update`` pushes this step's stats and
+preconditions with the active bank only.  At rank 1 the window has one
+row, so every staleness-1 run goes through the block update.  The launch
+runs on the current stream; overlapping it on a side stream is later
+work (ROADMAP).  ``update`` without ``precomputed=True`` runs the same tick
+inline, so the two protocols are bit-equal.
+
+``use_kernels=True`` (the reference's ``use_pallas``) routes the banked
+SMW, the block update and the precondition through the hand-written CUDA
+kernels (``kernels/ops.py``: one ``fused_smw`` or ``fused_block_smw``
+launch per bucket side per phase step, one ``fused_precond`` launch per
+bucket per step); otherwise the same math runs as plain batched PyTorch.
+Either way ``update`` and ``precompute`` are functional: the state passed
+in is not modified (the SMW kernels update the freshly stabilized copy of
+a bank in place, which saves a second bank-sized buffer).
+
+Ported so far: bank layout, rank ≥ 1, staleness 0 or 1, stagger on or
+off, ``variant`` ``paper`` and ``exact_smw``, factor storage ``none`` /
+``bf16``, health, int8 and dist off.  Other settings raise
+``NotImplementedError`` naming their ROADMAP item.  ``MKORConfig`` keeps
+every field of the reference with the same default, with ``use_pallas``
+renamed ``use_kernels`` and the Pallas-only ``interpret`` dropped.  The
+state holds ``count``, ``factor_banks``, ``stat_windows`` (rank > 1 or
+staleness 1), ``pending_banks`` (staleness 1) and ``backend``; the
+reference's ``hybrid`` entry arrives with ``mkor_h``.
 """
 from __future__ import annotations
 
@@ -51,6 +70,7 @@ from repro_torch.core import stats as statlib
 from repro_torch.core.firstorder import GradientTransformation
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.precond import rescale_update  # Alg. 1 line 10
+from repro_torch.kernels.rank1_smw import fused_block_smw_plain
 
 
 @dataclass(frozen=True)
@@ -94,11 +114,14 @@ def factor_storage_dtype(cfg: MKORConfig) -> torch.dtype:
 
 
 def _check_supported(cfg: MKORConfig) -> None:
+    if cfg.rank < 1:
+        raise ValueError(f"rank must be >= 1, got {cfg.rank}")
+    if cfg.staleness not in (0, 1):
+        raise ValueError(f"staleness must be 0 (synchronous) or 1 "
+                         f"(double-buffered), got {cfg.staleness}")
     todo = [
         (cfg.layout != "bank", "layout='per_layer' (ROADMAP queue 1 item "
          "20)"),
-        (cfg.rank != 1, "rank > 1 (ROADMAP queue 1 item 12)"),
-        (cfg.staleness != 0, "staleness=1 (ROADMAP queue 1 item 13)"),
         (cfg.health, "health=True (ROADMAP queue 1 item 14)"),
         (cfg.factor_quant == "int8", "factor_quant='int8' (ROADMAP queue 1 "
          "item 15)"),
@@ -136,6 +159,56 @@ def smw_rank1_update(j_inv: torch.Tensor, v: torch.Tensor, gamma: float,
     else:
         raise ValueError(variant)
     return new.to(j_inv.dtype)
+
+
+def block_weights(n_valid, rank: int, gamma: float, device=None):
+    """Per-row √weights and base scale of the block rank-r update.
+
+    Chaining m = min(n_valid, rank) rank-1 EMA updates composes to
+
+        J_m = γ^m J_0 + Σ_{i<m} (1-γ) γ^(m-1-i) v_i v_iᵀ   (i=0 oldest)
+
+    so the block update folds row i of the window by √w_i with
+    w_i = (1-γ)γ^(m-1-i) and scales the base factor by γ^m.  Rows at or
+    beyond ``n_valid`` get weight zero, and n_valid = 0 makes the update an
+    exact no-op (γ⁰ = 1, Ṽ = 0).  ``n_valid`` is an int or an int tensor
+    of any shape: returns ``(sqrt_w, gm)`` of shapes ``n.shape + (rank,)``
+    and ``n.shape``, in fp32."""
+    n = torch.as_tensor(n_valid, device=device)
+    i = torch.arange(rank, dtype=torch.float32, device=n.device)
+    m = torch.clamp(n.to(torch.float32), max=float(rank))
+    mm = m[..., None]
+    w = torch.where(i < mm, (1.0 - gamma) * gamma ** torch.clamp(
+        mm - 1.0 - i, min=0.0), torch.zeros((), device=n.device))
+    return torch.sqrt(w), gamma ** m
+
+
+def smw_block_update(j_inv: torch.Tensor, v: torch.Tensor, gamma: float,
+                     variant: str = "paper", n_valid=None,
+                     with_pivot: bool = False):
+    """Block rank-r Woodbury inverse update (paper §4), O(r·d² + r³).
+
+    j_inv (*lead, d, d); v (*lead, r, d) window rows, oldest first;
+    n_valid broadcastable to ``lead`` (None: a full window).  Leading dims
+    batch.
+
+      exact_smw:  (γ^m J + ṼᵀṼ)⁻¹
+                  = (1/γ^m)(J⁻¹ − J⁻¹Ṽᵀ (γ^m I_r + ṼJ⁻¹Ṽᵀ)⁻¹ ṼJ⁻¹),
+                  exactly m chained rank-1 exact SMW updates;
+      paper:      J⁻¹ ← γ^m J⁻¹ + J⁻¹Ṽᵀ (γ^{2m}(I_r + γ^m S))⁻¹ ṼJ⁻¹,
+                  S = ṼJ⁻¹Ṽᵀ, the PD-preserving generalization of Eq. 5/6
+                  (at r = 1 it is Eq. 5/6 exactly).
+
+    n_valid = 0 returns the factor unchanged.  ``with_pivot=True`` also
+    returns, per slice, the smallest squared Cholesky diagonal entry of
+    the r×r mid matrix (its smallest Gauss–Jordan pivot; NaN when it is not
+    positive definite)."""
+    r = v.shape[-2]
+    sq, gm = block_weights(r if n_valid is None else n_valid, r, gamma,
+                           device=j_inv.device)
+    vt = v.float() * sq[..., None]
+    return fused_block_smw_plain(j_inv, vt, gm, variant=variant,
+                                 with_pivot=with_pivot)
 
 
 def stabilize(j_inv: torch.Tensor, threshold: float,
@@ -189,6 +262,10 @@ def mkor(backend: GradientTransformation,
     """MKOR wrapping a first-order ``backend`` (Alg. 1)."""
     _check_supported(cfg)
     store_dtype = factor_storage_dtype(cfg)
+    win_dtype = torch.float32 if cfg.factor_quant == "none" else store_dtype
+    # rank-1 staleness-1 still rides the block update (a 1-row window);
+    # rank 1 at staleness 0 keeps the rank-1 state tree
+    needs_window = cfg.rank > 1 or cfg.staleness > 0
 
     def stab(bank):
         return stabilize(bank, cfg.stabilizer_threshold, cfg.zeta)
@@ -201,6 +278,18 @@ def mkor(backend: GradientTransformation,
                 jb, v, gamma=cfg.gamma, variant=cfg.variant, out=jb)
         return smw_rank1_update(jb, v, cfg.gamma, cfg.variant)
 
+    def banked_block(bank, win, cnt):
+        """Stabilize, then consume the windows ``win`` (*lead, r, d) with
+        fill counts ``cnt`` (``lead``) in one block update per bank."""
+        jb = stab(bank)
+        v_ord = statlib.window_ordered(win, cnt)
+        if cfg.use_kernels:
+            return kops.smw_block_update_banked(
+                jb, v_ord, cnt, gamma=cfg.gamma, variant=cfg.variant,
+                out=jb)
+        return smw_block_update(jb, v_ord, cfg.gamma, cfg.variant,
+                                n_valid=cnt)
+
     def banked_precond(l_bank, r_bank, gw, n_lead):
         if cfg.use_kernels:
             delta = kops.fused_precondition_banked(l_bank, r_bank, gw,
@@ -212,7 +301,7 @@ def mkor(backend: GradientTransformation,
         return delta.to(gw.dtype)
 
     def init(params):
-        banks = {}
+        banks, windows = {}, {}
         for b in manifest_for(params, cfg):
             shape = (b.n_slots,) + b.stack
             dev = statlib.tree_get(params, b.paths[0])["w"].device
@@ -221,59 +310,200 @@ def mkor(backend: GradientTransformation,
                 return torch.eye(d, dtype=store_dtype, device=dev).expand(
                     shape + (d, d)).contiguous()
 
+            def window(d):
+                return torch.zeros(shape + (cfg.rank, d), dtype=win_dtype,
+                                   device=dev)
+
             banks[b.bucket_id] = {"l_inv": eye(b.d_out),
                                   "r_inv": eye(b.d_in)}
-        return {"count": 0, "factor_banks": banks,
-                "backend": backend.init(params)}
+            if needs_window:
+                windows[b.bucket_id] = {
+                    "a": window(b.d_in), "g": window(b.d_out),
+                    "n": torch.zeros((b.n_slots,), dtype=torch.int32,
+                                     device=dev)}
+        state = {"count": 0, "factor_banks": banks}
+        if needs_window:
+            state["stat_windows"] = windows
+        if cfg.staleness:
+            # distinct buffers, not views of the active banks
+            state["pending_banks"] = {
+                bid: {k: t.clone() for k, t in bank.items()}
+                for bid, bank in banks.items()}
+        state["backend"] = backend.init(params)
+        return state
 
-    def update(grads, state, params=None, stats=None, **_):
+    def bucket_inputs(bucket, grads, stats):
+        """Gradients of the bucket's slots, the slots that have stats this
+        step, and their stacked ḡ and ā (fp32)."""
+        g_ws, g_vecs, a_vecs = [], [], []
+        for path in bucket.paths:
+            g_ws.append(statlib.tree_get(grads, path)["w"])
+            g_vecs.append(statlib.get_g_vec(grads, path))
+            a_vecs.append(statlib.get_a_vec(stats, path)
+                          if stats is not None else None)
+        slots = [i for i, (av, gv) in enumerate(zip(a_vecs, g_vecs))
+                 if av is not None and gv is not None]
+        if not slots:
+            return g_ws, slots, None, None
+        gv = torch.stack([g_vecs[i] for i in slots]).float()
+        av = torch.stack([a_vecs[i] for i in slots]).float()
+        return g_ws, slots, gv, av
+
+    def slot_access(bucket, slots, device):
+        """(take, put) over the bank dim for ``slots``: the identity when
+        every slot has stats, else index_select / index_copy."""
+        if len(slots) == bucket.n_slots:
+            return (lambda x: x), (lambda full, sub: sub)
+        idx = torch.tensor(slots, device=device)
+        return ((lambda x: x.index_select(0, idx)),
+                (lambda full, sub: full.index_copy(0, idx, sub)))
+
+    def push_windows(bucket, win, slots, gv, av):
+        """Push this step's stats of ``slots`` into the bucket's windows.
+        Returns the sliced ``(a, g, n)`` of those slots after the push and
+        the ``put`` that writes slices back."""
+        take, put = slot_access(bucket, slots, win["n"].device)
+        cnt = take(win["n"])
+        cnt_b = cnt.reshape(cnt.shape + (1,) * len(bucket.stack))
+        aw = statlib.window_push(take(win["a"]), cnt_b, av)
+        gw = statlib.window_push(take(win["g"]), cnt_b, gv)
+        return aw, gw, cnt + 1, take, put
+
+    def lead_counts(cnt, bank):
+        """Per-slot counts broadcast over the stack dims of ``bank``."""
+        ns = bank.ndim - 3
+        return cnt.reshape(cnt.shape + (1,) * ns).expand(
+            bank.shape[:ns + 1])
+
+    def precondition_bucket(out, bucket, l_bank, r_bank, g_ws):
+        """Lines 9-10: one precondition + rescale per bucket."""
+        delta = banked_precond(l_bank, r_bank, torch.stack(g_ws),
+                               1 + len(bucket.stack))
+        for i, path in enumerate(bucket.paths):
+            out = statlib.tree_set(
+                out, path, {**statlib.tree_get(out, path), "w": delta[i]})
+        return out
+
+    def update_sync(grads, state, params, stats):
         count = state["count"]
-        tree = params if params is not None else grads
-        manifest = manifest_for(tree, cfg)
+        manifest = manifest_for(params if params is not None else grads, cfg)
         phases = statlib.bucket_phases(manifest, cfg.inv_freq, cfg.stagger)
         new_banks: Dict[str, Dict[str, torch.Tensor]] = {}
+        new_windows = {}
         out = grads
         for bucket in manifest:
-            bank = state["factor_banks"][bucket.bucket_id]
+            bid = bucket.bucket_id
+            bank = state["factor_banks"][bid]
             l_bank, r_bank = bank["l_inv"], bank["r_inv"]
-            n_lead = 1 + len(bucket.stack)
-            g_ws, g_vecs, a_vecs = [], [], []
-            for path in bucket.paths:
-                g_ws.append(statlib.tree_get(grads, path)["w"])
-                g_vecs.append(statlib.get_g_vec(grads, path))
-                a_vecs.append(statlib.get_a_vec(stats, path)
-                              if stats is not None else None)
+            g_ws, slots, gv, av = bucket_inputs(bucket, grads, stats)
+            do_inv = count % cfg.inv_freq == phases[bid]
+            # --- lines 5-8.  Slots without stats this step keep their
+            # factors (and windows) untouched. ----------------------------- #
+            if cfg.rank > 1:
+                win = state["stat_windows"][bid]
+                if slots:
+                    # push, then on the phase step consume each slot's
+                    # whole window and reset its count (the push precedes
+                    # the consume, so the phase step's own stats count)
+                    aw, gw, cnt, take, put = push_windows(bucket, win, slots,
+                                                          gv, av)
+                    if do_inv:
+                        l_sub, r_sub = take(l_bank), take(r_bank)
+                        c_full = lead_counts(cnt, l_sub)
+                        l_bank = put(l_bank, banked_block(l_sub, gw, c_full))
+                        r_bank = put(r_bank, banked_block(r_sub, aw, c_full))
+                        cnt = torch.zeros_like(cnt)
+                    win = {"a": put(win["a"], aw), "g": put(win["g"], gw),
+                           "n": put(win["n"], cnt)}
+                new_windows[bid] = win
+            elif slots and do_inv:
+                take, put = slot_access(bucket, slots, l_bank.device)
+                l_bank = put(l_bank, banked_smw(take(l_bank), gv))
+                r_bank = put(r_bank, banked_smw(take(r_bank), av))
+            new_banks[bid] = {"l_inv": l_bank, "r_inv": r_bank}
+            out = precondition_bucket(out, bucket, l_bank, r_bank, g_ws)
+        fstate = {"factor_banks": new_banks}
+        if cfg.rank > 1:
+            fstate["stat_windows"] = new_windows
+        return out, fstate
 
-            # --- lines 5-8, on this bucket's phase steps only.  Slots
-            # without stats this step keep their factors untouched. ------ #
-            slots = [i for i, (av, gv) in enumerate(zip(a_vecs, g_vecs))
-                     if av is not None and gv is not None]
-            if slots and count % cfg.inv_freq == phases[bucket.bucket_id]:
-                gv = torch.stack([g_vecs[i] for i in slots]).float()
-                av = torch.stack([a_vecs[i] for i in slots]).float()
-                if len(slots) == bucket.n_slots:
-                    l_bank = banked_smw(l_bank, gv)
-                    r_bank = banked_smw(r_bank, av)
-                else:
-                    idx = torch.tensor(slots, device=l_bank.device)
-                    l_bank = l_bank.index_copy(0, idx, banked_smw(
-                        l_bank.index_select(0, idx), gv))
-                    r_bank = r_bank.index_copy(0, idx, banked_smw(
-                        r_bank.index_select(0, idx), av))
-            new_banks[bucket.bucket_id] = {"l_inv": l_bank, "r_inv": r_bank}
+    # ------------------------------------------------------------------ #
+    # staleness=1: the tick (promote-then-launch) and the per-step work
+    # ------------------------------------------------------------------ #
+    def tick(state, tree):
+        """On each bucket's phase step: active ← pending, and pending ←
+        block update of the just-promoted bank from the window the state
+        carries (stats through the previous step); the window's count
+        resets.  Its rows persist (the count masks stale rows).  A slot
+        whose window was never written carries count 0: its update is an
+        exact no-op."""
+        manifest = manifest_for(tree, cfg)
+        phases = statlib.bucket_phases(manifest, cfg.inv_freq, cfg.stagger)
+        count = state["count"]
+        active = dict(state["factor_banks"])
+        pending = dict(state["pending_banks"])
+        windows = dict(state["stat_windows"])
+        for bucket in manifest:
+            bid = bucket.bucket_id
+            if count % cfg.inv_freq != phases[bid]:
+                continue
+            pend, win = pending[bid], windows[bid]
+            c_full = lead_counts(win["n"], pend["l_inv"])
+            active[bid] = pend
+            pending[bid] = {
+                "l_inv": banked_block(pend["l_inv"], win["g"], c_full),
+                "r_inv": banked_block(pend["r_inv"], win["a"], c_full)}
+            windows[bid] = {"a": win["a"], "g": win["g"],
+                            "n": torch.zeros_like(win["n"])}
+        return {**state, "factor_banks": active, "pending_banks": pending,
+                "stat_windows": windows}
 
-            # --- lines 9-10: one precondition + rescale per bucket ------- #
-            delta = banked_precond(l_bank, r_bank, torch.stack(g_ws), n_lead)
-            for i, path in enumerate(bucket.paths):
-                out = statlib.tree_set(
-                    out, path, {**statlib.tree_get(out, path), "w": delta[i]})
+    def update_async(grads, state, params, stats):
+        """Push this step's stats into the windows and precondition with
+        the ACTIVE banks; no inversion (that happened at the tick)."""
+        manifest = manifest_for(params if params is not None else grads, cfg)
+        new_windows = {}
+        out = grads
+        for bucket in manifest:
+            bid = bucket.bucket_id
+            bank = state["factor_banks"][bid]
+            g_ws, slots, gv, av = bucket_inputs(bucket, grads, stats)
+            win = state["stat_windows"][bid]
+            if slots:
+                aw, gw, cnt, _, put = push_windows(bucket, win, slots, gv, av)
+                win = {"a": put(win["a"], aw), "g": put(win["g"], gw),
+                       "n": put(win["n"], cnt)}
+            new_windows[bid] = win
+            out = precondition_bucket(out, bucket, bank["l_inv"],
+                                      bank["r_inv"], g_ws)
+        return out, {"factor_banks": state["factor_banks"],
+                     "pending_banks": state["pending_banks"],
+                     "stat_windows": new_windows}
 
+    def precompute(state, params=None, **_):
+        """The phase tick of the two-phase protocol: run it at the top of
+        the train step, before the gradients exist, then pass
+        ``precomputed=True`` to ``update``."""
+        if params is None:
+            raise ValueError("mkor precompute needs params (the bucket "
+                             "manifest is derived from them)")
+        return tick(state, params)
+
+    def update(grads, state, params=None, stats=None, precomputed=False,
+               **_):
+        if cfg.staleness:
+            if not precomputed:
+                state = tick(state, params if params is not None else grads)
+            out, fstate = update_async(grads, state, params, stats)
+        else:
+            out, fstate = update_sync(grads, state, params, stats)
         # probes are stat taps: never step them, keep backend moments clean
         out = statlib.zero_probes(out)
         updates, backend_state = backend.update(out, state["backend"],
                                                 params=params)
         updates = statlib.zero_probes(updates)
-        return updates, {"count": count + 1, "factor_banks": new_banks,
+        return updates, {"count": state["count"] + 1, **fstate,
                          "backend": backend_state}
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update,
+                                  precompute if cfg.staleness else None)

@@ -13,8 +13,10 @@ Conventions, as in the reference:
 
 The manifest is a pure function of the tree structure and the leaf shapes,
 so it can be rebuilt at every ``update`` and always agrees with ``init``.
-Rank-r windows, int8 storage and the owner maps of the distributed path
-arrive with their slices (ROADMAP queue 1 items 12, 15, 16).
+The rank-r stat windows (``window_push`` / ``window_ordered``) are here;
+int8 storage (``window_push_quant``, ``window_decode``) and the owner maps
+of the distributed path arrive with their slices (ROADMAP queue 1 items
+15, 16).
 """
 from __future__ import annotations
 
@@ -215,6 +217,45 @@ def bucket_slices(bucket: FactorBucket) -> int:
     for d in bucket.stack:
         n *= d
     return n
+
+
+# ----------------------------------------------------------------------- #
+# Rank-r stat windows
+#
+# With ``MKORConfig.rank = r > 1`` (or ``staleness=1``) the optimizer keeps
+# the last r per-step statistic vectors of every factor in a ring window
+# and consumes the whole window with one block-Woodbury update on the
+# factor's phase step.
+# ----------------------------------------------------------------------- #
+def window_push(win: torch.Tensor, count, vec: torch.Tensor) -> torch.Tensor:
+    """Ring-write ``vec`` into row ``count % r`` of the window.
+
+    win: (*lead, r, d); vec: (*lead, d); count: int tensor broadcastable
+    to ``lead``, the number of writes since the last consume (BEFORE this
+    push).  A select, so no host sync and O(r·d) per slice."""
+    r = win.shape[-2]
+    pos = torch.remainder(torch.as_tensor(count, device=win.device), r)
+    onehot = torch.arange(r, device=win.device) == pos[..., None]
+    return torch.where(onehot[..., None], vec[..., None, :].to(win.dtype),
+                       win)
+
+
+def window_ordered(win: torch.Tensor, count) -> torch.Tensor:
+    """The window rows oldest-first for consumption.
+
+    Until the ring wraps (count <= r) rows 0..count-1 already sit in write
+    order; after wrapping the oldest row is at ``count % r``, so the rows
+    are rotated (``torch.gather``) to restore chaining order.  Rows beyond
+    ``count`` are stale or unwritten; the block update masks them through
+    its n_valid weights."""
+    r = win.shape[-2]
+    count = torch.as_tensor(count, device=win.device)
+    shift = torch.where(count > r, torch.remainder(count, r),
+                        torch.zeros_like(count))
+    rows = torch.remainder(
+        shift[..., None] + torch.arange(r, device=win.device), r)
+    rows = rows.broadcast_to(win.shape[:-1])
+    return torch.gather(win, -2, rows[..., None].expand(win.shape))
 
 
 def zero_probes(tree):

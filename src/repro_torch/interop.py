@@ -2,8 +2,8 @@
 
 The caller turns a JAX tree into numpy first (``jax.tree.map(np.asarray,
 tree)``, done in the tests, never here: the port does not import JAX) and
-hands the numpy tree to :func:`params_from_numpy` or
-:func:`banks_from_numpy`.  The trees keep their structure exactly: dicts,
+hands the numpy tree to :func:`params_from_numpy`, :func:`banks_from_numpy`
+or :func:`windows_from_numpy`.  The trees keep their structure exactly: dicts,
 lists (``params["blocks"]``), the ``probe`` leaves and the stacked leading
 layer dim of ``scan_layers=True``.
 
@@ -54,6 +54,13 @@ def banks_from_numpy(banks: Any, device: DeviceLike = None) -> Any:
     """MKOR factor banks ``state["factor_banks"]`` (as numpy, keyed by
     bucket id, each ``{"l_inv", "r_inv"}``) → the port's banks."""
     return tree_from_numpy(banks, device)
+
+
+def windows_from_numpy(windows: Any, device: DeviceLike = None) -> Any:
+    """MKOR rank-r stat windows ``state["stat_windows"]`` (as numpy, keyed
+    by bucket id, each ``{"a", "g", "n"}`` with ``n`` int32) → the port's
+    windows.  ``pending_banks`` carry over with :func:`banks_from_numpy`."""
+    return tree_from_numpy(windows, device)
 
 
 def tree_to_numpy(tree: Any) -> Any:

@@ -37,8 +37,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
-KERNEL_SOURCES = {"rank1_smw": "rank1_smw.cu", "matmul": "matmul.cu",
-                  "precond": "precond.cu"}
+KERNEL_SOURCES = {"rank1_smw": "rank1_smw.cu", "block_smw": "block_smw.cu",
+                  "matmul": "matmul.cu", "precond": "precond.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -48,6 +48,13 @@ _SIGNATURES = {
     "rank1_smw": {
         "mkor_fused_smw": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
         "mkor_smw_partials": [_I],
+        "mkor_matvec": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "mkor_rank1_update": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    },
+    "block_smw": {
+        "mkor_fused_block_smw": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _I, _I, _I, _P],
+        "mkor_block_smw_partials": [_I],
     },
     "matmul": {
         "mkor_matmul": [_P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _LL, _LL,

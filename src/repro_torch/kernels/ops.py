@@ -1,6 +1,8 @@
 """Banked entry points to the kernels and the launch / fallback counters
 (port of ``repro/kernels/ops.py``).  These are what MKOR calls with
-``MKORConfig.use_kernels=True``.
+``MKORConfig.use_kernels=True``: :func:`smw_rank1_update_banked` (rank-1
+stats, ``fused_smw``), :func:`smw_block_update_banked` (ring windows,
+``fused_block_smw``) and :func:`fused_precondition_banked`.
 
 Contract, as in the reference: a bank is ``(*lead, d, d)`` with
 ``lead = (n_bucket_layers, *stack)``; the lead dims are flattened and each
@@ -82,6 +84,50 @@ def smw_rank1_update_banked(j: torch.Tensor, v: torch.Tensor, *,
     of = None if out is None else out.view(-1, d, d)
     return rk.fused_smw(jf, vf, gamma=gamma, variant=variant,
                         out=of).reshape(j.shape)
+
+
+def smw_block_update_banked(j: torch.Tensor, v: torch.Tensor, n_valid, *,
+                            gamma: float, variant: str = "paper",
+                            with_pivot: bool = False,
+                            out: torch.Tensor = None):
+    """Banked block rank-r Woodbury update: ONE ``fused_block_smw`` launch
+    per bank.  j: (*lead, d, d); v: (*lead, r, d) ring windows ordered
+    oldest-first (``core.stats.window_ordered``); n_valid: int or int
+    tensor broadcastable to ``lead``, each slice's window fill count (a
+    slice with count 0 comes back unchanged).  The √wᵢ row weights and
+    γ^m are formed here per slice in fp32 (``core.mkor.block_weights``).
+    ``out`` (may be ``j``) receives the update in place.
+
+    ``with_pivot=True`` returns ``(new, pivot)``: the smallest
+    Gauss–Jordan pivot over every slice of the bank, a 0-d fp32 tensor
+    (see :func:`repro_torch.kernels.rank1_smw.fused_block_smw` for which
+    pivot that is); ``inf`` for an empty bank."""
+    from repro_torch.core.mkor import block_weights  # mkor imports ops
+    d = j.shape[-1]
+    lead = tuple(j.shape[:-2])
+    if v.ndim != j.ndim or tuple(v.shape[:len(lead)]) != lead or \
+            v.shape[-1] != d:
+        raise ValueError(f"block smw bank {tuple(j.shape)} vs window "
+                         f"{tuple(v.shape)}")
+    if not lead:                                    # one factor
+        res = smw_block_update_banked(
+            j[None], v[None], torch.as_tensor(n_valid).reshape(1),
+            gamma=gamma, variant=variant, with_pivot=with_pivot,
+            out=None if out is None else out[None])
+        return (res[0][0], res[1]) if with_pivot else res[0]
+    if 0 in lead:                                   # empty owner slice
+        inf = torch.full((), float("inf"), device=j.device)
+        return (j, inf) if with_pivot else j
+    r = v.shape[-2]
+    nv = torch.as_tensor(n_valid, device=j.device).broadcast_to(lead)
+    sq, gm = block_weights(nv.reshape(-1), r, gamma)
+    vt = (v.float().reshape(-1, r, d) * sq[..., None]).contiguous()
+    of = None if out is None else out.view(-1, d, d)
+    res = rk.fused_block_smw(j.reshape(-1, d, d), vt, gm.contiguous(),
+                             variant=variant, with_pivot=with_pivot, out=of)
+    if with_pivot:
+        return res[0].reshape(j.shape), torch.amin(res[1])
+    return res.reshape(j.shape)
 
 
 # ----------------------------------------------------------------------- #

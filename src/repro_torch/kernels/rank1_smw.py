@@ -1,18 +1,26 @@
-"""``fused_smw``: the rank-1 SMW inverse update of a whole factor bank in
-one kernel launch pair (port of ``repro/kernels/rank1_smw.py::fused_smw``;
-CUDA source ``csrc/rank1_smw.cu``, whose header says how it maps onto the
-H100).
+"""The SMW kernels of MKOR's O(d²) factor update (port of
+``repro/kernels/rank1_smw.py``; CUDA sources ``csrc/rank1_smw.cu`` and
+``csrc/block_smw.cu``, whose headers say how each maps onto the H100):
 
-    u = J v;  s = vᵀu;  J ← scale·J + coef(s)·u uᵀ     (per slice)
+* :func:`fused_smw` — the rank-1 update of a whole bank, per slice
+  u = J v;  s = vᵀu;  J ← scale·J + coef(s)·u uᵀ.
+* :func:`fused_block_smw` — the block rank-r Woodbury update of a whole
+  bank, per slice U = JṼᵀ, S = ṼU, M = A(gm, S)⁻¹ and
+  ``paper``: gm·J + U M Uᵀ (A = gm²I + gm³S) or
+  ``exact_smw``: (J − U M Uᵀ)/gm (A = gm·I + S).
+* :func:`matvec` (u = J v) and :func:`rank1_update` (J ← γJ + coef·uuᵀ),
+  the reference's unfused building blocks, and :func:`smw_vectors` built
+  on ``matvec`` as in the reference.
 
-:func:`fused_smw` launches the kernel for CUDA tensors and raises on what
-it does not take; for CPU tensors it runs :func:`fused_smw_plain`, the
-plain PyTorch version of the same batched function (also the yardstick
-``chip_smoke.py`` holds the kernel against on the card).  There is no
-fallback from a CUDA tensor to the plain version.
+Each wrapper launches its kernel for CUDA tensors and raises on what it
+does not take; for CPU tensors it runs the plain PyTorch version beside it
+(``*_plain``, also the yardstick ``chip_smoke.py`` holds the kernel
+against on the card).  There is no fallback from a CUDA tensor to the
+plain version.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -80,6 +88,207 @@ def fused_smw(j: torch.Tensor, v: torch.Tensor, *, gamma: float,
             j.data_ptr(), v.data_ptr(), out.data_ptr(), u.data_ptr(),
             s_part.data_ptr(), d, b, int(j.dtype == torch.float32), int(vec),
             float(gamma), VARIANTS[variant], build.stream_handle(j.device))
+    build.check(err, kernel)
+    build.note_launch(kernel)
+    return out
+
+
+# ----------------------------------------------------------------------- #
+# Block rank-r Woodbury update
+# ----------------------------------------------------------------------- #
+BLOCK_RANKS = (1, 2, 4, 8, 16)   # kernel instances; r is padded up to one
+
+
+def fused_block_smw_plain(j: torch.Tensor, vt: torch.Tensor,
+                          gm: torch.Tensor, *, variant: str = "paper",
+                          with_pivot: bool = False):
+    """Plain version: j (*lead, d, d), vt (*lead, r, d) pre-weighted rows,
+    gm broadcastable to ``lead`` → the update in j's dtype, computed in
+    fp32 with ``torch.linalg.solve`` for the mid matrix, as the reference's
+    ``core.mkor.smw_block_update``.  ``with_pivot`` also returns, per slice,
+    the smallest squared Cholesky diagonal entry of the mid matrix (NaN
+    where it is not positive definite), the reference's pivot."""
+    jf, vf = j.float(), vt.float()
+    r = vf.shape[-2]
+    g = torch.as_tensor(gm, dtype=torch.float32,
+                        device=jf.device)[..., None, None]
+    u = torch.matmul(vf, jf.transpose(-1, -2))          # rows (J ṽ_i)ᵀ
+    s = torch.matmul(vf, u.transpose(-1, -2))           # ṼJṼᵀ (r, r)
+    eye = torch.eye(r, dtype=torch.float32, device=jf.device)
+    if variant == "paper":
+        mid = g * g * eye + g * g * g * s
+        new = g * jf + torch.matmul(u.transpose(-1, -2),
+                                    torch.linalg.solve(mid, u))
+    elif variant == "exact_smw":
+        mid = g * eye + s
+        new = (jf - torch.matmul(u.transpose(-1, -2),
+                                 torch.linalg.solve(mid, u))) / g
+    else:
+        raise ValueError(variant)
+    new = new.to(j.dtype)
+    if not with_pivot:
+        return new
+    chol, info = torch.linalg.cholesky_ex(mid)
+    piv = torch.amin(torch.diagonal(chol, dim1=-2, dim2=-1) ** 2, dim=-1)
+    return new, torch.where(info == 0, piv, torch.full_like(piv, math.nan))
+
+
+def fused_block_smw(j: torch.Tensor, vt: torch.Tensor, gm: torch.Tensor, *,
+                    variant: str = "paper", with_pivot: bool = False,
+                    out: Optional[torch.Tensor] = None):
+    """Batched block rank-r Woodbury update.  j: (B, d, d) bf16 or fp32;
+    vt: (B, r, d) fp32 window rows pre-weighted by √wᵢ; gm: (B,) fp32, the
+    per-slice γ^m.  Returns the updated bank in j's dtype, written to
+    ``out`` when given (``out`` may be ``j``: the update is then in place).
+
+    ``with_pivot=True`` returns ``(new, pivot)`` with pivot (B,) fp32: the
+    smallest |pivot| of the kernel's unpivoted Gauss–Jordan elimination of
+    the r×r mid matrix over the r real rows, which for a positive definite
+    mid matrix equals the smallest squared Cholesky diagonal entry that
+    ``repro.core.mkor.smw_block_update(with_pivot=True)`` returns for each
+    slice.  (The reference's fused entry pads r to a multiple of 8 and its
+    zero rows add pivots of gm² or gm to its min; the kernel's padding
+    rows are left out.)  Without it nothing is computed or written for the
+    pivot."""
+    if j.ndim != 3 or j.shape[-1] != j.shape[-2] or vt.ndim != 3 or \
+            vt.shape[0] != j.shape[0] or vt.shape[-1] != j.shape[-1] or \
+            tuple(gm.shape) != (j.shape[0],):
+        raise ValueError(f"fused_block_smw: j {tuple(j.shape)} must be "
+                         f"(B, d, d), vt {tuple(vt.shape)} (B, r, d) and gm "
+                         f"{tuple(gm.shape)} (B,)")
+    if variant not in VARIANTS:
+        raise ValueError(f"fused_block_smw: unknown variant {variant!r}")
+    if j.device.type == "cpu":
+        res = fused_block_smw_plain(j, vt, gm, variant=variant,
+                                    with_pivot=with_pivot)
+        if out is None:
+            return res
+        if with_pivot:
+            return out.copy_(res[0]), res[1]
+        return out.copy_(res)
+    kernel = "fused_block_smw"
+    build.check_tensor(j, "j", kernel, (torch.bfloat16, torch.float32))
+    build.check_tensor(vt, "vt", kernel, (torch.float32,), device=j.device)
+    build.check_tensor(gm, "gm", kernel, (torch.float32,), device=j.device)
+    if out is None:
+        out = torch.empty_like(j)
+    build.check_tensor(out, "out", kernel, (j.dtype,), shape=j.shape,
+                       device=j.device)
+    b, r, d = vt.shape
+    rank = next((k for k in BLOCK_RANKS if k >= r), None)
+    if rank is None:
+        raise ValueError(f"fused_block_smw: rank {r} > {BLOCK_RANKS[-1]} "
+                         "is not built")
+    piv = torch.empty((b,), dtype=torch.float32, device=j.device) \
+        if with_pivot else None
+    if b == 0 or d == 0:
+        return (out, piv) if with_pivot else out
+    if rank != r:                       # zero rows are inert (header note)
+        vt = torch.cat([vt, vt.new_zeros((b, rank - r, d))], dim=1)
+    lib = build.library("block_smw")
+    u = torch.empty((b, d, rank), dtype=torch.float32, device=j.device)
+    s_part = torch.empty((b, lib.mkor_block_smw_partials(d), rank * rank),
+                         dtype=torch.float32, device=j.device)
+    m = torch.empty((b, rank * rank), dtype=torch.float32, device=j.device)
+    vec = build.rows_aligned(j, d) and build.rows_aligned(out, d) and \
+        vt.data_ptr() % 16 == 0
+    with torch.cuda.device(j.device):
+        err = lib.mkor_fused_block_smw(
+            j.data_ptr(), vt.data_ptr(), gm.data_ptr(), out.data_ptr(),
+            u.data_ptr(), s_part.data_ptr(), m.data_ptr(),
+            None if piv is None else piv.data_ptr(), d, b, rank, r,
+            int(j.dtype == torch.float32), int(vec), VARIANTS[variant],
+            build.stream_handle(j.device))
+    build.check(err, kernel)
+    build.note_launch(kernel)
+    return (out, piv) if with_pivot else out
+
+
+# ----------------------------------------------------------------------- #
+# The unfused building blocks: matvec and rank1_update
+# ----------------------------------------------------------------------- #
+def _check_square(j, vec, kernel):
+    d = j.shape[-1]
+    if j.ndim != 2 or j.shape[0] != d or tuple(vec.shape) != (d, 1):
+        raise ValueError(f"{kernel}: j {tuple(j.shape)} must be (d, d) and "
+                         f"the vector {tuple(vec.shape)} (d, 1)")
+    return d
+
+
+def matvec_plain(j: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain version: u = J v in fp32.  j (d, d), v (d, 1) → (d, 1)."""
+    return torch.matmul(j.float(), v.float())
+
+
+def matvec(j: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """u = J v with fp32 accumulation.  j: (d, d) bf16 or fp32; v: (d, 1)
+    fp32 → u (d, 1) fp32."""
+    d = _check_square(j, v, "matvec")
+    if j.device.type == "cpu":
+        return matvec_plain(j, v)
+    kernel = "matvec"
+    build.check_tensor(j, "j", kernel, (torch.bfloat16, torch.float32))
+    build.check_tensor(v, "v", kernel, (torch.float32,), device=j.device)
+    u = torch.empty((d, 1), dtype=torch.float32, device=j.device)
+    if d == 0:
+        return u
+    lib = build.library("rank1_smw")
+    with torch.cuda.device(j.device):
+        err = lib.mkor_matvec(j.data_ptr(), v.data_ptr(), u.data_ptr(), d, 1,
+                              int(j.dtype == torch.float32),
+                              int(build.rows_aligned(j, d)),
+                              build.stream_handle(j.device))
+    build.check(err, kernel)
+    build.note_launch(kernel)
+    return u
+
+
+def smw_vectors(j: torch.Tensor, v: torch.Tensor):
+    """(u, s) = (J v, vᵀ J v): the ``matvec`` kernel, then s = vᵀu."""
+    u = matvec(j, v)
+    return u, torch.sum(v[:, 0].float() * u[:, 0])
+
+
+def rank1_update_plain(j: torch.Tensor, u: torch.Tensor, coef, *,
+                       gamma: float) -> torch.Tensor:
+    """Plain version: γJ + coef·uuᵀ in fp32, returned in j's dtype."""
+    uf = u.float()
+    c = torch.as_tensor(coef, dtype=torch.float32, device=j.device)
+    return (gamma * j.float() + c.reshape(()) * (uf @ uf.T)).to(j.dtype)
+
+
+def rank1_update(j: torch.Tensor, u: torch.Tensor, coef: torch.Tensor, *,
+                 gamma: float,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """J ← γJ + coef·uuᵀ without forming uuᵀ.  j: (d, d) bf16 or fp32;
+    u: (d, 1) fp32; coef: a one-element fp32 tensor on j's device (read
+    there by the kernel, no host sync).  Returns j's dtype, written to
+    ``out`` when given (``out`` may be ``j``)."""
+    d = _check_square(j, u, "rank1_update")
+    if coef.numel() != 1:
+        raise ValueError(f"rank1_update: coef {tuple(coef.shape)} must hold "
+                         "one value")
+    if j.device.type == "cpu":
+        new = rank1_update_plain(j, u, coef, gamma=gamma)
+        return new if out is None else out.copy_(new)
+    kernel = "rank1_update"
+    build.check_tensor(j, "j", kernel, (torch.bfloat16, torch.float32))
+    build.check_tensor(u, "u", kernel, (torch.float32,), device=j.device)
+    build.check_tensor(coef, "coef", kernel, (torch.float32,),
+                       device=j.device)
+    if out is None:
+        out = torch.empty_like(j)
+    build.check_tensor(out, "out", kernel, (j.dtype,), shape=j.shape,
+                       device=j.device)
+    if d == 0:
+        return out
+    lib = build.library("rank1_smw")
+    vec = build.rows_aligned(j, d) and build.rows_aligned(out, d)
+    with torch.cuda.device(j.device):
+        err = lib.mkor_rank1_update(
+            j.data_ptr(), out.data_ptr(), u.data_ptr(), coef.data_ptr(), d,
+            1, int(j.dtype == torch.float32), int(vec), float(gamma),
+            build.stream_handle(j.device))
     build.check(err, kernel)
     build.note_launch(kernel)
     return out

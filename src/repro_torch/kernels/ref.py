@@ -58,6 +58,39 @@ def smw_rank1_update_banked_ref(j: torch.Tensor, v: torch.Tensor,
     return torch.stack(outs).reshape(j.shape)
 
 
+def smw_block_update_ref(j_inv: torch.Tensor, v: torch.Tensor,
+                         gamma: float, variant: str = "paper",
+                         n_valid=None) -> torch.Tensor:
+    """Dense oracle for the block rank-r Woodbury update of one factor,
+    written against the forward EMA target with an explicit r×r inverse.
+
+    m = min(n_valid, r) chained rank-1 EMAs compose to
+    γ^m J + Σ_{i<m} (1-γ)γ^(m-1-i) v_i v_iᵀ; ``exact_smw`` is that
+    matrix's inverse via Woodbury, ``paper`` the PD-preserving
+    generalization of Eq. 5/6 (positive rank-r term)."""
+    r, _ = v.shape
+    jf = j_inv.float()
+    idx = torch.arange(r, dtype=torch.float32)
+    m = torch.clamp(torch.tensor(float(r if n_valid is None else n_valid)),
+                    max=float(r))
+    w = torch.where(idx < m, (1.0 - gamma) * gamma ** torch.clamp(
+        m - 1.0 - idx, min=0.0), torch.zeros(()))
+    gm = gamma ** m
+    vt = v.float() * torch.sqrt(w)[:, None]
+    u = vt @ jf.T                               # rows (J⁻¹ṽ_i)ᵀ, J symmetric
+    s = vt @ u.T
+    eye = torch.eye(r, dtype=torch.float32)
+    if variant == "paper":
+        mid = torch.linalg.inv(gm ** 2 * eye + gm ** 3 * s)
+        new = gm * jf + u.T @ mid @ u
+    elif variant == "exact_smw":
+        mid = torch.linalg.inv(gm * eye + s)
+        new = (jf - u.T @ mid @ u) / gm
+    else:
+        raise ValueError(variant)
+    return new.to(j_inv.dtype)
+
+
 def two_sided_precondition_ref(l_inv: torch.Tensor, r_inv: torch.Tensor,
                                g_w: torch.Tensor) -> torch.Tensor:
     """ΔW = R⁻¹ G L⁻¹ (fp32); extra leading dims of g_w broadcast."""

@@ -76,9 +76,16 @@ def make_train_step(cfg: ModelConfig, optimizer: GradientTransformation,
     loss_fn = make_loss_fn(cfg, collect_stats=collect_stats)
 
     def train_step(params, opt_state, batch):
+        # two-phase protocol: the precompute tick consumes only carried
+        # state, so it runs before the gradients exist (synchronous
+        # optimizers have no precompute)
+        precompute = optimizer.precompute is not None
+        if precompute:
+            opt_state = optimizer.precompute(opt_state, params=params)
         (loss, aux), grads = value_and_grad(loss_fn, params, batch)
         updates, opt_state = optimizer.update(
-            grads, opt_state, params=params, stats=aux["stats"], loss=loss)
+            grads, opt_state, params=params, stats=aux["stats"], loss=loss,
+            precomputed=precompute)
         params = firstorder.apply_updates(params, updates)
         metrics = {
             "loss": loss,

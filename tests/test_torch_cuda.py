@@ -8,7 +8,9 @@ CPU mode).  The file imports no JAX, so it runs on the card's machine:
 import pytest
 import torch
 
+from repro_torch.core.mkor import block_weights
 from repro_torch.kernels import matmul as t_mm
+from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import precond as t_pc
 from repro_torch.kernels import rank1_smw as t_rk
 
@@ -63,3 +65,69 @@ def test_cuda_fused_precond_and_matmul_match_plain(cuda_device, b, di, do):
     got = t_mm.matmul(r, g)
     want = t_mm.matmul_plain(r, g)
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def _within(got, want, rel, floor):
+    """Elementwise |got − want| ≤ rel·|want| + floor·max|want|."""
+    got, want = got.float(), want.float()
+    tol = rel * want.abs() + floor * want.abs().max()
+    return bool(torch.all((got - want).abs() <= tol))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,r", [(2, 64, 4), (3, 1001, 3)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("variant", ["paper", "exact_smw"])
+def test_cuda_fused_block_smw_matches_plain(cuda_device, b, d, r, dtype,
+                                            variant):
+    """Per-slice windows filled to 0, 1 and r rows; v ~ N(0, 1), so the
+    rank-r term is far above the floor of the bound."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    j = (torch.eye(d, device=cuda_device) + 0.01 * torch.randn(
+        (b, d, d), generator=gen, device=cuda_device)).to(dtype)
+    v = torch.randn((b, r, d), generator=gen, device=cuda_device)
+    n = torch.tensor([0, 1, r][:b], device=cuda_device)
+    sq, gm = block_weights(n, r, 0.9)
+    vt = (v * sq[..., None]).contiguous()
+    got, piv = t_rk.fused_block_smw(j, vt, gm, variant=variant,
+                                    with_pivot=True)
+    want, want_piv = t_rk.fused_block_smw_plain(j, vt, gm, variant=variant,
+                                                with_pivot=True)
+    # bf16 out: fp32 sums in another order may round an element to its
+    # neighbouring bf16 value (2^-7 of itself); fp32 out: rounding only.
+    # The floor, 1e-5 (bf16) or 1e-6 (fp32) of the largest entry, covers
+    # elements near zero.
+    rel, floor = (2 ** -7, 1e-5) if dtype == torch.bfloat16 else \
+        (1e-5, 1e-6)
+    assert _within(got, want, rel, floor)
+    assert torch.equal(got[0], j[0])               # empty window
+    # the kernel's Gauss-Jordan pivots against the Cholesky diagonal, fp32
+    assert torch.allclose(piv, want_piv, rtol=1e-3)
+    same = t_rk.fused_block_smw(j, vt, gm, variant=variant)
+    assert torch.equal(same, got)
+    inplace = j.clone()
+    t_ops.smw_block_update_banked(inplace, v, n, gamma=0.9,
+                                  variant=variant, out=inplace)
+    assert torch.equal(inplace, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 1001])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_matvec_and_rank1_update_match_plain(cuda_device, d, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    j = (torch.eye(d, device=cuda_device) + 0.01 * torch.randn(
+        (d, d), generator=gen, device=cuda_device)).to(dtype)
+    v = torch.randn((d, 1), generator=gen, device=cuda_device)
+    u = t_rk.matvec(j, v)
+    # fp32 out, the same products summed in another order
+    assert _within(u, t_rk.matvec_plain(j, v), 0.0, 1e-5)
+    uu, s = t_rk.smw_vectors(j, v)
+    assert torch.equal(uu, u)
+    assert torch.allclose(s, torch.sum(v[:, 0] * u[:, 0]))
+    coef = torch.full((1, 1), 0.37, device=cuda_device)
+    got = t_rk.rank1_update(j, u / d ** 0.5, coef, gamma=0.9)
+    want = t_rk.rank1_update_plain(j, u / d ** 0.5, coef, gamma=0.9)
+    rel, floor = (2 ** -7, 1e-5) if dtype == torch.bfloat16 else \
+        (1e-6, 1e-6)
+    assert _within(got, want, rel, floor)

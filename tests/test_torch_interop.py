@@ -86,3 +86,26 @@ def test_entry_point_without_cuda_raises():
         pytest.skip("CUDA is present: the no-GPU error path cannot run here")
     with pytest.raises(RuntimeError, match="CUDA"):
         interop.params_from_numpy({"w": np.zeros(2, np.float32)})
+
+
+def test_round_trip_windows_and_pending_banks():
+    """Rank-r windows (fp32 rows, int32 counts) and the pending banks of a
+    staleness-1 state carry over bit for bit."""
+    cfg = j_bert.CONFIG.reduced(n_layers=2, d_model=16, d_ff=32,
+                                vocab_size=40)
+    params = j_model.init_params(jax.random.key(2), cfg)
+    state = j_mkor(j_fo.lamb(1e-3),
+                   JMKORConfig(rank=3, staleness=1)).init(params)
+    host = _host(state)
+    wins = interop.windows_from_numpy(host["stat_windows"], "cpu")
+    pend = interop.banks_from_numpy(host["pending_banks"], "cpu")
+    assert sorted(wins) == sorted(pend) == sorted(state["factor_banks"])
+    for bid, win in wins.items():
+        assert win["n"].dtype == torch.int32 and win["a"].dtype == \
+            torch.float32 and win["g"].shape[-2] == 3
+        for k in ("a", "g", "n"):
+            np.testing.assert_array_equal(win[k].numpy(),
+                                          host["stat_windows"][bid][k])
+        np.testing.assert_array_equal(
+            pend[bid]["l_inv"].float().numpy(),
+            np.asarray(host["pending_banks"][bid]["l_inv"], np.float32))

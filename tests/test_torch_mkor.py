@@ -178,7 +178,7 @@ def test_mkor_autoencoder_banks_match(ae_params):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("rank", 2), ("staleness", 1), ("health", True),
+    ("dist", (("data", 2),)), ("live", (True, False)), ("health", True),
     ("factor_quant", "int8"), ("layout", "per_layer"), ("hybrid", True)])
 def test_unported_configs_raise(field, value):
     cfg = t_mkor.MKORConfig(**{field: value})

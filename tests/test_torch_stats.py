@@ -1,6 +1,8 @@
-"""The port's layer discovery and bucket manifest against
-``repro/core/stats.py``: bucket ids, slot order and phases."""
+"""The port's layer discovery, bucket manifest and rank-r stat windows
+against ``repro/core/stats.py``: bucket ids, slot order, phases, ring
+pushes and the oldest-first window view."""
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -83,3 +85,36 @@ def test_vectors_and_zero_probes(ae_params):
     zt = interop.tree_to_numpy(t_stats.zero_probes(tg))
     for a, b in zip(jax.tree.leaves(zj), jax.tree.leaves(zt)):
         np.testing.assert_array_equal(np.asarray(a), b)
+
+
+@pytest.mark.parametrize("rank", [1, 2, 4])
+def test_window_push_and_ordered_match(rank):
+    """Push 2r+1 vectors one at a time into (slots, stack, r, d) windows,
+    with per-slot counts that start apart; after every push the window and
+    its oldest-first view match the reference, before and after the ring
+    wraps."""
+    rng = np.random.default_rng(rank)
+    lead, d = (2, 3), 5
+    jw = jnp.zeros(lead + (rank, d), jnp.float32)
+    tw = torch.zeros(lead + (rank, d))
+    cnt = np.array([0, rank + 1], np.int32)          # per slot
+    for _ in range(2 * rank + 2):
+        vec = rng.standard_normal(lead + (d,)).astype(np.float32)
+        cb = cnt.reshape(2, 1)
+        jw = j_stats.window_push(jw, jnp.asarray(cb), jnp.asarray(vec))
+        tw = t_stats.window_push(tw, torch.tensor(cb), torch.tensor(vec))
+        cnt = cnt + 1
+        np.testing.assert_array_equal(np.asarray(jw), tw.numpy())
+        full = np.broadcast_to(cnt.reshape(2, 1), lead)
+        np.testing.assert_array_equal(
+            np.asarray(j_stats.window_ordered(jw, jnp.asarray(full))),
+            t_stats.window_ordered(tw, torch.tensor(full)).numpy())
+    # counts 0 ... 2r+1 on one window, and a scalar count
+    for c in range(2 * rank + 2):
+        np.testing.assert_array_equal(
+            np.asarray(j_stats.window_ordered(jw[0, 0], jnp.asarray(c))),
+            t_stats.window_ordered(tw[0, 0], c).numpy())
+    # the push casts to the window's dtype (bf16 windows, factor_quant bf16)
+    bw = t_stats.window_push(torch.zeros((rank, d), dtype=torch.bfloat16),
+                             torch.tensor(0), torch.ones(d))
+    assert bw.dtype == torch.bfloat16 and float(bw[0].sum()) == d

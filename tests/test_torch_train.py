@@ -28,6 +28,16 @@ def test_train_launcher_reduced_cpu(capsys):
     assert final == final and abs(final) < 1e3          # finite
 
 
+def test_train_launcher_rank_and_staleness_cpu(capsys):
+    final = t_train.main(["--arch", "bert-large", "--reduced", "--steps",
+                          "3", "--global-batch", "2", "--seq-len", "16",
+                          "--inv-freq", "2", "--rank", "2", "--staleness",
+                          "1", "--log-every", "1", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "rank=2 staleness=1" in out and "step     2 loss=" in out
+    assert final == final and abs(final) < 1e3          # finite
+
+
 def test_train_launcher_lamb_only_cpu(capsys):
     t_train.main(["--arch", "bert-large", "--reduced", "--optimizer", "lamb",
                   "--steps", "1", "--global-batch", "1", "--seq-len", "8",
