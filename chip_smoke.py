@@ -7,12 +7,14 @@ Phases (each prints its own lines; any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build of every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per
      source, in parallel, timed);
-  3. each of the six kernels against its plain PyTorch version on the
-     card, at the shapes full-width bert-large gives it and at ragged
-     shapes: max abs error and tolerance, kernel / plain / library ms, and
-     the least time the card could take (bytes over 3.35 TB/s, or
-     operations over the peak of their type -- 989 TFLOP/s for the bf16
-     tensor cores, 67 TFLOP/s for fp32 -- whichever is larger);
+  3. each of the six kernels, and the int8 variants of three of them
+     (fused_smw[int8], fused_block_smw[int8], fused_precond[int8]: codes
+     of an int8 bank with per-slice scales), against its plain PyTorch
+     version on the card, at the shapes full-width bert-large gives it and
+     at ragged shapes: max abs error and tolerance, kernel / plain /
+     library ms, and the least time the card could take (bytes over 3.35
+     TB/s, or operations over the peak of their type -- 989 TFLOP/s for
+     the bf16 tensor cores, 67 TFLOP/s for fp32 -- whichever is larger);
   4. full-width bert-large (24 layers, random weights from seed 0, batch 8
      x 128) trained with mkor(lamb) through the kernels on three paths,
      each with the launch counts set to 0 just before it and read just
@@ -30,6 +32,15 @@ Phases (each prints its own lines; any failure exits non-zero):
         plain route from the same state, and every bucket's promoted
         active bank leaves the identity; profiler breakdown and phase
         times of a step;
+     d.-f. the same three schedules with int8 factor state
+        (factor_quant="int8": int8 codes, per-slice scales and fp32 error
+        feedback) through the int8 kernels -- rank 1 (inv_freq 3, 6
+        steps), rank 4 (inv_freq 4, 8 steps) and staleness 1 (inv_freq 3,
+        9 steps) -- each bucket's first inversion (first launching tick
+        with a non-empty window) held against the plain route from the
+        same state on the reconstructed fp32 bank decode(codes) + error
+        feedback, with codes at most one step apart; the kernel route
+        decodes no bank (only window rows);
      each profiled step also lists the host's waits on the device;
   5. one JSON line listing every kernel, the card's name and power limit,
      and, last, ``{"ok": true, "device": {...}}``.
@@ -59,6 +70,10 @@ REPLACES = {
     "fused_block_smw": "src/repro/kernels/rank1_smw.py:294",
     "matvec": "src/repro/kernels/rank1_smw.py:57",
     "rank1_update": "src/repro/kernels/rank1_smw.py:87",
+    # the quant bodies of the same three Pallas kernels
+    "fused_smw[int8]": "src/repro/kernels/rank1_smw.py:139",
+    "fused_block_smw[int8]": "src/repro/kernels/rank1_smw.py:214",
+    "fused_precond[int8]": "src/repro/kernels/precond.py:57",
 }
 SOURCES = {
     "fused_smw": "src/repro_torch/csrc/rank1_smw.cu",
@@ -67,21 +82,35 @@ SOURCES = {
     "fused_block_smw": "src/repro_torch/csrc/block_smw.cu",
     "matvec": "src/repro_torch/csrc/rank1_smw.cu",
     "rank1_update": "src/repro_torch/csrc/rank1_smw.cu",
+    "fused_smw[int8]": "src/repro_torch/csrc/rank1_smw.cu",
+    "fused_block_smw[int8]": "src/repro_torch/csrc/block_smw.cu",
+    "fused_precond[int8]": "src/repro_torch/csrc/precond.cu",
 }
-# the peak rate of each kernel's operations: tensor-core GEMMs in bf16,
-# the SMW kernels' fp32 FMAs on the CUDA cores
+# the peak rate of each kernel's operations: tensor-core GEMMs in bf16
+# (int8 codes enter them as bf16), the SMW kernels' fp32 FMAs on the CUDA
+# cores
 PEAK_OPS = {"fused_smw": PEAK_FP32_OPS_PER_S,
             "fused_precond": PEAK_BF16_OPS_PER_S,
             "matmul": PEAK_BF16_OPS_PER_S,
             "fused_block_smw": PEAK_FP32_OPS_PER_S,
             "matvec": PEAK_FP32_OPS_PER_S,
-            "rank1_update": PEAK_FP32_OPS_PER_S}
+            "rank1_update": PEAK_FP32_OPS_PER_S,
+            "fused_smw[int8]": PEAK_FP32_OPS_PER_S,
+            "fused_block_smw[int8]": PEAK_FP32_OPS_PER_S,
+            "fused_precond[int8]": PEAK_BF16_OPS_PER_S}
 # the kernels each training path must launch (and must not)
+_NOT_INT8 = ("fused_smw", "fused_block_smw", "fused_precond")
 PATH_KERNELS = {
     "rank1": (("fused_smw", "fused_precond", "matmul"), ("fused_block_smw",)),
     "rank4": (("fused_block_smw", "fused_precond", "matmul"), ("fused_smw",)),
     "staleness1": (("fused_block_smw", "fused_precond", "matmul"),
                    ("fused_smw",)),
+    "int8_rank1": (("fused_smw[int8]", "fused_precond[int8]", "matmul"),
+                   _NOT_INT8 + ("fused_block_smw[int8]",)),
+    "int8_rank4": (("fused_block_smw[int8]", "fused_precond[int8]",
+                    "matmul"), _NOT_INT8 + ("fused_smw[int8]",)),
+    "int8_staleness1": (("fused_block_smw[int8]", "fused_precond[int8]",
+                         "matmul"), _NOT_INT8 + ("fused_smw[int8]",)),
 }
 TRAIN_STEPS = 6                   # rank 1: two full inv_freq=3 windows
 RANK4_STEPS = 8                   # rank 4, inv_freq 4: two windows a bucket
@@ -437,6 +466,168 @@ def check_matvec_and_rank1_update(torch, rows):
         del j, v
 
 
+def int8_bank(torch, b, d, gen):
+    """int8 codes and (b,) fp32 scales (``quant_encode``) of a near-identity
+    fp32 bank with symmetric off-diagonal noise of 0.05, so that the codes
+    spread over about ±30 off the diagonal (a bank encoded from the
+    phase's bf16 near-identity would hold almost only 127·I)."""
+    from repro_torch.core.stats import quant_encode
+    x = torch.randn((b, d, d), generator=gen, device="cuda") * 0.05
+    x = (x + x.transpose(1, 2)) * (0.5 ** 0.5)
+    x.diagonal(dim1=1, dim2=2).add_(1.0)
+    q, sc = quant_encode(x)
+    del x
+    return q, sc
+
+
+def check_fused_smw_int8(torch, rows):
+    """fused_smw on int8 codes (fp32 out) against its plain version, which
+    decodes the codes and computes in fp32: the same decoded values summed
+    in another order, so the fp32 elementwise bound 1e-5|want| + 1e-6
+    max|want|."""
+    from repro_torch.kernels import rank1_smw as rk
+    row = rows["fused_smw[int8]"]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for b, d, main in [(96, 1024, True), (24, 1024, True), (24, 4096, True),
+                       (3, 1001, False)]:
+        q, sc = int8_bank(torch, b, d, gen)
+        v = torch.randn((b, d), generator=gen, device="cuda")
+        for variant in ("paper", "exact_smw"):
+            got = rk.fused_smw(q, v, gamma=0.9, variant=variant, scale=sc)
+            want = rk.fused_smw_plain(q, v, gamma=0.9, variant=variant,
+                                      scale=sc)
+            torch.cuda.synchronize()
+            err, ratio = bf16_close(got, want, 1e-5, 1e-6)
+            print(f"fused_smw[int8] {b}x{d}x{d} {variant}: max_abs_err "
+                  f"{err:.3e}, worst |got-want| / (1e-5|want| + 1e-6 "
+                  f"max|want|) {ratio:.3f} (tol 1)")
+            require(math.isfinite(ratio) and ratio <= 1.0,
+                    f"fused_smw[int8] {b}x{d} {variant} disagrees with its "
+                    "plain version")
+            row.add(err)
+            del got, want
+        if main:
+            ms = time_ms(torch, lambda: rk.fused_smw(q, v, gamma=0.9,
+                                                     scale=sc))
+            plain = time_ms(torch, lambda: rk.fused_smw_plain(
+                q, v, gamma=0.9, scale=sc))
+            # the codes read once, the fp32 update written once; one
+            # decode a code
+            n_bytes = b * (d * d * 1 + d * d * 4 + d * 4 + 4)
+            n_ops = b * 5.0 * d * d
+            bms, by = row.bound(n_bytes, n_ops)
+            print(f"fused_smw[int8] {b}x{d}x{d}: {ms:.4f} ms, plain "
+                  f"{plain:.4f} ms, bound {bms:.4f} ms ({by})")
+            row.add(0.0, ms, plain, n_bytes, n_ops)
+        del q, sc, v
+
+
+def check_fused_block_smw_int8(torch, rows):
+    """fused_block_smw on int8 codes at rank 4 (the bert-large bank sides,
+    one with the pivot and one with windows filled to 0, 1 and r) and at a
+    ragged shape; the fp32 bound of check_fused_smw_int8."""
+    from repro_torch.core.mkor import block_weights
+    from repro_torch.kernels import rank1_smw as rk
+    row = rows["fused_block_smw[int8]"]
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cases = [(96, 1024, 4, "full", False, True),
+             (24, 1024, 4, "full", True, True),
+             (24, 4096, 4, "full", False, True),
+             (24, 1024, 4, "mixed", False, False),
+             (3, 1001, 3, "mixed", True, False)]
+    for b, d, r, fill, pivot, main in cases:
+        q, sc = int8_bank(torch, b, d, gen)
+        v = torch.randn((b, r, d), generator=gen, device="cuda")
+        n = torch.full((b,), r, device="cuda") if fill == "full" else \
+            torch.tensor([(0, 1, r)[i % 3] for i in range(b)], device="cuda")
+        sq, gm = block_weights(n, r, 0.9)
+        vt = (v * sq[..., None]).contiguous()
+        for variant in ("paper", "exact_smw"):
+            res = rk.fused_block_smw(q, vt, gm, variant=variant,
+                                     with_pivot=pivot, scale=sc)
+            want = rk.fused_block_smw_plain(q, vt, gm, variant=variant,
+                                            with_pivot=pivot, scale=sc)
+            torch.cuda.synchronize()
+            got = res[0] if pivot else res
+            err, ratio = bf16_close(got, want[0] if pivot else want, 1e-5,
+                                    1e-6)
+            tag = (f"fused_block_smw[int8] {b}x{d}x{d} r={r} fill={fill} "
+                   f"{variant}")
+            print(f"{tag}: max_abs_err {err:.3e}, worst |got-want| / "
+                  f"(1e-5|want| + 1e-6 max|want|) {ratio:.3f} (tol 1)")
+            require(math.isfinite(ratio) and ratio <= 1.0,
+                    f"{tag} disagrees with its plain version")
+            if fill == "mixed":
+                empty = n == 0
+                require(bool(torch.equal(
+                    got[empty], q[empty].float() * sc[empty][:, None, None])),
+                    f"{tag}: an empty window changed its decoded slice")
+            if pivot:
+                p_err = ((res[1] - want[1]).abs()
+                         / want[1].abs()).max().item()
+                print(f"{tag}: pivot min {res[1].min().item():.6g} vs "
+                      f"{want[1].min().item():.6g}, max rel err "
+                      f"{p_err:.3e} (tol 1e-3)")
+                require(p_err <= 1e-3, f"{tag}: pivot disagrees")
+            row.add(err)
+            del res, want, got
+        if main:
+            ms = time_ms(torch, lambda: rk.fused_block_smw(q, vt, gm,
+                                                           scale=sc))
+            plain = time_ms(torch, lambda: rk.fused_block_smw_plain(
+                q, vt, gm, scale=sc))
+            n_bytes = b * (d * d * 1 + d * d * 4 + r * d * 4 + 8)
+            n_ops = b * ((4.0 * r + 2) * d * d + 4.0 * r * r * d)
+            bms, by = row.bound(n_bytes, n_ops)
+            print(f"fused_block_smw[int8] {b}x{d}x{d} r={r}: {ms:.4f} ms, "
+                  f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by})")
+            row.add(0.0, ms, plain, n_bytes, n_ops)
+        del q, sc, v, vt
+
+
+def check_fused_precond_int8(torch, rows):
+    """fused_precond on int8 R and L with their scales (the first product
+    through matmul with an int8 operand), rescale on and off; the bf16
+    route's bound 2e-4·max|want| (the fp32 intermediate rides the tensor
+    cores as a bf16 hi/lo pair)."""
+    from repro_torch.kernels import precond as pc
+    row = rows["fused_precond[int8]"]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for b, di, do, main in [(96, 1024, 1024, True), (24, 1024, 4096, True),
+                            (24, 4096, 1024, True), (3, 1001, 600, False)]:
+        rq, rsc = int8_bank(torch, b, di, gen)
+        lq, lsc = int8_bank(torch, b, do, gen)
+        g = (torch.randn((b, di, do), generator=gen, device="cuda")
+             * 1e-2).to(torch.bfloat16)
+        kw = dict(r_scale=rsc, l_scale=lsc)
+        for rescale in (True, False):
+            got = pc.fused_precond(rq, g, lq, rescale=rescale, **kw)
+            want = pc.fused_precond_plain(rq, g, lq, rescale=rescale, **kw)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            tol = 2e-4 * want.abs().max().item()
+            print(f"fused_precond[int8] {b}x{di}x{do} rescale={rescale}: "
+                  f"max_abs_err {err:.3e} (tol {tol:.3e})")
+            require(math.isfinite(err) and err <= tol,
+                    f"fused_precond[int8] {b}x{di}x{do} disagrees with its "
+                    "plain version")
+            row.add(err)
+            del got, want
+        if main:
+            ms = time_ms(torch, lambda: pc.fused_precond(rq, g, lq, **kw))
+            plain = time_ms(torch, lambda: pc.fused_precond_plain(
+                rq, g, lq, **kw))
+            n_bytes = b * ((di * di + do * do) * 1 + di * do * 2
+                           + di * do * 4 + 8)
+            n_ops = b * 2.0 * di * do * (di + do)
+            bms, by = row.bound(n_bytes, n_ops)
+            print(f"fused_precond[int8] {b}x{di}x{do}: {ms:.4f} ms, plain "
+                  f"{plain:.4f} ms, bound {bms:.4f} ms ({by}), "
+                  f"{n_ops / ms / 1e9:.1f} TFLOP/s")
+            row.add(0.0, ms, plain, n_bytes, n_ops)
+        del rq, lq, g
+
+
 # ----------------------------------------------------------------------- #
 # Phase 4: full-width bert-large with mkor(lamb)
 # ----------------------------------------------------------------------- #
@@ -527,19 +718,76 @@ def compare_banks(tag, got, want, bucket_ids=None):
                     f"{tag} bank {bid}/{side} differs")
 
 
+class Int8BankCheck:
+    """Holds int8 bank sides of the kernel route against the plain route's:
+    the reconstructed fp32 bank decode(codes, scale) + error feedback with
+    the fp32 elementwise bound 1e-5|want| + 1e-6 max|want| (it equals the
+    stabilized fp32 update plus the old error feedback exactly, and the two
+    routes' updates differ by fp32 rounding only), and the codes at most
+    one step apart (a rounding difference can move a value across a code
+    boundary; the error feedback carries the other side).  Records the
+    worst ratio and the share of codes that differ."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.worst, self.flipped, self.codes = 0.0, 0, 0
+
+    def __call__(self, tag, got, want, bucket_ids=None):
+        torch = self.torch
+        for bid in (bucket_ids if bucket_ids is not None else sorted(got)):
+            for side in ("l", "r"):
+                q_k, s_k, e_k = (f"{side}_inv", f"{side}_scale",
+                                 f"{side}_ef")
+                g, w = got[bid], want[bid]
+                rec_g = g[q_k].float() * g[s_k][..., None, None] + g[e_k]
+                rec_w = w[q_k].float() * w[s_k][..., None, None] + w[e_k]
+                err, ratio = bf16_close(rec_g, rec_w, 1e-5, 1e-6)
+                del rec_g, rec_w
+                dq = (g[q_k].to(torch.int16) - w[q_k].to(torch.int16)).abs()
+                max_dq, n_flip = int(dq.max()), int((dq > 0).sum())
+                self.worst = max(self.worst, ratio)
+                self.flipped += n_flip
+                self.codes += dq.numel()
+                print(f"{tag} bank {bid}/{side}: decode + ef max_abs_err "
+                      f"{err:.3e}, worst |got-want| / (1e-5|want| + 1e-6 "
+                      f"max|want|) {ratio:.3f} (tol 1); codes: max diff "
+                      f"{max_dq} (tol 1), {n_flip} of {dq.numel()} differ")
+                require(math.isfinite(ratio) and ratio <= 1.0,
+                        f"{tag} bank {bid}/{side}: decode + ef differs")
+                require(max_dq <= 1, f"{tag} bank {bid}/{side}: codes "
+                        "differ by more than one step")
+
+    def summary(self, name):
+        share = self.flipped / max(self.codes, 1)
+        print(f"[{name}] kernel vs plain route: worst decode+ef ratio "
+              f"{self.worst:.3f} (tol 1), {self.flipped} of {self.codes} "
+              f"codes differ by one step ({share:.3e})")
+
+
 class PlainTee:
     """An optimizer that runs the kernel route and, at the listed counts,
     also the plain route on the same inputs, and holds the banks of the
-    buckets that invert against each other.  The plain route launches no
-    kernel, so the launch counts stay those of the main path.  ``events``
-    records the call order of precompute and update."""
+    buckets that invert against each other (``compare``, default the
+    elementwise bf16 bound of :func:`compare_banks`).  The plain route
+    launches no kernel, so the launch counts stay those of the main path;
+    ``in_plain`` is True while it runs.  ``events`` records the call order
+    of precompute and update."""
 
     def __init__(self, torch, opt_k, opt_p, phases, inv_freq,
-                 update_at=(), tick_at=()):
+                 update_at=(), tick_at=(), compare=None):
         self.torch, self.opt_k, self.opt_p = torch, opt_k, opt_p
         self.phases, self.inv_freq = phases, inv_freq
         self.update_at, self.tick_at = set(update_at), set(tick_at)
+        self.compare = compare or compare_banks
         self.events, self.compared = [], []
+        self.in_plain = False
+
+    def plain(self, fn, *args, **kw):
+        self.in_plain = True
+        try:
+            return fn(*args, **kw)
+        finally:
+            self.in_plain = False
 
     def due(self, count):
         return [b for b, ph in sorted(self.phases.items())
@@ -556,10 +804,11 @@ class PlainTee:
         new = self.opt_k.precompute(state, params=params, **kw)
         count = state["count"]
         if count in self.tick_at:
-            plain = self.opt_p.precompute(state, params=params, **kw)
+            plain = self.plain(self.opt_p.precompute, state, params=params,
+                               **kw)
             self.torch.cuda.synchronize()
-            compare_banks(f"tick {count} pending", new["pending_banks"],
-                          plain["pending_banks"], self.due(count))
+            self.compare(f"tick {count} pending", new["pending_banks"],
+                         plain["pending_banks"], self.due(count))
             self.compared.append(count)
         return new
 
@@ -569,11 +818,11 @@ class PlainTee:
                                 **kw)
         count = state["count"]
         if count in self.update_at:
-            plain = self.opt_p.update(grads, state, params=params,
-                                      stats=stats, **kw)
+            plain = self.plain(self.opt_p.update, grads, state,
+                               params=params, stats=stats, **kw)
             self.torch.cuda.synchronize()
-            compare_banks(f"step {count}", out[1]["factor_banks"],
-                          plain[1]["factor_banks"], self.due(count))
+            self.compare(f"step {count}", out[1]["factor_banks"],
+                         plain[1]["factor_banks"], self.due(count))
             self.compared.append(count)
         return out
 
@@ -725,6 +974,99 @@ def train_staleness1(torch, dev, setup):
     return counts
 
 
+def _int8_path(torch, dev, setup, name, steps, **kw):
+    """One int8 training path (factor_quant="int8"): the kernel route,
+    teed to the plain route at each bucket's first inversion (staleness 1:
+    the first tick that launches, and each bucket's first tick with a
+    non-empty window); counts the bank decodes the kernel route makes
+    (window rows are decoded; banks must not be)."""
+    from repro_torch.core import stats as statlib
+    from repro_torch.models import model as model_lib
+    from repro_torch.training import loop as train_lib
+    cfg, params, ds, make = setup
+    opt_k, _, mcfg = make(True, factor_quant="int8", **kw)
+    opt_p, _, _ = make(False, factor_quant="int8", **kw)
+    phases = _phases(params, mcfg)
+    firsts = sorted(set(phases.values()))
+    check = Int8BankCheck(torch)
+    if mcfg.staleness:
+        at = [0] + [ph + mcfg.inv_freq for ph in firsts]
+        tee = PlainTee(torch, opt_k, opt_p, phases, mcfg.inv_freq,
+                       tick_at=at, compare=check)
+    else:
+        at = firsts
+        tee = PlainTee(torch, opt_k, opt_p, phases, mcfg.inv_freq,
+                       update_at=at, compare=check)
+    opt = tee.transformation()
+    step_fn = train_lib.make_train_step(cfg, opt)
+    decode, forward = statlib.quant_decode, model_lib.forward
+    kernel_decodes = []
+
+    def counted_decode(q, scale, axes=2):
+        if not tee.in_plain:
+            kernel_decodes.append(tuple(q.shape))
+        return decode(q, scale, axes)
+
+    def traced_forward(*args, **kwargs):
+        tee.events.append("forward")
+        return forward(*args, **kwargs)
+
+    statlib.quant_decode, model_lib.forward = counted_decode, traced_forward
+    try:
+        params, state, counts = run_path(torch, dev, name, step_fn, opt,
+                                         params, ds, steps, skip_times=at)
+    finally:
+        statlib.quant_decode, model_lib.forward = decode, forward
+    require(tee.compared == at, f"{name}: compared at {tee.compared}, "
+            f"expected {at}")
+    check.summary(name)
+    print(f"[{name}] bank decodes on the kernel route: "
+          f"{len(kernel_decodes)}")
+    require(not kernel_decodes, f"{name}: the kernel route decoded banks "
+            f"{kernel_decodes[:4]}")
+    order = ["precompute", "forward", "update"] if mcfg.staleness else \
+        ["forward", "update"]
+    require(tee.events == order * steps,
+            f"{name}: call order {tee.events[:6]}...")
+    for bid, bank in sorted(state["factor_banks"].items()):
+        # the factor is decode + ef: off-diagonal terms below half a code
+        # step live in the error feedback alone
+        d = bank["l_inv"].shape[-1]
+        eye = 127 * torch.eye(d, dtype=torch.int8, device=dev)
+        codes = int((bank["l_inv"].to(torch.int16) - eye).abs().max())
+        rec = bank["l_inv"].float() * bank["l_scale"][..., None, None] \
+            + bank["l_ef"]
+        moved = (rec - torch.eye(d, device=dev)).abs().max().item()
+        print(f"[{name}] active bank {bid}/l_inv: max |decode + ef - I| "
+              f"{moved:.3e}, max |codes - 127 I| {codes}, scale "
+              f"{bank['l_scale'].min().item():.4g}.."
+              f"{bank['l_scale'].max().item():.4g}, max |ef| "
+              f"{bank['l_ef'].abs().max().item():.3e} after {steps} steps")
+        del rec
+        require(moved > 0, f"{name}: active bank {bid} is still the "
+                "identity")
+    profile_and_phases(torch, dev, cfg, ds, train_lib.make_train_step(
+        cfg, opt_k), opt_k, params, state, steps)
+    return counts
+
+
+def train_int8_rank1(torch, dev, setup):
+    """Path d: int8 factor state at rank 1, inv_freq 3, stagger."""
+    return _int8_path(torch, dev, setup, "int8_rank1", TRAIN_STEPS)
+
+
+def train_int8_rank4(torch, dev, setup):
+    """Path e: int8 factor state, block rank 4, inv_freq 4, stagger."""
+    return _int8_path(torch, dev, setup, "int8_rank4", RANK4_STEPS, rank=4,
+                      inv_freq=4)
+
+
+def train_int8_staleness1(torch, dev, setup):
+    """Path f: int8 factor state at staleness 1, rank 1, inv_freq 3."""
+    return _int8_path(torch, dev, setup, "int8_staleness1", STALE_STEPS,
+                      staleness=1)
+
+
 def phase_breakdown(torch, cfg, opt, params, state, batch, sync, reps=3):
     """Host-clock ms of each phase of a step (each ends in a synchronize),
     median of ``reps``: forward+backward, the MKOR+LAMB update, LAMB
@@ -860,12 +1202,18 @@ def main() -> int:
     check_matmul(torch, rows)
     check_fused_block_smw(torch, rows)
     check_matvec_and_rank1_update(torch, rows)
+    check_fused_smw_int8(torch, rows)
+    check_fused_block_smw_int8(torch, rows)
+    check_fused_precond_int8(torch, rows)
+    torch.cuda.empty_cache()
     ops.reset_launch_counts()
 
     dev = torch.device("cuda")
     setup = bert_large_setup(dev)
     paths = {"rank1": train_rank1, "rank4": train_rank4,
-             "staleness1": train_staleness1}
+             "staleness1": train_staleness1, "int8_rank1": train_int8_rank1,
+             "int8_rank4": train_int8_rank4,
+             "int8_staleness1": train_int8_staleness1}
     launches = {name: 0 for name in REPLACES}
     for name, fn in paths.items():
         t0 = time.perf_counter()

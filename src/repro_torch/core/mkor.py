@@ -40,24 +40,42 @@ runs on the current stream; overlapping it on a side stream is later
 work (ROADMAP).  ``update`` without ``precomputed=True`` runs the same tick
 inline, so the two protocols are bit-equal.
 
+int8 factor state (``factor_quant="int8"``, single process, bank layout):
+every bank side, the pending ones included, is the triple (codes int8,
+scale fp32 per slice ``(n_slots, *stack)``, error feedback fp32 of the
+bank's shape), stored as ``{l_inv, l_scale, l_ef, r_inv, r_scale, r_ef}``;
+the identity is codes 127·I at scale 1/127 with zero error feedback.  A
+phase step runs, per side, the SMW or block update on the codes, then the
+stabilizer on the fp32 result, then ``quant_requantize`` with the side's
+error feedback -- the reverse of the bf16 order, so that the stabilizer
+caps the scale before the codes are taken.  Windows are int8 rows with
+per-row fp32 scales (``a_scale`` / ``g_scale``), decoded and then ordered
+for the block update.  At staleness 1 the tick swaps the side triples and
+launches on the promoted pending codes (the error feedback rides the
+pending bank).  Preconditioning takes the codes and scales as they are.
+
 ``use_kernels=True`` (the reference's ``use_pallas``) routes the banked
 SMW, the block update and the precondition through the hand-written CUDA
 kernels (``kernels/ops.py``: one ``fused_smw`` or ``fused_block_smw``
 launch per bucket side per phase step, one ``fused_precond`` launch per
-bucket per step); otherwise the same math runs as plain batched PyTorch.
-Either way ``update`` and ``precompute`` are functional: the state passed
-in is not modified (the SMW kernels update the freshly stabilized copy of
-a bank in place, which saves a second bank-sized buffer).
+bucket per step; their int8 variants read the codes and scales directly,
+so no decoded bank is made); otherwise the same math runs as plain
+batched PyTorch.  Either way ``update`` and ``precompute`` are
+functional: the state passed in is not modified (the bf16 and fp32 SMW
+kernels update the freshly stabilized copy of a bank in place, which saves
+a second bank-sized buffer).
 
 Ported so far: bank layout, rank ≥ 1, staleness 0 or 1, stagger on or
 off, ``variant`` ``paper`` and ``exact_smw``, factor storage ``none`` /
-``bf16``, health, int8 and dist off.  Other settings raise
-``NotImplementedError`` naming their ROADMAP item.  ``MKORConfig`` keeps
-every field of the reference with the same default, with ``use_pallas``
-renamed ``use_kernels`` and the Pallas-only ``interpret`` dropped.  The
-state holds ``count``, ``factor_banks``, ``stat_windows`` (rank > 1 or
-staleness 1), ``pending_banks`` (staleness 1) and ``backend``; the
-reference's ``hybrid`` entry arrives with ``mkor_h``.
+``bf16`` / ``int8``, health and dist off.  Other settings raise
+``NotImplementedError`` naming their ROADMAP item (int8 with the
+per-layer layout raises ``ValueError``, as in the reference).
+``MKORConfig`` keeps every field of the reference with the same default,
+with ``use_pallas`` renamed ``use_kernels`` and the Pallas-only
+``interpret`` dropped.  The state holds ``count``, ``factor_banks``,
+``stat_windows`` (rank > 1 or staleness 1), ``pending_banks`` (staleness
+1) and ``backend``; the reference's ``hybrid`` entry arrives with
+``mkor_h``.
 """
 from __future__ import annotations
 
@@ -104,13 +122,8 @@ class MKORConfig:
     hybrid_min_steps: int = 50
 
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def factor_storage_dtype(cfg: MKORConfig) -> torch.dtype:
-    """Resident dtype of the factor banks."""
-    return torch.bfloat16 if cfg.factor_quant == "bf16" \
-        else _DTYPES[cfg.factor_dtype]
+# the quantized identity's scale: codes 127·I decode to exactly I·(127/127)
+_QUANT_ID_SCALE = 1.0 / statlib.INT8_QMAX
 
 
 def _check_supported(cfg: MKORConfig) -> None:
@@ -119,12 +132,18 @@ def _check_supported(cfg: MKORConfig) -> None:
     if cfg.staleness not in (0, 1):
         raise ValueError(f"staleness must be 0 (synchronous) or 1 "
                          f"(double-buffered), got {cfg.staleness}")
+    if cfg.factor_quant not in statlib.FACTOR_QUANT_MODES:
+        raise ValueError(
+            f"factor_quant must be one of {statlib.FACTOR_QUANT_MODES}, "
+            f"got {cfg.factor_quant!r}")
+    if cfg.factor_quant == "int8" and cfg.layout != "bank":
+        raise ValueError(
+            "factor_quant='int8' requires layout='bank': the scale / "
+            "error-feedback state is per bucket")
     todo = [
         (cfg.layout != "bank", "layout='per_layer' (ROADMAP queue 1 item "
          "20)"),
         (cfg.health, "health=True (ROADMAP queue 1 item 14)"),
-        (cfg.factor_quant == "int8", "factor_quant='int8' (ROADMAP queue 1 "
-         "item 15)"),
         (cfg.dist is not None or cfg.live is not None,
          "dist / live (ROADMAP queue 1 items 16-17)"),
         (cfg.hybrid, "hybrid / mkor_h (ROADMAP queue 1 item 10)"),
@@ -134,8 +153,6 @@ def _check_supported(cfg: MKORConfig) -> None:
             raise NotImplementedError(f"MKOR port: {what} is not ported yet")
     if cfg.variant not in ("paper", "exact_smw"):
         raise ValueError(f"unknown variant {cfg.variant!r}")
-    if cfg.factor_quant not in ("none", "bf16"):
-        raise ValueError(f"unknown factor_quant {cfg.factor_quant!r}")
 
 
 # ----------------------------------------------------------------------- #
@@ -261,40 +278,87 @@ def mkor(backend: GradientTransformation,
          cfg: MKORConfig = MKORConfig()) -> GradientTransformation:
     """MKOR wrapping a first-order ``backend`` (Alg. 1)."""
     _check_supported(cfg)
-    store_dtype = factor_storage_dtype(cfg)
+    quant8 = cfg.factor_quant == "int8"
+    store_dtype = statlib.factor_storage_dtype(cfg.factor_dtype,
+                                               cfg.factor_quant)
     win_dtype = torch.float32 if cfg.factor_quant == "none" else store_dtype
     # rank-1 staleness-1 still rides the block update (a 1-row window);
     # rank 1 at staleness 0 keeps the rank-1 state tree
     needs_window = cfg.rank > 1 or cfg.staleness > 0
+    # a bank side is a tuple of the bank's entries: (inverse,), or (codes,
+    # scale, error feedback) with int8 storage
+    side_keys = ((("l_inv", "l_scale", "l_ef"), ("r_inv", "r_scale", "r_ef"))
+                 if quant8 else (("l_inv",), ("r_inv",)))
+
+    def unpack(bank):
+        return tuple(tuple(bank[k] for k in keys) for keys in side_keys)
+
+    def pack(l_side, r_side):
+        return {k: t for keys, side in zip(side_keys, (l_side, r_side))
+                for k, t in zip(keys, side)}
 
     def stab(bank):
         return stabilize(bank, cfg.stabilizer_threshold, cfg.zeta)
 
-    def banked_smw(bank, v):
-        """Stabilize, then rank-1 SMW over a whole bank (*lead, d, d)."""
-        jb = stab(bank)
-        if cfg.use_kernels:
-            return kops.smw_rank1_update_banked(
-                jb, v, gamma=cfg.gamma, variant=cfg.variant, out=jb)
-        return smw_rank1_update(jb, v, cfg.gamma, cfg.variant)
+    def decode(side):
+        return statlib.quant_decode(side[0], side[1])
 
-    def banked_block(bank, win, cnt):
-        """Stabilize, then consume the windows ``win`` (*lead, r, d) with
-        fill counts ``cnt`` (``lead``) in one block update per bank."""
-        jb = stab(bank)
-        v_ord = statlib.window_ordered(win, cnt)
+    def side_rank1(side, v):
+        """Rank-1 SMW on one bank side (*lead, d, d) with stats (*lead,
+        d).  bf16 / fp32: stabilize, then update.  int8: update the codes
+        (fp32 out), stabilize, requantize with the error feedback."""
+        if quant8:
+            q, sc, ef = side
+            if cfg.use_kernels:
+                f = kops.smw_rank1_update_banked(
+                    q, v, gamma=cfg.gamma, variant=cfg.variant, scale=sc)
+            else:
+                f = smw_rank1_update(decode(side), v, cfg.gamma, cfg.variant)
+            return statlib.quant_requantize(stab(f), ef)
+        jb = stab(side[0])
         if cfg.use_kernels:
-            return kops.smw_block_update_banked(
+            return (kops.smw_rank1_update_banked(
+                jb, v, gamma=cfg.gamma, variant=cfg.variant, out=jb),)
+        return (smw_rank1_update(jb, v, cfg.gamma, cfg.variant),)
+
+    def side_block(side, v_ord, cnt):
+        """One block update of a bank side (*lead, d, d) from the ordered
+        window rows ``v_ord`` (*lead, r, d) with fill counts ``cnt``
+        (``lead``), in the order of :func:`side_rank1`."""
+        if quant8:
+            q, sc, ef = side
+            if cfg.use_kernels:
+                f = kops.smw_block_update_banked(
+                    q, v_ord, cnt, gamma=cfg.gamma, variant=cfg.variant,
+                    scale=sc)
+            else:
+                f = smw_block_update(decode(side), v_ord, cfg.gamma,
+                                     cfg.variant, n_valid=cnt)
+            return statlib.quant_requantize(stab(f), ef)
+        jb = stab(side[0])
+        if cfg.use_kernels:
+            return (kops.smw_block_update_banked(
                 jb, v_ord, cnt, gamma=cfg.gamma, variant=cfg.variant,
-                out=jb)
-        return smw_block_update(jb, v_ord, cfg.gamma, cfg.variant,
-                                n_valid=cnt)
+                out=jb),)
+        return (smw_block_update(jb, v_ord, cfg.gamma, cfg.variant,
+                                 n_valid=cnt),)
 
-    def banked_precond(l_bank, r_bank, gw, n_lead):
+    def window_rows(win, name, cnt):
+        """The fp32 (or stored-dtype) rows of window ``name`` ("a" or
+        "g"), decoded first when int8, then ordered oldest-first."""
+        rows = statlib.window_decode(win[name], win[name + "_scale"]) \
+            if quant8 else win[name]
+        return statlib.window_ordered(rows, cnt)
+
+    def banked_precond(l_side, r_side, gw, n_lead):
         if cfg.use_kernels:
-            delta = kops.fused_precondition_banked(l_bank, r_bank, gw,
-                                                   rescale=cfg.rescale)
+            scales = dict(l_scale=l_side[1], r_scale=r_side[1]) \
+                if quant8 else {}
+            delta = kops.fused_precondition_banked(
+                l_side[0], r_side[0], gw, rescale=cfg.rescale, **scales)
         else:
+            l_bank, r_bank = (decode(l_side), decode(r_side)) if quant8 \
+                else (l_side[0], r_side[0])
             delta = precondition(l_bank, r_bank, gw)
             if cfg.rescale:
                 delta = rescale_update(delta, gw, n_lead)
@@ -306,21 +370,34 @@ def mkor(backend: GradientTransformation,
             shape = (b.n_slots,) + b.stack
             dev = statlib.tree_get(params, b.paths[0])["w"].device
 
-            def eye(d):
-                return torch.eye(d, dtype=store_dtype, device=dev).expand(
+            def eye(d, dtype):
+                return torch.eye(d, dtype=dtype, device=dev).expand(
                     shape + (d, d)).contiguous()
+
+            def side(d):
+                if not quant8:
+                    return (eye(d, store_dtype),)
+                return (eye(d, torch.int8).mul_(int(statlib.INT8_QMAX)),
+                        torch.full(shape, _QUANT_ID_SCALE,
+                                   dtype=torch.float32, device=dev),
+                        torch.zeros(shape + (d, d), dtype=torch.float32,
+                                    device=dev))
 
             def window(d):
                 return torch.zeros(shape + (cfg.rank, d), dtype=win_dtype,
                                    device=dev)
 
-            banks[b.bucket_id] = {"l_inv": eye(b.d_out),
-                                  "r_inv": eye(b.d_in)}
+            banks[b.bucket_id] = pack(side(b.d_out), side(b.d_in))
             if needs_window:
-                windows[b.bucket_id] = {
-                    "a": window(b.d_in), "g": window(b.d_out),
-                    "n": torch.zeros((b.n_slots,), dtype=torch.int32,
-                                     device=dev)}
+                win = {"a": window(b.d_in), "g": window(b.d_out),
+                       "n": torch.zeros((b.n_slots,), dtype=torch.int32,
+                                        device=dev)}
+                if quant8:
+                    # per-row scales: a push encodes only its own row
+                    for k in ("a_scale", "g_scale"):
+                        win[k] = torch.zeros(shape + (cfg.rank,),
+                                             dtype=torch.float32, device=dev)
+                windows[b.bucket_id] = win
         state = {"count": 0, "factor_banks": banks}
         if needs_window:
             state["stat_windows"] = windows
@@ -360,14 +437,19 @@ def mkor(backend: GradientTransformation,
 
     def push_windows(bucket, win, slots, gv, av):
         """Push this step's stats of ``slots`` into the bucket's windows.
-        Returns the sliced ``(a, g, n)`` of those slots after the push and
-        the ``put`` that writes slices back."""
+        Returns the window entries of those slots after the push (``n``
+        counted up) and the ``(take, put)`` over the slot dim."""
         take, put = slot_access(bucket, slots, win["n"].device)
         cnt = take(win["n"])
         cnt_b = cnt.reshape(cnt.shape + (1,) * len(bucket.stack))
-        aw = statlib.window_push(take(win["a"]), cnt_b, av)
-        gw = statlib.window_push(take(win["g"]), cnt_b, gv)
-        return aw, gw, cnt + 1, take, put
+        sub = {"n": cnt + 1}
+        for name, vec in (("a", av), ("g", gv)):
+            if quant8:
+                sub[name], sub[name + "_scale"] = statlib.window_push_quant(
+                    take(win[name]), take(win[name + "_scale"]), cnt_b, vec)
+            else:
+                sub[name] = statlib.window_push(take(win[name]), cnt_b, vec)
+        return sub, take, put
 
     def lead_counts(cnt, bank):
         """Per-slot counts broadcast over the stack dims of ``bank``."""
@@ -375,9 +457,16 @@ def mkor(backend: GradientTransformation,
         return cnt.reshape(cnt.shape + (1,) * ns).expand(
             bank.shape[:ns + 1])
 
-    def precondition_bucket(out, bucket, l_bank, r_bank, g_ws):
+    def block_sides(l_side, r_side, win, cnt):
+        """Both sides' block updates from window ``win`` (ḡ rows update L,
+        ā rows R) with per-slot fill counts ``cnt``."""
+        c_full = lead_counts(cnt, l_side[0])
+        return (side_block(l_side, window_rows(win, "g", c_full), c_full),
+                side_block(r_side, window_rows(win, "a", c_full), c_full))
+
+    def precondition_bucket(out, bucket, l_side, r_side, g_ws):
         """Lines 9-10: one precondition + rescale per bucket."""
-        delta = banked_precond(l_bank, r_bank, torch.stack(g_ws),
+        delta = banked_precond(l_side, r_side, torch.stack(g_ws),
                                1 + len(bucket.stack))
         for i, path in enumerate(bucket.paths):
             out = statlib.tree_set(
@@ -393,8 +482,7 @@ def mkor(backend: GradientTransformation,
         out = grads
         for bucket in manifest:
             bid = bucket.bucket_id
-            bank = state["factor_banks"][bid]
-            l_bank, r_bank = bank["l_inv"], bank["r_inv"]
+            l_side, r_side = unpack(state["factor_banks"][bid])
             g_ws, slots, gv, av = bucket_inputs(bucket, grads, stats)
             do_inv = count % cfg.inv_freq == phases[bid]
             # --- lines 5-8.  Slots without stats this step keep their
@@ -405,23 +493,24 @@ def mkor(backend: GradientTransformation,
                     # push, then on the phase step consume each slot's
                     # whole window and reset its count (the push precedes
                     # the consume, so the phase step's own stats count)
-                    aw, gw, cnt, take, put = push_windows(bucket, win, slots,
-                                                          gv, av)
+                    sub, take, put = push_windows(bucket, win, slots, gv, av)
                     if do_inv:
-                        l_sub, r_sub = take(l_bank), take(r_bank)
-                        c_full = lead_counts(cnt, l_sub)
-                        l_bank = put(l_bank, banked_block(l_sub, gw, c_full))
-                        r_bank = put(r_bank, banked_block(r_sub, aw, c_full))
-                        cnt = torch.zeros_like(cnt)
-                    win = {"a": put(win["a"], aw), "g": put(win["g"], gw),
-                           "n": put(win["n"], cnt)}
+                        l_new, r_new = block_sides(
+                            tuple(map(take, l_side)),
+                            tuple(map(take, r_side)), sub, sub["n"])
+                        l_side = tuple(map(put, l_side, l_new))
+                        r_side = tuple(map(put, r_side, r_new))
+                        sub["n"] = torch.zeros_like(sub["n"])
+                    win = {k: put(win[k], sub[k]) for k in win}
                 new_windows[bid] = win
             elif slots and do_inv:
-                take, put = slot_access(bucket, slots, l_bank.device)
-                l_bank = put(l_bank, banked_smw(take(l_bank), gv))
-                r_bank = put(r_bank, banked_smw(take(r_bank), av))
-            new_banks[bid] = {"l_inv": l_bank, "r_inv": r_bank}
-            out = precondition_bucket(out, bucket, l_bank, r_bank, g_ws)
+                take, put = slot_access(bucket, slots, l_side[0].device)
+                l_side = tuple(map(put, l_side, side_rank1(
+                    tuple(map(take, l_side)), gv)))
+                r_side = tuple(map(put, r_side, side_rank1(
+                    tuple(map(take, r_side)), av)))
+            new_banks[bid] = pack(l_side, r_side)
+            out = precondition_bucket(out, bucket, l_side, r_side, g_ws)
         fstate = {"factor_banks": new_banks}
         if cfg.rank > 1:
             fstate["stat_windows"] = new_windows
@@ -436,7 +525,8 @@ def mkor(backend: GradientTransformation,
         carries (stats through the previous step); the window's count
         resets.  Its rows persist (the count masks stale rows).  A slot
         whose window was never written carries count 0: its update is an
-        exact no-op."""
+        exact no-op.  With int8 storage the side triples move together,
+        so the error feedback rides the pending bank."""
         manifest = manifest_for(tree, cfg)
         phases = statlib.bucket_phases(manifest, cfg.inv_freq, cfg.stagger)
         count = state["count"]
@@ -448,13 +538,9 @@ def mkor(backend: GradientTransformation,
             if count % cfg.inv_freq != phases[bid]:
                 continue
             pend, win = pending[bid], windows[bid]
-            c_full = lead_counts(win["n"], pend["l_inv"])
             active[bid] = pend
-            pending[bid] = {
-                "l_inv": banked_block(pend["l_inv"], win["g"], c_full),
-                "r_inv": banked_block(pend["r_inv"], win["a"], c_full)}
-            windows[bid] = {"a": win["a"], "g": win["g"],
-                            "n": torch.zeros_like(win["n"])}
+            pending[bid] = pack(*block_sides(*unpack(pend), win, win["n"]))
+            windows[bid] = {**win, "n": torch.zeros_like(win["n"])}
         return {**state, "factor_banks": active, "pending_banks": pending,
                 "stat_windows": windows}
 
@@ -466,16 +552,15 @@ def mkor(backend: GradientTransformation,
         out = grads
         for bucket in manifest:
             bid = bucket.bucket_id
-            bank = state["factor_banks"][bid]
             g_ws, slots, gv, av = bucket_inputs(bucket, grads, stats)
             win = state["stat_windows"][bid]
             if slots:
-                aw, gw, cnt, _, put = push_windows(bucket, win, slots, gv, av)
-                win = {"a": put(win["a"], aw), "g": put(win["g"], gw),
-                       "n": put(win["n"], cnt)}
+                sub, _, put = push_windows(bucket, win, slots, gv, av)
+                win = {k: put(win[k], sub[k]) for k in win}
             new_windows[bid] = win
-            out = precondition_bucket(out, bucket, bank["l_inv"],
-                                      bank["r_inv"], g_ws)
+            out = precondition_bucket(out, bucket,
+                                      *unpack(state["factor_banks"][bid]),
+                                      g_ws)
         return out, {"factor_banks": state["factor_banks"],
                      "pending_banks": state["pending_banks"],
                      "stat_windows": new_windows}

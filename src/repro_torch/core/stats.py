@@ -13,10 +13,11 @@ Conventions, as in the reference:
 
 The manifest is a pure function of the tree structure and the leaf shapes,
 so it can be rebuilt at every ``update`` and always agrees with ``init``.
-The rank-r stat windows (``window_push`` / ``window_ordered``) are here;
-int8 storage (``window_push_quant``, ``window_decode``) and the owner maps
-of the distributed path arrive with their slices (ROADMAP queue 1 items
-15, 16).
+The rank-r stat windows (``window_push`` / ``window_ordered``) and the
+int8 storage helpers (``quant_encode`` / ``quant_decode`` /
+``quant_requantize``, ``window_push_quant`` / ``window_decode``) are here;
+the owner maps of the distributed path arrive with their slice (ROADMAP
+queue 1 item 16).
 """
 from __future__ import annotations
 
@@ -256,6 +257,104 @@ def window_ordered(win: torch.Tensor, count) -> torch.Tensor:
         shift[..., None] + torch.arange(r, device=win.device), r)
     rows = rows.broadcast_to(win.shape[:-1])
     return torch.gather(win, -2, rows[..., None].expand(win.shape))
+
+
+# ----------------------------------------------------------------------- #
+# Quantized factor storage (``MKORConfig.factor_quant``)
+#
+#   none — store at ``factor_dtype``;
+#   bf16 — bfloat16 storage whatever ``factor_dtype`` says;
+#   int8 — per-slice symmetric int8 codes + fp32 scales, with fp32
+#          error-feedback accumulators on the bank requantization path.
+# The helpers below are the encode/decode arithmetic of the reference,
+# operation for operation, so codes, scales and error feedback come out
+# bit-equal to it on the CPU.  The CUDA kernels take the codes and the
+# per-slice scales and decode at the load site (kernels/rank1_smw.py,
+# kernels/precond.py): no fp32 copy of a resident bank is made for them.
+# ----------------------------------------------------------------------- #
+FACTOR_QUANT_MODES = ("none", "bf16", "int8")
+
+# symmetric range: ±127 keeps decode(q) = -decode(-q) exact
+INT8_QMAX = 127.0
+
+# floor on a slice's max-abs before the division: an all-zero slice (a
+# zeroed window row) encodes to exact zeros, not NaN
+QUANT_SCALE_EPS = 1e-30
+
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "int8": torch.int8}
+
+
+def factor_storage_dtype(factor_dtype: str,
+                         factor_quant: str) -> torch.dtype:
+    """Resident dtype of the factor banks under ``factor_quant``."""
+    if factor_quant == "int8":
+        return torch.int8
+    if factor_quant == "bf16":
+        return torch.bfloat16
+    return _TORCH_DTYPES[factor_dtype]
+
+
+def _expand(scale: torch.Tensor, axes: int) -> torch.Tensor:
+    return scale.reshape(tuple(scale.shape) + (1,) * axes)
+
+
+def quant_encode(x: torch.Tensor, axes: int = 2):
+    """Per-slice symmetric int8 encode: ``(codes int8, scale fp32)``.
+
+    The trailing ``axes`` dims are one slice (2 for a (d, d) factor, 1 for
+    a window row); ``scale.shape == x.shape[:-axes]``.  scale =
+    max(max|x|, 1e-30) / 127 and codes = round(x / scale) (a division, and
+    ``torch.round`` rounds half to even as ``jnp.round`` does), clipped to
+    ±127."""
+    xf = x.float()
+    red = tuple(range(xf.ndim - axes, xf.ndim))
+    amax = torch.amax(torch.abs(xf), dim=red)
+    scale = torch.clamp(amax, min=QUANT_SCALE_EPS) / INT8_QMAX
+    q = torch.clamp(torch.round(xf / _expand(scale, axes)), -INT8_QMAX,
+                    INT8_QMAX).to(torch.int8)
+    return q, scale
+
+
+def quant_decode(q: torch.Tensor, scale: torch.Tensor,
+                 axes: int = 2) -> torch.Tensor:
+    """fp32 decode of :func:`quant_encode` output: the plain routes' view of
+    an int8 bank (the kernels decode at their load sites instead)."""
+    return q.float() * _expand(scale, axes)
+
+
+def quant_requantize(x: torch.Tensor, err: torch.Tensor, axes: int = 2):
+    """Error-feedback requantization of a freshly computed fp32 bank:
+    ``(codes, scale, err')`` with ``err' = (x + err) - decode(codes,
+    scale)``, so the quantization error accumulates in the fp32
+    accumulator instead of in the codes.  ``err`` is fp32 of x's shape.
+    (The residual repeats :func:`quant_decode`'s one product inline.)"""
+    comp = x.float() + err
+    q, scale = quant_encode(comp, axes)
+    return q, scale, comp - q.float() * _expand(scale, axes)
+
+
+def window_push_quant(win: torch.Tensor, win_scale: torch.Tensor, count,
+                      vec: torch.Tensor):
+    """Quantized ring-write: encode ``vec`` per row and write the int8 row
+    and its scale into row ``count % r``.
+
+    win: (*lead, r, d) int8; win_scale: (*lead, r) fp32; vec: (*lead, d).
+    Scales are per row, so rows already in the ring keep their codes and
+    scales: each stored row is an exact encode of the vector pushed, and
+    the window needs no error feedback."""
+    qv, sv = quant_encode(vec, axes=1)
+    r = win.shape[-2]
+    pos = torch.remainder(torch.as_tensor(count, device=win.device), r)
+    onehot = torch.arange(r, device=win.device) == pos[..., None]
+    new_win = torch.where(onehot[..., None], qv[..., None, :], win)
+    new_scale = torch.where(onehot, sv[..., None], win_scale)
+    return new_win, new_scale
+
+
+def window_decode(win: torch.Tensor, win_scale: torch.Tensor) -> torch.Tensor:
+    """fp32 view of a quantized stat window (per-row scales)."""
+    return win.float() * win_scale[..., None]
 
 
 def zero_probes(tree):

@@ -48,6 +48,16 @@
 // 3.35 TB/s: it is bound by memory bytes at every rank MKOR uses.  The
 // design reads J exactly twice and writes it once, in 16-byte vectors;
 // Vt, U and M stay in L1/L2.
+//
+// int8 banks (fused_block_smw[int8], MKOR's int8 factor state): replaces
+// the quant body of the same TPU kernel (sc_ref at rank1_smw.py:214, the
+// dequantizing _j_tile at :220, the scale operand at :335-339).  J arrives
+// as int8 codes with one fp32 scale per slice; passes 1 and 3 read the
+// codes 4 to a 32-bit load, which keeps the Vt values and fp32 outputs
+// beside them one coalesced float4 a lane, and decode each one in
+// registers (code * scale), so no decoded copy of the bank exists.  The
+// update comes back fp32 for the caller to requantize, into a separate
+// output.  Pass 2 and the pivot are unchanged.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -64,22 +74,52 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 __device__ __forceinline__ void store(float v, float* p) { *p = v; }
 __device__ __forceinline__ void store(float v, __nv_bfloat16* p) {
   *p = __float2bfloat16_rn(v);
 }
 
+// The vector a lane loads from J: 16 bytes of bf16 or fp32; for int8
+// codes 4 bytes, so that the fp32 values a lane reads (v, Vt) and writes
+// (the int8 variant's fp32 output) beside them are one coalesced float4.
+template <typename T>
+struct LoadVec {
+  static constexpr int VEC = 16 / sizeof(T);
+  using Raw = uint4;
+};
+template <>
+struct LoadVec<int8_t> {
+  static constexpr int VEC = 4;
+  using Raw = uint32_t;
+};
+
+// Writes VEC values (VEC * sizeof(TO) bytes, a multiple of 16) as 16-byte
+// stores.
+template <typename TO, int VEC>
+__device__ __forceinline__ void store_vec(const float* x, TO* dst) {
+  alignas(16) TO o[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) store(x[i], o + i);
+#pragma unroll
+  for (int k = 0; k < VEC * (int)sizeof(TO) / 16; ++k)
+    reinterpret_cast<uint4*>(dst)[k] = reinterpret_cast<const uint4*>(o)[k];
+}
+
+// scale: the (batch,) int8 scales, or null (bf16 / fp32: 1).
 template <typename T, int R>
 __global__ void __launch_bounds__(kThreads)
 block_uv_kernel(const T* __restrict__ j, const float* __restrict__ vt,
-                int d, int vec, float* __restrict__ u,
-                float* __restrict__ s_part) {
-  constexpr int VEC = 16 / sizeof(T);
+                const float* __restrict__ scale, int d, int vec,
+                float* __restrict__ u, float* __restrict__ s_part) {
+  constexpr int VEC = LoadVec<T>::VEC;
+  using Raw = typename LoadVec<T>::Raw;
   const int b = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row0 = blockIdx.x * kRowsPerBlock + warp * kRowsPerWarp;
   const float* vb = vt + (long long)b * R * d;
   const T* jb = j + (long long)b * d * d;
+  const float sc = scale != nullptr ? scale[b] : 1.0f;
 
   float acc[kRowsPerWarp][R];
 #pragma unroll
@@ -94,11 +134,11 @@ block_uv_kernel(const T* __restrict__ j, const float* __restrict__ vt,
       for (int rr = 0; rr < kRowsPerWarp; ++rr) {
         const int row = row0 + rr;
         if (row < d) {
-          const uint4 raw =
-              *reinterpret_cast<const uint4*>(jb + (long long)row * d + c);
+          const Raw raw =
+              *reinterpret_cast<const Raw*>(jb + (long long)row * d + c);
           const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-          for (int q = 0; q < VEC; ++q) jv[rr][q] = to_f32(e[q]);
+          for (int q = 0; q < VEC; ++q) jv[rr][q] = to_f32(e[q]) * sc;
         } else {
 #pragma unroll
           for (int q = 0; q < VEC; ++q) jv[rr][q] = 0.0f;
@@ -125,7 +165,7 @@ block_uv_kernel(const T* __restrict__ j, const float* __restrict__ vt,
 #pragma unroll
       for (int rr = 0; rr < kRowsPerWarp; ++rr) {
         const int row = row0 + rr;
-        jv[rr] = row < d ? to_f32(jb[(long long)row * d + c]) : 0.0f;
+        jv[rr] = row < d ? to_f32(jb[(long long)row * d + c]) * sc : 0.0f;
       }
 #pragma unroll
       for (int i = 0; i < R; ++i) {
@@ -221,18 +261,22 @@ block_mid_kernel(const float* __restrict__ s_part, int n_parts,
   if (piv_out != nullptr && threadIdx.x == 0) piv_out[b] = pmin;
 }
 
-template <typename T, int R>
+// T: the bank's type; TO: the output's (T itself, or fp32 for int8).
+template <typename T, typename TO, int R>
 __global__ void __launch_bounds__(kThreads)
-block_write_kernel(const T* j, T* out, const float* __restrict__ u,
+block_write_kernel(const T* j, TO* out, const float* __restrict__ u,
                    const float* __restrict__ m_arr,
-                   const float* __restrict__ gm_arr, int d, int vec,
+                   const float* __restrict__ gm_arr,
+                   const float* __restrict__ scale, int d, int vec,
                    int variant) {
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VEC = LoadVec<T>::VEC;
+  using Raw = typename LoadVec<T>::Raw;
   const int b = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row0 = blockIdx.x * kRowsPerBlock + warp * kRowsPerWarp;
   const float gm = gm_arr[b];
   const float alpha = variant == 0 ? gm : 1.0f / gm;
+  const float sc = scale != nullptr ? scale[b] : 1.0f;
   __shared__ float ms[R * R];
   for (int t = threadIdx.x; t < R * R; t += kThreads)
     ms[t] = m_arr[(long long)b * R * R + t];
@@ -257,13 +301,14 @@ block_write_kernel(const T* j, T* out, const float* __restrict__ u,
   const long long base = (long long)b * d * d;
   if (vec) {
     for (int c = lane * VEC; c < d; c += 32 * VEC) {
-      uint4 raw[kRowsPerWarp];
+      Raw raw[kRowsPerWarp];
 #pragma unroll
       for (int rr = 0; rr < kRowsPerWarp; ++rr)
         raw[rr] = row0 + rr < d
-            ? *reinterpret_cast<const uint4*>(
+            ? *reinterpret_cast<const Raw*>(
                   j + base + (long long)(row0 + rr) * d + c)
-            : make_uint4(0u, 0u, 0u, 0u);
+            : Raw{};
+      float x[kRowsPerWarp][VEC];
 #pragma unroll
       for (int q = 0; q < VEC; ++q) {
         float uc[R];
@@ -274,15 +319,15 @@ block_write_kernel(const T* j, T* out, const float* __restrict__ u,
           float t = 0.0f;
 #pragma unroll
           for (int k = 0; k < R; ++k) t += w[rr][k] * uc[k];
-          T* e = reinterpret_cast<T*>(&raw[rr]);
-          store(alpha * to_f32(e[q]) + t, e + q);
+          const T* e = reinterpret_cast<const T*>(&raw[rr]);
+          x[rr][q] = alpha * (to_f32(e[q]) * sc) + t;
         }
       }
 #pragma unroll
       for (int rr = 0; rr < kRowsPerWarp; ++rr)
         if (row0 + rr < d)
-          *reinterpret_cast<uint4*>(out + base + (long long)(row0 + rr) * d
-                                    + c) = raw[rr];
+          store_vec<TO, VEC>(x[rr],
+                             out + base + (long long)(row0 + rr) * d + c);
     }
   } else {
     for (int c = lane; c < d; c += 32) {
@@ -297,71 +342,81 @@ block_write_kernel(const T* j, T* out, const float* __restrict__ u,
 #pragma unroll
         for (int k = 0; k < R; ++k) t += w[rr][k] * uc[k];
         const long long at = base + (long long)row * d + c;
-        store(alpha * to_f32(j[at]) + t, out + at);
+        store(alpha * (to_f32(j[at]) * sc) + t, out + at);
       }
     }
   }
 }
 
-template <typename T, int R>
-int launch(const void* j, const float* vt, const float* gm, void* out,
-           float* u, float* s_part, float* m, float* piv, int d, int batch,
-           int r_real, int vec, int variant, cudaStream_t stream) {
+template <typename T, typename TO, int R>
+int launch(const void* j, const float* vt, const float* gm,
+           const float* scale, void* out, float* u, float* s_part, float* m,
+           float* piv, int d, int batch, int r_real, int vec, int variant,
+           cudaStream_t stream) {
   const dim3 grid((d + kRowsPerBlock - 1) / kRowsPerBlock, batch);
   block_uv_kernel<T, R><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(j), vt, d, vec, u, s_part);
+      static_cast<const T*>(j), vt, scale, d, vec, u, s_part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   block_mid_kernel<R><<<batch, kThreads, 0, stream>>>(
       s_part, (int)grid.x, gm, variant, r_real, m, piv);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  block_write_kernel<T, R><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(j), static_cast<T*>(out), u, m, gm, d, vec,
-      variant);
+  block_write_kernel<T, TO, R><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(j), static_cast<TO*>(out), u, m, gm, scale, d,
+      vec, variant);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename TO>
 int dispatch(int rank, const void* j, const float* vt, const float* gm,
-             void* out, float* u, float* s_part, float* m, float* piv, int d,
-             int batch, int r_real, int vec, int variant,
-             cudaStream_t stream) {
+             const float* scale, void* out, float* u, float* s_part,
+             float* m, float* piv, int d, int batch, int r_real, int vec,
+             int variant, cudaStream_t stream) {
+#define MKOR_BLOCK_RANK(R)                                                 \
+  case R:                                                                  \
+    return launch<T, TO, R>(j, vt, gm, scale, out, u, s_part, m, piv, d,   \
+                            batch, r_real, vec, variant, stream);
   switch (rank) {
-    case 1: return launch<T, 1>(j, vt, gm, out, u, s_part, m, piv, d, batch,
-                                r_real, vec, variant, stream);
-    case 2: return launch<T, 2>(j, vt, gm, out, u, s_part, m, piv, d, batch,
-                                r_real, vec, variant, stream);
-    case 4: return launch<T, 4>(j, vt, gm, out, u, s_part, m, piv, d, batch,
-                                r_real, vec, variant, stream);
-    case 8: return launch<T, 8>(j, vt, gm, out, u, s_part, m, piv, d, batch,
-                                r_real, vec, variant, stream);
-    case 16: return launch<T, 16>(j, vt, gm, out, u, s_part, m, piv, d,
-                                  batch, r_real, vec, variant, stream);
+    MKOR_BLOCK_RANK(1)
+    MKOR_BLOCK_RANK(2)
+    MKOR_BLOCK_RANK(4)
+    MKOR_BLOCK_RANK(8)
+    MKOR_BLOCK_RANK(16)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef MKOR_BLOCK_RANK
 }
 
 }  // namespace
 
-// j, out: (batch, d, d) bf16 (j_f32 = 0) or fp32; vt: (batch, rank, d) fp32
-// (rows beyond r_real zero); gm: (batch,) fp32; u: (batch, d, rank) fp32
-// scratch; s_part: (batch, mkor_block_smw_partials(d), rank * rank) fp32
-// scratch; m: (batch, rank * rank) fp32 scratch; piv: (batch,) fp32 or
-// null (then no pivot is written).  out may equal j.  rank is 1, 2, 4, 8
-// or 16.  variant: 0 = paper, 1 = exact_smw.
+// j: (batch, d, d) of type j_type (0 bf16, 1 fp32, 2 int8); out: the same
+// shape in j's type, or fp32 for int8 (then scale is the (batch,) fp32
+// per-slice scale, else null).  vt: (batch, rank, d) fp32 (rows beyond
+// r_real zero); gm: (batch,) fp32; u: (batch, d, rank) fp32 scratch;
+// s_part: (batch, mkor_block_smw_partials(d), rank * rank) fp32 scratch;
+// m: (batch, rank * rank) fp32 scratch; piv: (batch,) fp32 or null (then
+// no pivot is written).  out may equal j when the types agree.  rank is
+// 1, 2, 4, 8 or 16.  variant: 0 = paper, 1 = exact_smw.
 extern "C" int mkor_fused_block_smw(const void* j, const float* vt,
-                                    const float* gm, void* out, float* u,
-                                    float* s_part, float* m, float* piv,
-                                    int d, int batch, int rank, int r_real,
-                                    int j_f32, int vec, int variant,
-                                    void* stream) {
+                                    const float* gm, const float* scale,
+                                    void* out, float* u, float* s_part,
+                                    float* m, float* piv, int d, int batch,
+                                    int rank, int r_real, int j_type,
+                                    int vec, int variant, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (j_f32)
-    return dispatch<float>(rank, j, vt, gm, out, u, s_part, m, piv, d, batch,
-                           r_real, vec, variant, s);
-  return dispatch<__nv_bfloat16>(rank, j, vt, gm, out, u, s_part, m, piv, d,
-                                 batch, r_real, vec, variant, s);
+  switch (j_type) {
+    case 0: return dispatch<__nv_bfloat16, __nv_bfloat16>(
+        rank, j, vt, gm, nullptr, out, u, s_part, m, piv, d, batch, r_real,
+        vec, variant, s);
+    case 1: return dispatch<float, float>(
+        rank, j, vt, gm, nullptr, out, u, s_part, m, piv, d, batch, r_real,
+        vec, variant, s);
+    case 2: return dispatch<int8_t, float>(
+        rank, j, vt, gm, scale, out, u, s_part, m, piv, d, batch, r_real,
+        vec, variant, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int mkor_block_smw_partials(int d) {

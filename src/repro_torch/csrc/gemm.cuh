@@ -12,6 +12,13 @@
 // from a float32 GEMM only by the dropped lo*lo term (about 2^-16
 // relative) and the summation order.
 //
+// An int8 operand (the codes of MKOR's int8 factor banks) is read as
+// 1-byte loads, 16 to a 16-byte vector, and enters shared memory as one
+// bf16 part: |code| <= 127 is exact in bf16, so it needs no hi/lo split.
+// Its per-slice scale is a scalar factor of the product, so the epilogue
+// multiplies the accumulator by scale_a[b] * scale_b[b] before the store
+// and before the sum of squares: no decoded copy of the operand exists.
+//
 // Design, simple first: 128x128 block tile, BK = 32, 8 warps each owning
 // a 64x32 sub-tile (4x2 fragments).  Two shared-memory stages with the
 // next tile's global loads held in registers while the current tile is
@@ -42,6 +49,10 @@ template <typename T>
 struct IsF32 { static constexpr bool value = false; };
 template <>
 struct IsF32<float> { static constexpr bool value = true; };
+template <typename T>
+struct IsI8 { static constexpr bool value = false; };
+template <>
+struct IsI8<int8_t> { static constexpr bool value = true; };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -61,6 +72,8 @@ struct GemmArgs {
   long long sa, sb, sc;     // batch strides, elements (0 = broadcast)
   int vec_a, vec_b;         // 16-byte aligned rows: vector tile loads
   float* sumsq;             // optional per-batch sum of squares of C
+  const float* scale_a;     // per-batch scale of an int8 A, else null
+  const float* scale_b;     // per-batch scale of an int8 B, else null
 };
 
 template <typename T>
@@ -71,12 +84,15 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 zero_value<__nv_bfloat16>() {
   return __float2bfloat16_rn(0.0f);
 }
+template <>
+__device__ __forceinline__ int8_t zero_value<int8_t>() { return 0; }
 
 // One (ROWS x COLS) tile of a row-major matrix, moved in two halves so the
 // global loads of tile k+1 are in flight while the tensor cores work on
 // tile k: fetch() reads 16-byte chunks into registers (masking the ragged
 // edge with zeros), commit() converts them to bf16 (hi, and lo for a
-// float32 source) and stores them to shared memory.
+// float32 source; int8 codes convert exactly) and stores them to shared
+// memory.
 template <typename T, int ROWS, int COLS>
 struct TileLoader {
   static constexpr int VEC = 16 / sizeof(T);
@@ -115,7 +131,15 @@ struct TileLoader {
     for (int p = 0; p < PER_THREAD; ++p) {
       const int ch = threadIdx.x + p * kThreads;
       const int r = ch / (COLS / VEC), c = (ch % (COLS / VEC)) * VEC;
-      if (!IsF32<T>::value) {               // bf16 source: copy as is
+      if constexpr (IsI8<T>::value) {       // int8 codes: exact in bf16
+        const int8_t* e = reinterpret_cast<const int8_t*>(&regs[p]);
+        alignas(16) __nv_bfloat16 h[VEC];
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) h[i] = __float2bfloat16_rn((float)e[i]);
+        uint4* dst = reinterpret_cast<uint4*>(hi + r * LD + c);
+        dst[0] = reinterpret_cast<const uint4*>(h)[0];
+        dst[1] = reinterpret_cast<const uint4*>(h)[1];
+      } else if constexpr (!IsF32<T>::value) {  // bf16 source: copy as is
         *reinterpret_cast<uint4*>(hi + r * LD + c) = regs[p];
       } else {                              // float32: bf16 hi (+ lo)
         const float* e = reinterpret_cast<const float*>(&regs[p]);
@@ -235,8 +259,10 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(GemmArgs p) {
     __syncthreads();
   }
 
-  // Epilogue: stage each fragment through shared memory, masked stores,
-  // optional sum of squares.
+  // Epilogue: stage each fragment through shared memory, apply the int8
+  // operands' scales, masked stores, optional sum of squares.
+  const float cs = (p.scale_a != nullptr ? p.scale_a[batch] : 1.0f) *
+                   (p.scale_b != nullptr ? p.scale_b[batch] : 1.0f);
   float sq = 0.0f;
   float* st = stage_all + warp * 256;
   const int er = lane / 2, ec = (lane % 2) * 8;
@@ -252,7 +278,7 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(GemmArgs p) {
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
           if (gc0 + e < p.n) {
-            const float v = st[er * 16 + ec + e];
+            const float v = st[er * 16 + ec + e] * cs;
             from_f32(v, C + (long long)gr * p.ldc + gc0 + e);
             sq += v * v;
           }
@@ -280,12 +306,25 @@ cudaError_t launch_gemm(const GemmArgs& p, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Runtime dispatch over the operand types: a_f32 / b_f32 / c_f32 select
-// float32 (1) or bf16 (0) for A, B and C.
-inline cudaError_t dispatch_gemm(const GemmArgs& p, int batch, int a_f32,
-                                 int b_f32, int c_f32, cudaStream_t s) {
+// Runtime dispatch over the operand types: a_type / b_type are 0 (bf16),
+// 1 (float32) or 2 (int8, with its scale in p), c_f32 selects a float32
+// (1) or bf16 (0) C.  An int8 operand pairs with a bf16 or float32 one
+// and a float32 C; other int8 combinations are refused.
+inline cudaError_t dispatch_gemm(const GemmArgs& p, int batch, int a_type,
+                                 int b_type, int c_f32, cudaStream_t s) {
   using bf = __nv_bfloat16;
-  const int code = (a_f32 << 2) | (b_f32 << 1) | c_f32;
+  using i8 = int8_t;
+  if (a_type == 2 || b_type == 2) {
+    if (!c_f32) return cudaErrorInvalidValue;
+    switch (a_type * 3 + b_type) {
+      case 6: return launch_gemm<i8, bf, float>(p, batch, s);
+      case 7: return launch_gemm<i8, float, float>(p, batch, s);
+      case 2: return launch_gemm<bf, i8, float>(p, batch, s);
+      case 5: return launch_gemm<float, i8, float>(p, batch, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  const int code = (a_type << 2) | (b_type << 1) | c_f32;
   switch (code) {
     case 0: return launch_gemm<bf, bf, bf>(p, batch, s);
     case 1: return launch_gemm<bf, bf, float>(p, batch, s);

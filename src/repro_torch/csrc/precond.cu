@@ -25,6 +25,18 @@
 // (fp32), a bytes-bound tail.  Summation order (atomics) varies from run
 // to run, so results agree with the plain version to float32 rounding,
 // not bit for bit.
+//
+// int8 factors (fused_precond[int8], MKOR's int8 factor state): replaces
+// the quant body of the same TPU kernel (precond.py:57-63, the dequantized
+// R and L panels at :86-88 and :94-96, the scale operands at :140-143).
+// R and L arrive as int8 codes with one fp32 scale per slice.  The codes
+// enter the tensor cores as single bf16 parts (exact, gemm.cuh) in both
+// products -- the first one through matmul.cu, with the scale of its int8
+// operand -- and each product's scale multiplies its accumulator in the
+// epilogue, before the sum of squares of D and before the store.  With
+// rescale on the two scales cancel in exact arithmetic, but they are
+// applied all the same: the output without rescale, and the sum of
+// squares against the 1e-30 guard, depend on them.
 #include "gemm.cuh"
 
 namespace {
@@ -67,13 +79,16 @@ __global__ void rescale_kernel(float* __restrict__ d, long long per_batch,
 
 // p (batch, m, k) @ q (batch, k, n) -> out (batch, m, n) fp32, rescaled
 // per slice by ||g[b]||_F / max(||out[b]||_F, 1e-30) when rescale != 0.
-// g is (batch, g_elems) bf16 or fp32; sums is a (2 * batch) fp32 scratch.
+// p_type / q_type: 0 bf16, 1 fp32, 2 int8 (then p_scale / q_scale is its
+// (batch,) fp32 scale, else null).  g is (batch, g_elems) bf16 or fp32;
+// sums is a (2 * batch) fp32 scratch.
 extern "C" int mkor_fused_precond(const void* p, const void* q,
                                   const void* g, float* out, float* sums,
-                                  int m, int n, int k, int batch,
-                                  int p_f32, int q_f32, int g_f32,
-                                  int vec_p, int vec_q, int rescale,
-                                  void* stream_ptr) {
+                                  const float* p_scale,
+                                  const float* q_scale, int m, int n, int k,
+                                  int batch, int p_type, int q_type,
+                                  int g_f32, int vec_p, int vec_q,
+                                  int rescale, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const long long per_out = (long long)m * n;
   float* gsq = sums;
@@ -94,8 +109,8 @@ extern "C" int mkor_fused_precond(const void* p, const void* q,
   }
   mkor::GemmArgs a{p, q, out, m, n, k, (long long)k, (long long)n,
                    (long long)n, (long long)m * k, (long long)k * n, per_out,
-                   vec_p, vec_q, rescale ? dsq : nullptr};
-  cudaError_t err = mkor::dispatch_gemm(a, batch, p_f32, q_f32, 1, stream);
+                   vec_p, vec_q, rescale ? dsq : nullptr, p_scale, q_scale};
+  cudaError_t err = mkor::dispatch_gemm(a, batch, p_type, q_type, 1, stream);
   if (err != cudaSuccess || !rescale) return (int)err;
   rescale_kernel<<<dim3(256, batch), 256, 0, stream>>>(out, per_out, gsq, dsq);
   return (int)cudaGetLastError();

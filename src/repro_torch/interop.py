@@ -52,13 +52,17 @@ def params_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
 
 def banks_from_numpy(banks: Any, device: DeviceLike = None) -> Any:
     """MKOR factor banks ``state["factor_banks"]`` (as numpy, keyed by
-    bucket id, each ``{"l_inv", "r_inv"}``) → the port's banks."""
+    bucket id, each ``{"l_inv", "r_inv"}``, or with int8 factor state
+    ``{"l_inv", "l_scale", "l_ef", "r_inv", "r_scale", "r_ef"}``: int8
+    codes, fp32 scales and error feedback) → the port's banks, bit for
+    bit."""
     return tree_from_numpy(banks, device)
 
 
 def windows_from_numpy(windows: Any, device: DeviceLike = None) -> Any:
     """MKOR rank-r stat windows ``state["stat_windows"]`` (as numpy, keyed
-    by bucket id, each ``{"a", "g", "n"}`` with ``n`` int32) → the port's
+    by bucket id, each ``{"a", "g", "n"}`` with ``n`` int32, plus the
+    per-row fp32 ``a_scale`` / ``g_scale`` of int8 rows) → the port's
     windows.  ``pending_banks`` carry over with :func:`banks_from_numpy`."""
     return tree_from_numpy(windows, device)
 

@@ -46,23 +46,24 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
 _SIGNATURES = {
     "rank1_smw": {
-        "mkor_fused_smw": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+        "mkor_fused_smw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                           _P],
         "mkor_smw_partials": [_I],
         "mkor_matvec": [_P, _P, _P, _I, _I, _I, _I, _P],
         "mkor_rank1_update": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     },
     "block_smw": {
-        "mkor_fused_block_smw": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                 _I, _I, _I, _I, _P],
+        "mkor_fused_block_smw": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _I, _I, _I, _I, _P],
         "mkor_block_smw_partials": [_I],
     },
     "matmul": {
-        "mkor_matmul": [_P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _LL, _LL,
-                        _LL, _I, _I, _I, _I, _I, _I, _P],
+        "mkor_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _LL,
+                        _LL, _LL, _I, _I, _I, _I, _I, _I, _P],
     },
     "precond": {
-        "mkor_fused_precond": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _P],
+        "mkor_fused_precond": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _I, _P],
     },
 }
 
@@ -180,6 +181,21 @@ def check_tensor(t: torch.Tensor, name: str, kernel: str, dtypes,
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+# the C entry points' operand type codes
+DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    return DTYPE_CODES[t.dtype]
+
+
+def check_scale(scale: torch.Tensor, name: str, kernel: str, batch: int,
+                device) -> None:
+    """An int8 operand's per-slice scales: (batch,) fp32 on ``device``."""
+    check_tensor(scale, name, kernel, (torch.float32,), shape=(batch,),
+                 device=device)
 
 
 def rows_aligned(t: torch.Tensor, row: int) -> bool:

@@ -22,6 +22,14 @@ needs).  Only a gradient with extra broadcast dims (experts under shared
 factors) falls back to :func:`two_sided_precondition` (two ``matmul``
 launches plus a rescale); that fallback is counted in
 :func:`fallback_counts` and warned about.
+
+int8 factor banks (MKOR's int8 factor state) pass their codes with
+``lead``-shaped fp32 scales: ``scale=`` for the SMW entries,
+``l_scale=`` / ``r_scale=`` (both or neither) for the precondition.  The
+scales are flattened with the bank, so it is still one launch per bank
+side, counted as ``fused_smw[int8]``, ``fused_block_smw[int8]`` and
+``fused_precond[int8]``, and the SMW updates come back fp32 for the caller
+to requantize.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels import matmul as mm
 from repro_torch.kernels import precond as pc
 from repro_torch.kernels import rank1_smw as rk
+from repro_torch.kernels.ref import dequant_ref
 
 launch_counts = build.launch_counts
 reset_launch_counts = build.reset_launch_counts
@@ -64,32 +73,46 @@ def _note_fallback(kernel: str, reason: str, detail: str) -> None:
 # ----------------------------------------------------------------------- #
 # SMW
 # ----------------------------------------------------------------------- #
+def _flat_scale(scale, lead):
+    """A bank's ``lead``-shaped int8 scales as the kernel's (B,) fp32."""
+    if scale is None:
+        return None
+    if tuple(scale.shape) != lead:
+        raise ValueError(f"scale {tuple(scale.shape)} must match the bank's "
+                         f"lead dims {lead}")
+    return scale.float().reshape(-1).contiguous()
+
+
 def smw_rank1_update_banked(j: torch.Tensor, v: torch.Tensor, *,
                             gamma: float, variant: str = "paper",
-                            out: torch.Tensor = None) -> torch.Tensor:
+                            out: torch.Tensor = None,
+                            scale: torch.Tensor = None) -> torch.Tensor:
     """Banked fused SMW.  j: (*lead, d, d); v: (*lead, d).  ``out`` (may
-    be ``j``) receives the update in place."""
+    be ``j``) receives the update in place.  ``scale`` (``lead``-shaped
+    fp32) marks j as int8 codes: the update comes back fp32."""
     d = j.shape[-1]
     lead = tuple(j.shape[:-2])
     if tuple(v.shape) != lead + (d,):
         raise ValueError(f"smw bank {tuple(j.shape)} vs stats "
                          f"{tuple(v.shape)}")
     if not lead:                                    # one factor
-        return smw_rank1_update_banked(j[None], v[None], gamma=gamma,
-                                       variant=variant)[0]
+        return smw_rank1_update_banked(
+            j[None], v[None], gamma=gamma, variant=variant,
+            scale=None if scale is None else scale.reshape(1))[0]
     if 0 in lead:                                   # empty owner slice
-        return j
+        return j if scale is None else j.float()
     jf = j.reshape(-1, d, d)
     vf = v.float().reshape(-1, d).contiguous()
     of = None if out is None else out.view(-1, d, d)
-    return rk.fused_smw(jf, vf, gamma=gamma, variant=variant,
-                        out=of).reshape(j.shape)
+    return rk.fused_smw(jf, vf, gamma=gamma, variant=variant, out=of,
+                        scale=_flat_scale(scale, lead)).reshape(j.shape)
 
 
 def smw_block_update_banked(j: torch.Tensor, v: torch.Tensor, n_valid, *,
                             gamma: float, variant: str = "paper",
                             with_pivot: bool = False,
-                            out: torch.Tensor = None):
+                            out: torch.Tensor = None,
+                            scale: torch.Tensor = None):
     """Banked block rank-r Woodbury update: ONE ``fused_block_smw`` launch
     per bank.  j: (*lead, d, d); v: (*lead, r, d) ring windows ordered
     oldest-first (``core.stats.window_ordered``); n_valid: int or int
@@ -101,7 +124,8 @@ def smw_block_update_banked(j: torch.Tensor, v: torch.Tensor, n_valid, *,
     ``with_pivot=True`` returns ``(new, pivot)``: the smallest
     Gauss–Jordan pivot over every slice of the bank, a 0-d fp32 tensor
     (see :func:`repro_torch.kernels.rank1_smw.fused_block_smw` for which
-    pivot that is); ``inf`` for an empty bank."""
+    pivot that is); ``inf`` for an empty bank.  ``scale`` (``lead``-shaped
+    fp32) marks j as int8 codes: the update comes back fp32."""
     from repro_torch.core.mkor import block_weights  # mkor imports ops
     d = j.shape[-1]
     lead = tuple(j.shape[:-2])
@@ -113,18 +137,21 @@ def smw_block_update_banked(j: torch.Tensor, v: torch.Tensor, n_valid, *,
         res = smw_block_update_banked(
             j[None], v[None], torch.as_tensor(n_valid).reshape(1),
             gamma=gamma, variant=variant, with_pivot=with_pivot,
-            out=None if out is None else out[None])
+            out=None if out is None else out[None],
+            scale=None if scale is None else scale.reshape(1))
         return (res[0][0], res[1]) if with_pivot else res[0]
     if 0 in lead:                                   # empty owner slice
         inf = torch.full((), float("inf"), device=j.device)
-        return (j, inf) if with_pivot else j
+        jf = j if scale is None else j.float()
+        return (jf, inf) if with_pivot else jf
     r = v.shape[-2]
     nv = torch.as_tensor(n_valid, device=j.device).broadcast_to(lead)
     sq, gm = block_weights(nv.reshape(-1), r, gamma)
     vt = (v.float().reshape(-1, r, d) * sq[..., None]).contiguous()
     of = None if out is None else out.view(-1, d, d)
     res = rk.fused_block_smw(j.reshape(-1, d, d), vt, gm.contiguous(),
-                             variant=variant, with_pivot=with_pivot, out=of)
+                             variant=variant, with_pivot=with_pivot, out=of,
+                             scale=_flat_scale(scale, lead))
     if with_pivot:
         return res[0].reshape(j.shape), torch.amin(res[1])
     return res.reshape(j.shape)
@@ -145,39 +172,50 @@ def two_sided_precondition(l_inv: torch.Tensor, r_inv: torch.Tensor,
 
 
 def fused_precondition_banked(l_inv: torch.Tensor, r_inv: torch.Tensor,
-                              g_w: torch.Tensor, *,
-                              rescale: bool = True) -> torch.Tensor:
+                              g_w: torch.Tensor, *, rescale: bool = True,
+                              l_scale: torch.Tensor = None,
+                              r_scale: torch.Tensor = None) -> torch.Tensor:
     """l_inv (*lead, do, do), r_inv (*lead, di, di), g_w (*lead, *extra,
-    di, do) → fp32 ΔW, one ``fused_precond`` launch per bank."""
+    di, do) → fp32 ΔW, one ``fused_precond`` launch per bank.
+    ``l_scale`` / ``r_scale`` (``lead``-shaped fp32, both or neither) mark
+    the factors as int8 codes."""
     lead = tuple(l_inv.shape[:-2])
     if tuple(r_inv.shape[:len(lead)]) != lead or \
             tuple(g_w.shape[:len(lead)]) != lead:
         raise ValueError(f"precondition bank shapes l {tuple(l_inv.shape)} "
                          f"r {tuple(r_inv.shape)} g {tuple(g_w.shape)}")
+    if (l_scale is None) != (r_scale is None):
+        raise ValueError("int8 factors need both l_scale and r_scale")
     if not lead:                                    # one slice
-        return fused_precondition_banked(l_inv[None], r_inv[None],
-                                         g_w[None], rescale=rescale)[0]
+        one = (lambda s: None if s is None else s.reshape(1))
+        return fused_precondition_banked(
+            l_inv[None], r_inv[None], g_w[None], rescale=rescale,
+            l_scale=one(l_scale), r_scale=one(r_scale))[0]
     if 0 in lead:                                   # empty owner slice
         return torch.zeros(g_w.shape, dtype=torch.float32,
                            device=g_w.device)
     lf = l_inv.reshape((-1,) + tuple(l_inv.shape[-2:]))
     rf = r_inv.reshape((-1,) + tuple(r_inv.shape[-2:]))
     gf = g_w.reshape((lf.shape[0],) + tuple(g_w.shape[len(lead):]))
+    ls, rs = _flat_scale(l_scale, lead), _flat_scale(r_scale, lead)
     if gf.ndim > 3:
         # extra broadcast dims: the unfused path with the factors expanded
-        # over them, and a rescale spanning the whole slice
+        # over them (int8 factors decoded first), and a rescale spanning
+        # the whole slice
         _note_fallback("fused_precond", "extra_dims",
                        f"g_w shape {tuple(g_w.shape)}")
         n_e = gf[0, ..., 0, 0].numel()
 
-        def expand(f):
+        def expand(f, sc):
+            f = f if sc is None else dequant_ref(f, sc)
             return f[:, None].expand((-1, n_e) + tuple(f.shape[-2:])) \
                 .reshape((-1,) + tuple(f.shape[-2:]))
-        delta = two_sided_precondition(expand(lf), expand(rf), gf.reshape(
-            (-1,) + tuple(gf.shape[-2:]))).reshape(gf.shape)
+        delta = two_sided_precondition(expand(lf, ls), expand(rf, rs),
+                                       gf.reshape((-1,) + tuple(
+                                           gf.shape[-2:]))).reshape(gf.shape)
         if rescale:
             delta = pc.rescale_update(delta, gf, n_lead=1)
         return delta.reshape(g_w.shape)
     out = pc.fused_precond(rf.contiguous(), gf.contiguous(), lf.contiguous(),
-                           rescale=rescale)
+                           rescale=rescale, r_scale=rs, l_scale=ls)
     return out.reshape(g_w.shape)

@@ -12,13 +12,23 @@ float32 operand -- is the smaller: ``(R⁻¹G)L⁻¹`` when d_in > d_out, else
 ``R⁻¹(GL⁻¹)``.  Zero padding never arises (ragged dims are masked in the
 kernel), so the reference's padding contract holds trivially.  CPU
 tensors run :func:`fused_precond_plain`.
+
+int8 factor banks (MKOR's int8 factor state) come as codes with
+``r_scale=`` / ``l_scale=``, their (B,) fp32 per-slice scales, both or
+neither.  Both products take the codes directly (exact bf16 parts on the
+tensor cores) and apply the scale of their int8 operand to the
+accumulator in the epilogue, before the sum of squares: no decoded copy of
+a bank is made.  These launches count as ``fused_precond[int8]``.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import matmul as mm
+from repro_torch.kernels.ref import dequant_ref
 
 _DTYPES = (torch.bfloat16, torch.float32)
 
@@ -36,17 +46,23 @@ def rescale_update(delta: torch.Tensor, g_w: torch.Tensor,
 
 
 def fused_precond_plain(r_inv: torch.Tensor, g: torch.Tensor,
-                        l_inv: torch.Tensor, *,
-                        rescale: bool = True) -> torch.Tensor:
-    """Plain version: r (B, di, di), g (B, di, do), l (B, do, do) → fp32."""
-    delta = torch.matmul(torch.matmul(r_inv.float(), g.float()),
-                         l_inv.float())
+                        l_inv: torch.Tensor, *, rescale: bool = True,
+                        r_scale: Optional[torch.Tensor] = None,
+                        l_scale: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Plain version: r (B, di, di), g (B, di, do), l (B, do, do) → fp32;
+    int8 factors with their (B,) scales are decoded first."""
+    r, l = dequant_ref(r_inv, r_scale), dequant_ref(l_inv, l_scale)
+    delta = torch.matmul(torch.matmul(r, g.float()), l)
     return rescale_update(delta, g, n_lead=1) if rescale else delta
 
 
 def fused_precond(r_inv: torch.Tensor, g: torch.Tensor, l_inv: torch.Tensor,
-                  *, rescale: bool = True) -> torch.Tensor:
-    """Batched ΔW = rescale(R⁻¹ G L⁻¹), fp32 out, one launch per bank."""
+                  *, rescale: bool = True,
+                  r_scale: Optional[torch.Tensor] = None,
+                  l_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Batched ΔW = rescale(R⁻¹ G L⁻¹), fp32 out, one launch per bank.
+    int8 factors take their per-slice ``r_scale`` / ``l_scale`` (B,)."""
     if g.ndim != 3:
         raise ValueError(f"fused_precond: g must be (B, d_in, d_out), got "
                          f"{tuple(g.shape)}")
@@ -55,20 +71,36 @@ def fused_precond(r_inv: torch.Tensor, g: torch.Tensor, l_inv: torch.Tensor,
             tuple(l_inv.shape) != (b, d_out, d_out):
         raise ValueError(f"fused_precond: r {tuple(r_inv.shape)}, g "
                          f"{tuple(g.shape)}, l {tuple(l_inv.shape)}")
+    quant = r_scale is not None
+    if (l_scale is not None) != quant:
+        raise ValueError("fused_precond: int8 factors need both scales")
+    if quant != (r_inv.dtype == torch.int8) or \
+            quant != (l_inv.dtype == torch.int8):
+        raise TypeError(f"fused_precond: factors {r_inv.dtype} / "
+                        f"{l_inv.dtype}; int8 factors need their scales, "
+                        "and only int8 factors take them")
+    fdtypes = (torch.int8,) if quant else _DTYPES
     if g.device.type == "cpu":
-        return fused_precond_plain(r_inv, g, l_inv, rescale=rescale)
-    kernel = "fused_precond"
+        return fused_precond_plain(r_inv, g, l_inv, rescale=rescale,
+                                   r_scale=r_scale, l_scale=l_scale)
+    kernel = "fused_precond[int8]" if quant else "fused_precond"
     build.check_tensor(g, "g", kernel, _DTYPES)
-    build.check_tensor(r_inv, "r_inv", kernel, _DTYPES, device=g.device)
-    build.check_tensor(l_inv, "l_inv", kernel, _DTYPES, device=g.device)
+    build.check_tensor(r_inv, "r_inv", kernel, fdtypes, device=g.device)
+    build.check_tensor(l_inv, "l_inv", kernel, fdtypes, device=g.device)
+    if quant:
+        build.check_scale(r_scale, "r_scale", kernel, b, g.device)
+        build.check_scale(l_scale, "l_scale", kernel, b, g.device)
     out = torch.empty((b, d_in, d_out), dtype=torch.float32,
                       device=g.device)
     if out.numel() == 0:
         return out
+    # the scale of the int8 factor in the second product (p or q)
     if d_out >= d_in:      # R⁻¹ (G L⁻¹): the fp32 operand is on the right
-        p, q, k = r_inv, mm.matmul(g, l_inv), d_in
+        p, q, k = r_inv, mm.matmul(g, l_inv, b_scale=l_scale), d_in
+        p_scale, q_scale = r_scale, None
     else:                  # (R⁻¹ G) L⁻¹: the fp32 operand is on the left
-        p, q, k = mm.matmul(r_inv, g), l_inv, d_out
+        p, q, k = mm.matmul(r_inv, g, a_scale=r_scale), l_inv, d_out
+        p_scale, q_scale = None, l_scale
     sums = torch.empty((2 * b,), dtype=torch.float32, device=g.device)
     vec_p = build.rows_aligned(p, k)
     vec_q = build.rows_aligned(q, d_out)
@@ -76,8 +108,10 @@ def fused_precond(r_inv: torch.Tensor, g: torch.Tensor, l_inv: torch.Tensor,
     with torch.cuda.device(g.device):
         err = lib.mkor_fused_precond(
             p.data_ptr(), q.data_ptr(), g.data_ptr(), out.data_ptr(),
-            sums.data_ptr(), d_in, d_out, k, b,
-            int(p.dtype == torch.float32), int(q.dtype == torch.float32),
+            sums.data_ptr(),
+            None if p_scale is None else p_scale.data_ptr(),
+            None if q_scale is None else q_scale.data_ptr(), d_in, d_out, k,
+            b, build.dtype_code(p), build.dtype_code(q),
             int(g.dtype == torch.float32), int(vec_p), int(vec_q),
             int(rescale), build.stream_handle(g.device))
     build.check(err, kernel)

@@ -12,6 +12,12 @@
   the reference's unfused building blocks, and :func:`smw_vectors` built
   on ``matvec`` as in the reference.
 
+``fused_smw`` and ``fused_block_smw`` also take an int8 bank: the codes of
+MKOR's int8 factor state with ``scale=`` its (B,) fp32 per-slice scales.
+The kernels decode each code at its load and return the update in fp32
+for the caller to requantize (the reference's ``scale=`` operand); these
+launches count as ``fused_smw[int8]`` and ``fused_block_smw[int8]``.
+
 Each wrapper launches its kernel for CUDA tensors and raises on what it
 does not take; for CPU tensors it runs the plain PyTorch version beside it
 (``*_plain``, also the yardstick ``chip_smoke.py`` holds the kernel
@@ -26,8 +32,29 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ref import dequant_ref
 
 VARIANTS = {"paper": 0, "exact_smw": 1}
+
+
+def _bank_kernel(name: str, j: torch.Tensor, scale, out, device):
+    """Checks a bank and its optional int8 scales; returns the kernel's
+    count name and the output (allocated when ``out`` is None): j's dtype,
+    or fp32 for an int8 bank."""
+    b = j.shape[0]
+    if scale is None:
+        build.check_tensor(j, "j", name, (torch.bfloat16, torch.float32))
+        out_dtype = j.dtype
+    else:
+        name = f"{name}[int8]"
+        build.check_tensor(j, "j", name, (torch.int8,))
+        build.check_scale(scale, "scale", name, b, device)
+        out_dtype = torch.float32
+    if out is None:
+        out = torch.empty(j.shape, dtype=out_dtype, device=device)
+    build.check_tensor(out, "out", name, (out_dtype,), shape=j.shape,
+                       device=device)
+    return name, out
 
 
 def smw_scale_coef(s: torch.Tensor, gamma: float, variant: str):
@@ -43,38 +70,39 @@ def smw_scale_coef(s: torch.Tensor, gamma: float, variant: str):
 
 
 def fused_smw_plain(j: torch.Tensor, v: torch.Tensor, *, gamma: float,
-                    variant: str = "paper") -> torch.Tensor:
-    """Plain version: j (B, d, d), v (B, d) → (B, d, d) in j's dtype."""
-    jf, vf = j.float(), v.float()
+                    variant: str = "paper",
+                    scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version: j (B, d, d), v (B, d) → (B, d, d) in j's dtype, or
+    fp32 for int8 codes j with per-slice ``scale`` (B,) (decoded first)."""
+    jf, vf = dequant_ref(j, scale), v.float()
     u = torch.matmul(jf, vf[..., None])[..., 0]
     s = torch.sum(vf * u, dim=-1)
-    scale, coef = smw_scale_coef(s, gamma, variant)
-    new = scale * jf + coef[:, None, None] * (u[:, :, None] * u[:, None, :])
-    return new.to(j.dtype)
+    alpha, coef = smw_scale_coef(s, gamma, variant)
+    new = alpha * jf + coef[:, None, None] * (u[:, :, None] * u[:, None, :])
+    return new if scale is not None else new.to(j.dtype)
 
 
 def fused_smw(j: torch.Tensor, v: torch.Tensor, *, gamma: float,
-              variant: str = "paper",
-              out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Batched rank-1 SMW update.  j: (B, d, d) bf16 or fp32, v: (B, d)
-    fp32.  Returns the updated bank in j's dtype, written to ``out`` when
-    given (``out`` may be ``j`` itself: the update is then in place)."""
+              variant: str = "paper", out: Optional[torch.Tensor] = None,
+              scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Batched rank-1 SMW update.  j: (B, d, d) bf16 or fp32, or int8 codes
+    with ``scale`` (B,) fp32; v: (B, d) fp32.  Returns the updated bank in
+    j's dtype (fp32 for int8), written to ``out`` when given (``out`` may
+    be ``j`` itself when the dtypes agree: the update is then in place)."""
     if j.ndim != 3 or j.shape[-1] != j.shape[-2] or v.shape != j.shape[:2]:
         raise ValueError(f"fused_smw: j {tuple(j.shape)} must be (B, d, d) "
                          f"and v {tuple(v.shape)} (B, d)")
     if variant not in VARIANTS:
         raise ValueError(f"fused_smw: unknown variant {variant!r}")
+    if (scale is None) != (j.dtype != torch.int8):
+        raise TypeError("fused_smw: an int8 bank needs its scale, and only "
+                        "an int8 bank takes one")
     if j.device.type == "cpu":
-        new = fused_smw_plain(j, v, gamma=gamma, variant=variant)
+        new = fused_smw_plain(j, v, gamma=gamma, variant=variant,
+                              scale=scale)
         return new if out is None else out.copy_(new)
-    kernel = "fused_smw"
-    dtypes = (torch.bfloat16, torch.float32)
-    build.check_tensor(j, "j", kernel, dtypes)
+    kernel, out = _bank_kernel("fused_smw", j, scale, out, j.device)
     build.check_tensor(v, "v", kernel, (torch.float32,), device=j.device)
-    if out is None:
-        out = torch.empty_like(j)
-    build.check_tensor(out, "out", kernel, (j.dtype,), shape=j.shape,
-                       device=j.device)
     b, d = j.shape[0], j.shape[-1]
     if b == 0 or d == 0:
         return out
@@ -85,9 +113,11 @@ def fused_smw(j: torch.Tensor, v: torch.Tensor, *, gamma: float,
     vec = build.rows_aligned(j, d) and build.rows_aligned(out, d)
     with torch.cuda.device(j.device):
         err = lib.mkor_fused_smw(
-            j.data_ptr(), v.data_ptr(), out.data_ptr(), u.data_ptr(),
-            s_part.data_ptr(), d, b, int(j.dtype == torch.float32), int(vec),
-            float(gamma), VARIANTS[variant], build.stream_handle(j.device))
+            j.data_ptr(), v.data_ptr(),
+            None if scale is None else scale.data_ptr(), out.data_ptr(),
+            u.data_ptr(), s_part.data_ptr(), d, b, build.dtype_code(j),
+            int(vec), float(gamma), VARIANTS[variant],
+            build.stream_handle(j.device))
     build.check(err, kernel)
     build.note_launch(kernel)
     return out
@@ -101,14 +131,17 @@ BLOCK_RANKS = (1, 2, 4, 8, 16)   # kernel instances; r is padded up to one
 
 def fused_block_smw_plain(j: torch.Tensor, vt: torch.Tensor,
                           gm: torch.Tensor, *, variant: str = "paper",
-                          with_pivot: bool = False):
+                          with_pivot: bool = False,
+                          scale: Optional[torch.Tensor] = None):
     """Plain version: j (*lead, d, d), vt (*lead, r, d) pre-weighted rows,
     gm broadcastable to ``lead`` → the update in j's dtype, computed in
     fp32 with ``torch.linalg.solve`` for the mid matrix, as the reference's
-    ``core.mkor.smw_block_update``.  ``with_pivot`` also returns, per slice,
-    the smallest squared Cholesky diagonal entry of the mid matrix (NaN
-    where it is not positive definite), the reference's pivot."""
-    jf, vf = j.float(), vt.float()
+    ``core.mkor.smw_block_update``.  int8 codes j with per-slice ``scale``
+    (``lead``) are decoded first and the update comes back fp32.
+    ``with_pivot`` also returns, per slice, the smallest squared Cholesky
+    diagonal entry of the mid matrix (NaN where it is not positive
+    definite), the reference's pivot."""
+    jf, vf = dequant_ref(j, scale), vt.float()
     r = vf.shape[-2]
     g = torch.as_tensor(gm, dtype=torch.float32,
                         device=jf.device)[..., None, None]
@@ -125,7 +158,8 @@ def fused_block_smw_plain(j: torch.Tensor, vt: torch.Tensor,
                                  torch.linalg.solve(mid, u))) / g
     else:
         raise ValueError(variant)
-    new = new.to(j.dtype)
+    if scale is None:
+        new = new.to(j.dtype)
     if not with_pivot:
         return new
     chol, info = torch.linalg.cholesky_ex(mid)
@@ -135,11 +169,14 @@ def fused_block_smw_plain(j: torch.Tensor, vt: torch.Tensor,
 
 def fused_block_smw(j: torch.Tensor, vt: torch.Tensor, gm: torch.Tensor, *,
                     variant: str = "paper", with_pivot: bool = False,
-                    out: Optional[torch.Tensor] = None):
-    """Batched block rank-r Woodbury update.  j: (B, d, d) bf16 or fp32;
-    vt: (B, r, d) fp32 window rows pre-weighted by √wᵢ; gm: (B,) fp32, the
-    per-slice γ^m.  Returns the updated bank in j's dtype, written to
-    ``out`` when given (``out`` may be ``j``: the update is then in place).
+                    out: Optional[torch.Tensor] = None,
+                    scale: Optional[torch.Tensor] = None):
+    """Batched block rank-r Woodbury update.  j: (B, d, d) bf16 or fp32, or
+    int8 codes with ``scale`` (B,) fp32; vt: (B, r, d) fp32 window rows
+    pre-weighted by √wᵢ; gm: (B,) fp32, the per-slice γ^m.  Returns the
+    updated bank in j's dtype (fp32 for int8), written to ``out`` when
+    given (``out`` may be ``j`` when the dtypes agree: the update is then
+    in place).
 
     ``with_pivot=True`` returns ``(new, pivot)`` with pivot (B,) fp32: the
     smallest |pivot| of the kernel's unpivoted Gauss–Jordan elimination of
@@ -158,22 +195,20 @@ def fused_block_smw(j: torch.Tensor, vt: torch.Tensor, gm: torch.Tensor, *,
                          f"{tuple(gm.shape)} (B,)")
     if variant not in VARIANTS:
         raise ValueError(f"fused_block_smw: unknown variant {variant!r}")
+    if (scale is None) != (j.dtype != torch.int8):
+        raise TypeError("fused_block_smw: an int8 bank needs its scale, "
+                        "and only an int8 bank takes one")
     if j.device.type == "cpu":
         res = fused_block_smw_plain(j, vt, gm, variant=variant,
-                                    with_pivot=with_pivot)
+                                    with_pivot=with_pivot, scale=scale)
         if out is None:
             return res
         if with_pivot:
             return out.copy_(res[0]), res[1]
         return out.copy_(res)
-    kernel = "fused_block_smw"
-    build.check_tensor(j, "j", kernel, (torch.bfloat16, torch.float32))
+    kernel, out = _bank_kernel("fused_block_smw", j, scale, out, j.device)
     build.check_tensor(vt, "vt", kernel, (torch.float32,), device=j.device)
     build.check_tensor(gm, "gm", kernel, (torch.float32,), device=j.device)
-    if out is None:
-        out = torch.empty_like(j)
-    build.check_tensor(out, "out", kernel, (j.dtype,), shape=j.shape,
-                       device=j.device)
     b, r, d = vt.shape
     rank = next((k for k in BLOCK_RANKS if k >= r), None)
     if rank is None:
@@ -194,10 +229,11 @@ def fused_block_smw(j: torch.Tensor, vt: torch.Tensor, gm: torch.Tensor, *,
         vt.data_ptr() % 16 == 0
     with torch.cuda.device(j.device):
         err = lib.mkor_fused_block_smw(
-            j.data_ptr(), vt.data_ptr(), gm.data_ptr(), out.data_ptr(),
+            j.data_ptr(), vt.data_ptr(), gm.data_ptr(),
+            None if scale is None else scale.data_ptr(), out.data_ptr(),
             u.data_ptr(), s_part.data_ptr(), m.data_ptr(),
             None if piv is None else piv.data_ptr(), d, b, rank, r,
-            int(j.dtype == torch.float32), int(vec), VARIANTS[variant],
+            build.dtype_code(j), int(vec), VARIANTS[variant],
             build.stream_handle(j.device))
     build.check(err, kernel)
     build.note_launch(kernel)

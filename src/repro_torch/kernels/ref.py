@@ -4,7 +4,22 @@ plain versions that sit beside each kernel wrapper; everything is
 computed in float32."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+
+def dequant_ref(q: torch.Tensor,
+                scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """fp32 decode of int8 factor codes (*lead, d, d) with their per-slice
+    scales (``lead``-shaped, or a scalar for one slice); ``scale=None``
+    just casts (a bf16 or fp32 factor).  The plain versions of the kernels
+    decode with it."""
+    qf = q.float()
+    if scale is None:
+        return qf
+    return qf * torch.as_tensor(scale, dtype=torch.float32,
+                                device=q.device)[..., None, None]
 
 
 def matvec_ref(j: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -109,3 +124,28 @@ def fused_precondition_ref(l_inv: torch.Tensor, r_inv: torch.Tensor,
     gn = torch.sqrt(torch.sum(gf * gf))
     dn = torch.sqrt(torch.sum(delta * delta))
     return delta * (gn / torch.clamp(dn, min=1e-30))
+
+
+def smw_rank1_update_quant_ref(q: torch.Tensor, scale, v: torch.Tensor,
+                               gamma: float,
+                               variant: str = "paper") -> torch.Tensor:
+    """Rank-1 SMW on an int8 factor: decode, then update (fp32)."""
+    return smw_rank1_update_ref(dequant_ref(q, scale), v, gamma, variant)
+
+
+def smw_block_update_quant_ref(q: torch.Tensor, scale, v: torch.Tensor,
+                               gamma: float, variant: str = "paper",
+                               n_valid=None) -> torch.Tensor:
+    """Block rank-r Woodbury on an int8 factor (fp32 output)."""
+    return smw_block_update_ref(dequant_ref(q, scale), v, gamma, variant,
+                                n_valid=n_valid)
+
+
+def fused_precondition_quant_ref(l_q: torch.Tensor, l_scale,
+                                 r_q: torch.Tensor, r_scale,
+                                 g_w: torch.Tensor,
+                                 rescale: bool = True) -> torch.Tensor:
+    """Precondition + rescale with both inverse factors int8."""
+    return fused_precondition_ref(dequant_ref(l_q, l_scale),
+                                  dequant_ref(r_q, r_scale), g_w,
+                                  rescale=rescale)

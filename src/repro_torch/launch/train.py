@@ -2,15 +2,17 @@
 
     python -m repro_torch.launch.train --arch bert-large [--reduced] \\
         --optimizer mkor --steps N --global-batch B --seq-len S \\
-        --inv-freq F [--rank R] [--staleness 0|1] [--use-kernels] \\
-        [--device cpu]
+        --inv-freq F [--rank R] [--staleness 0|1] \\
+        [--quant none|bf16|int8] [--use-kernels] [--device cpu]
 
 Runs on the GPU unless ``--device cpu`` is given (and raises when there is
 no GPU).  ``--rank`` and ``--staleness`` select block rank-r updates and
 the double-buffered inverse banks (defaults 1 and 0, as in the
-reference).  ``--use-kernels`` sends MKOR's banked SMW, block update and
-precondition through the hand-written CUDA kernels; it needs a CUDA
-device.  Prints the
+reference).  ``--quant`` is the factor storage (``MKORConfig.factor_quant``,
+the reference launcher's flag): ``int8`` keeps codes, per-slice scales and
+fp32 error feedback.  ``--use-kernels`` sends MKOR's banked SMW, block
+update and precondition through the hand-written CUDA kernels (their int8
+variants with ``--quant int8``); it needs a CUDA device.  Prints the
 per-step loss and ``done: final loss``.  Checkpointing, the chunk runner,
 ``mkor_h`` and the other launcher flags arrive with their slices.
 """
@@ -32,12 +34,13 @@ from repro_torch.training import loop as train_lib
 
 
 def build_optimizer(name: str, lr, *, inv_freq: int = 10, rank: int = 1,
-                    staleness: int = 0, use_kernels: bool = False):
+                    staleness: int = 0, quant: str = "none",
+                    use_kernels: bool = False):
     """Returns ``(optimizer, mkor_cfg)``; ``mkor_cfg`` is None for LAMB."""
     backend = firstorder.lamb(lr)
     if name == "mkor":
         mcfg = MKORConfig(inv_freq=inv_freq, rank=rank, staleness=staleness,
-                          use_kernels=use_kernels)
+                          factor_quant=quant, use_kernels=use_kernels)
         return mkor(backend, mcfg), mcfg
     if name == "lamb":
         return backend, None
@@ -77,6 +80,11 @@ def main(argv: Optional[List[str]] = None) -> float:
                     help="1 = double-buffered inverse banks: the phase-step "
                          "inversion runs one window ahead against the "
                          "pending bank; 0 = synchronous schedule")
+    ap.add_argument("--quant", default="none",
+                    choices=["none", "bf16", "int8"],
+                    help="factor storage: none = factor_dtype (bf16), bf16, "
+                         "or int8 codes with per-slice scales and fp32 "
+                         "error feedback (decoded inside the kernels)")
     ap.add_argument("--reduced", action="store_true",
                     help="train the smoke-scale variant of the arch")
     ap.add_argument("--use-kernels", action="store_true",
@@ -97,13 +105,13 @@ def main(argv: Optional[List[str]] = None) -> float:
     lr = build_schedule(args.schedule, args.lr, args.steps)
     opt, _ = build_optimizer(args.optimizer, lr, inv_freq=args.inv_freq,
                              rank=args.rank, staleness=args.staleness,
-                             use_kernels=args.use_kernels)
+                             quant=args.quant, use_kernels=args.use_kernels)
     params = model_lib.init_params(cfg, seed=args.seed, device=device)
     print(f"arch={cfg.name} params={model_lib.param_count(params):,} "
           f"optimizer={args.optimizer} steps={args.steps} "
           f"batch={args.global_batch}x{args.seq_len} device={device}"
-          + (f" rank={args.rank} staleness={args.staleness}"
-             if args.optimizer == "mkor" else "")
+          + (f" rank={args.rank} staleness={args.staleness} "
+             f"quant={args.quant}" if args.optimizer == "mkor" else "")
           + (" kernels=cuda" if args.use_kernels else ""))
 
     ds = pipeline.make_dataset(cfg, global_batch=args.global_batch,

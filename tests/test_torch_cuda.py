@@ -131,3 +131,87 @@ def test_cuda_matvec_and_rank1_update_match_plain(cuda_device, d, dtype):
     rel, floor = (2 ** -7, 1e-5) if dtype == torch.bfloat16 else \
         (1e-6, 1e-6)
     assert _within(got, want, rel, floor)
+
+
+def _int8_bank(b, d, gen, device):
+    """int8 codes and (b,) scales of a near-identity bank with off-diagonal
+    noise of 0.05, so the codes spread over about ±30 off the diagonal."""
+    from repro_torch.core.stats import quant_encode
+    x = 0.05 * torch.randn((b, d, d), generator=gen, device=device)
+    return quant_encode(torch.eye(d, device=device) + (x + x.transpose(1, 2))
+                        / 2 ** 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d", [(2, 64), (3, 1001)])
+@pytest.mark.parametrize("variant", ["paper", "exact_smw"])
+def test_cuda_fused_smw_int8_matches_plain(cuda_device, b, d, variant):
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    q, sc = _int8_bank(b, d, gen, cuda_device)
+    v = torch.randn((b, d), generator=gen, device=cuda_device)
+    t_ops.reset_launch_counts()
+    got = t_rk.fused_smw(q, v, gamma=0.9, variant=variant, scale=sc)
+    assert t_ops.launch_counts() == {"fused_smw[int8]": 1}
+    want = t_rk.fused_smw_plain(q, v, gamma=0.9, variant=variant, scale=sc)
+    # fp32 out from the same decoded values, summed in another order
+    assert got.dtype == torch.float32 and _within(got, want, 1e-5, 1e-6)
+    banked = t_ops.smw_rank1_update_banked(q, v, gamma=0.9, variant=variant,
+                                           scale=sc)
+    assert torch.equal(banked, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,r", [(3, 64, 4), (3, 1001, 3)])
+@pytest.mark.parametrize("variant", ["paper", "exact_smw"])
+def test_cuda_fused_block_smw_int8_matches_plain(cuda_device, b, d, r,
+                                                 variant):
+    """Windows filled to 0, 1 and r rows, with the pivot."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q, sc = _int8_bank(b, d, gen, cuda_device)
+    v = torch.randn((b, r, d), generator=gen, device=cuda_device)
+    n = torch.tensor([0, 1, r], device=cuda_device)
+    sq, gm = block_weights(n, r, 0.9)
+    vt = (v * sq[..., None]).contiguous()
+    t_ops.reset_launch_counts()
+    got, piv = t_rk.fused_block_smw(q, vt, gm, variant=variant,
+                                    with_pivot=True, scale=sc)
+    assert t_ops.launch_counts() == {"fused_block_smw[int8]": 1}
+    want, want_piv = t_rk.fused_block_smw_plain(q, vt, gm, variant=variant,
+                                                with_pivot=True, scale=sc)
+    assert got.dtype == torch.float32 and _within(got, want, 1e-5, 1e-6)
+    # an empty window returns the decoded slice exactly
+    assert torch.equal(got[0], q[0].float() * sc[0])
+    assert torch.allclose(piv, want_piv, rtol=1e-3)
+    banked = t_ops.smw_block_update_banked(q, v, n, gamma=0.9,
+                                           variant=variant, scale=sc)
+    assert torch.equal(banked, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,di,do", [(2, 64, 96), (3, 1001, 600),
+                                     (2, 600, 1001)])
+def test_cuda_fused_precond_int8_matches_plain(cuda_device, b, di, do):
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    rq, rsc = _int8_bank(b, di, gen, cuda_device)
+    lq, lsc = _int8_bank(b, do, gen, cuda_device)
+    g = (0.01 * torch.randn((b, di, do), generator=gen,
+                            device=cuda_device)).to(torch.bfloat16)
+    for rescale in (True, False):
+        t_ops.reset_launch_counts()
+        got = t_pc.fused_precond(rq, g, lq, rescale=rescale, r_scale=rsc,
+                                 l_scale=lsc)
+        assert t_ops.launch_counts() == {"fused_precond[int8]": 1,
+                                         "matmul": 1}
+        want = t_pc.fused_precond_plain(rq, g, lq, rescale=rescale,
+                                        r_scale=rsc, l_scale=lsc)
+        # the fp32 first product rides the tensor cores as a bf16 hi/lo
+        # pair, as on the bf16 route: 2e-4 of the largest entry
+        assert float((got - want).abs().max()) <= \
+            2e-4 * float(want.abs().max())
+    # the first products alone: int8 codes enter exactly, the scale in
+    # the epilogue; bf16 products are exact in fp32, only the order differs
+    for a, b_, kw in ((rq, g, dict(a_scale=rsc)), (g, lq, dict(b_scale=lsc))):
+        got = t_mm.matmul(a, b_, **kw)
+        want = t_mm.matmul_plain(a, b_, **kw)
+        assert float((got - want).abs().max()) <= \
+            1e-4 * float(want.abs().max())

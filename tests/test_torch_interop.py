@@ -109,3 +109,39 @@ def test_round_trip_windows_and_pending_banks():
         np.testing.assert_array_equal(
             pend[bid]["l_inv"].float().numpy(),
             np.asarray(host["pending_banks"][bid]["l_inv"], np.float32))
+
+
+def test_round_trip_int8_banks_and_windows(ae_params):
+    """int8 factor state after two JAX updates (codes off the identity,
+    scales and error feedback nonzero, window rows with per-row scales):
+    the 6-key banks, the pending banks and the windows carry over bit for
+    bit, dtypes kept."""
+    opt = j_mkor(j_fo.lamb(1e-3), JMKORConfig(
+        rank=3, staleness=1, inv_freq=1, factor_quant="int8", exclude=()))
+    params = jax.tree.map(jnp.asarray, _host(ae_params))
+    state = opt.init(params)
+    rng = np.random.default_rng(4)
+    host = _host(ae_params)
+    for _ in range(2):
+        grads = jax.tree.map(
+            lambda x: jnp.asarray(rng.standard_normal(x.shape), jnp.float32),
+            host)
+        stats = {"layers": [{"a": jnp.asarray(rng.standard_normal(
+            p["w"].shape[0]), jnp.float32)} for p in host["layers"]]}
+        _, state = opt.update(grads, state, params=params, stats=stats)
+    hs = _host(state)
+    banks = interop.banks_from_numpy(hs["factor_banks"], "cpu")
+    pend = interop.banks_from_numpy(hs["pending_banks"], "cpu")
+    wins = interop.windows_from_numpy(hs["stat_windows"], "cpu")
+    assert any(float(np.abs(b["l_ef"]).max()) > 0
+               for b in hs["pending_banks"].values())
+    for key, tree in (("factor_banks", banks), ("pending_banks", pend),
+                      ("stat_windows", wins)):
+        for bid, entry in hs[key].items():
+            assert set(tree[bid]) == set(entry)
+            for k, a in entry.items():
+                t = tree[bid][k]
+                assert str(t.dtype).split(".")[-1] == a.dtype.name
+                np.testing.assert_array_equal(t.numpy(), a)
+    assert banks["48x12"]["l_inv"].dtype == torch.int8
+    assert wins["48x12"]["a_scale"].dtype == torch.float32

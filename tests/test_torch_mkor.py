@@ -177,10 +177,18 @@ def test_mkor_autoencoder_banks_match(ae_params):
     assert _max_err(js["factor_banks"], ts["factor_banks"]) < 1e-4
 
 
-@pytest.mark.parametrize("field,value", [
-    ("dist", (("data", 2),)), ("live", (True, False)), ("health", True),
-    ("factor_quant", "int8"), ("layout", "per_layer"), ("hybrid", True)])
-def test_unported_configs_raise(field, value):
-    cfg = t_mkor.MKORConfig(**{field: value})
+# the ids are the ones pytest gave these cases when each was one (field,
+# value) pair; int8 factor state is ported, so its case now pairs it with
+# the health sentinel, which is not
+@pytest.mark.parametrize("overrides", [
+    pytest.param({"dist": (("data", 2),)}, id="dist-value0"),
+    pytest.param({"live": (True, False)}, id="live-value1"),
+    pytest.param({"health": True}, id="health-True"),
+    pytest.param({"factor_quant": "int8", "health": True},
+                 id="factor_quant-int8-health-True"),
+    pytest.param({"layout": "per_layer"}, id="layout-per_layer"),
+    pytest.param({"hybrid": True}, id="hybrid-True")])
+def test_unported_configs_raise(overrides):
+    cfg = t_mkor.MKORConfig(**overrides)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_mkor.mkor(t_fo.lamb(1e-3), cfg)

@@ -38,6 +38,19 @@ def test_train_launcher_rank_and_staleness_cpu(capsys):
     assert final == final and abs(final) < 1e3          # finite
 
 
+@pytest.mark.parametrize("rank,staleness", [(1, 0), (2, 1)])
+def test_train_launcher_quant_int8_cpu(capsys, rank, staleness):
+    final = t_train.main(["--arch", "bert-large", "--reduced", "--steps",
+                          "3", "--global-batch", "2", "--seq-len", "16",
+                          "--inv-freq", "2", "--rank", str(rank),
+                          "--staleness", str(staleness), "--quant", "int8",
+                          "--log-every", "1", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert f"rank={rank} staleness={staleness} quant=int8" in out
+    assert "step     2 loss=" in out and "done: final loss" in out
+    assert final == final and abs(final) < 1e3          # finite
+
+
 def test_train_launcher_lamb_only_cpu(capsys):
     t_train.main(["--arch", "bert-large", "--reduced", "--optimizer", "lamb",
                   "--steps", "1", "--global-batch", "1", "--seq-len", "8",
