@@ -15,6 +15,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      library ms, and the least time the card could take (bytes over 3.35
      TB/s, or operations over the peak of their type -- 989 TFLOP/s for
      the bf16 tensor cores, 67 TFLOP/s for fp32 -- whichever is larger);
+     matmul and fused_precond on both GEMM cores (the Hopper core of
+     wgmma_gemm.cuh where the route sends them, the WMMA core of gemm.cuh
+     forced), each launch's core read from the per-core counts, with
+     TFLOP/s and the share of the bf16 peak;
   4. full-width bert-large (24 layers, random weights from seed 0, batch 8
      x 128) trained with mkor(lamb) through the kernels on three paths,
      each with the launch counts set to 0 just before it and read just
@@ -41,7 +45,9 @@ Phases (each prints its own lines; any failure exits non-zero):
         same state on the reconstructed fp32 bank decode(codes) + error
         feedback, with codes at most one step apart; the kernel route
         decodes no bank (only window rows);
-     each profiled step also lists the host's waits on the device;
+     each profiled step also lists the host's waits on the device; on
+     paths a-c every GEMM of matmul and fused_precond must run on the
+     Hopper core (per-core counts), on d-f the counts are printed;
   5. one JSON line listing every kernel, the card's name and power limit,
      and, last, ``{"ok": true, "device": {...}}``.
 
@@ -51,6 +57,7 @@ sources are not beside it.
 """
 from __future__ import annotations
 
+import collections
 import json
 import math
 import statistics
@@ -112,6 +119,9 @@ PATH_KERNELS = {
     "int8_staleness1": (("fused_block_smw[int8]", "fused_precond[int8]",
                          "matmul"), _NOT_INT8 + ("fused_smw[int8]",)),
 }
+# the paths whose GEMMs all run on the Hopper core (bf16 factors); the int8
+# paths' GEMMs take int8 codes and stay on the WMMA core
+WGMMA_PATHS = ("rank1", "rank4", "staleness1")
 TRAIN_STEPS = 6                   # rank 1: two full inv_freq=3 windows
 RANK4_STEPS = 8                   # rank 4, inv_freq 4: two windows a bucket
 STALE_STEPS = 9                   # staleness 1, inv_freq 3: three ticks
@@ -156,6 +166,8 @@ class KernelRow:
         self.name, self.err = name, 0.0
         self.ms = self.plain_ms = self.bytes = self.ops = 0.0
         self.library_ms = None
+        # further timings at the same shapes, printed beside the row
+        self.other_ms = collections.defaultdict(float)
 
     def add(self, err, ms=None, plain_ms=None, n_bytes=0.0, n_ops=0.0,
             library_ms=None):
@@ -243,41 +255,101 @@ def check_fused_smw(torch, rows):
         del j, v
 
 
+def rate(n_ops, ms):
+    """TFLOP/s and the share of the bf16 tensor-core peak."""
+    tf = n_ops / ms / 1e9
+    return f"{tf:.1f} TFLOP/s ({100 * tf * 1e12 / PEAK_BF16_OPS_PER_S:.1f} % of peak)"
+
+
+def expect_cores(torch, fn, want_counts, want_cores, tag):
+    """Run ``fn`` with the counts at 0 and require its kernel launches and
+    the GEMM cores they ran on."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts, cores = ops.launch_counts(), ops.gemm_core_counts()
+    require(counts == want_counts and cores == want_cores,
+            f"{tag}: launches {counts}, GEMM cores {cores}; expected "
+            f"{want_counts}, {want_cores}")
+    return out
+
+
 def check_fused_precond(torch, rows):
+    """fused_precond on the core its route picks -- the Hopper core (TMA +
+    wgmma, T as a bf16 hi/lo pair) at the bert-large shapes and at ragged
+    shapes TMA takes, the WMMA core at (3, 1001, 600) -- and, at the
+    bert-large shapes, on the WMMA core forced, each against the plain
+    version, rescale on and off.  Timed at the bert-large shapes: both
+    cores, the plain version, and a yardstick of two torch.bmm plus the
+    norms (T rounded to bf16 between them: a cheaper function, not
+    library_ms)."""
     from repro_torch.kernels import precond as pc
     row = rows["fused_precond"]
     gen = torch.Generator(device="cuda").manual_seed(2)
     for b, di, do, main in [(96, 1024, 1024, True), (24, 1024, 4096, True),
-                            (24, 4096, 1024, True), (3, 1001, 600, False)]:
+                            (24, 4096, 1024, True), (2, 1000, 712, False),
+                            (2, 712, 1000, False), (3, 64, 136, False),
+                            (3, 1001, 600, False)]:
         r = near_identity(torch, b, di, gen, torch.bfloat16)
         l = near_identity(torch, b, do, gen, torch.bfloat16)
         g = (torch.randn((b, di, do), generator=gen, device="cuda")
              * 1e-2).to(torch.bfloat16)
-        for rescale in (True, False):
-            got = pc.fused_precond(r, g, l, rescale=rescale)
-            want = pc.fused_precond_plain(r, g, l, rescale=rescale)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            # the float32 intermediate rides the tensor cores as a bf16
-            # hi/lo pair (16 significant bits) and sums run in another
-            # order: 2e-4 of the largest entry
-            tol = 2e-4 * want.abs().max().item()
-            print(f"fused_precond {b}x{di}x{do} rescale={rescale}: "
-                  f"max_abs_err {err:.3e} (tol {tol:.3e})")
-            require(math.isfinite(err) and err <= tol,
-                    f"fused_precond {b}x{di}x{do} disagrees with its plain "
-                    "version")
-            row.add(err)
+        route = pc.precond_route(r.dtype, g.dtype, l.dtype, di, do,
+                                 r.data_ptr(), g.data_ptr(), l.data_ptr())
+        require(route == ("wmma" if di % 8 or do % 8 else "wgmma"),
+                f"fused_precond {b}x{di}x{do}: route {route}")
+        for core in (None, "wmma") if main else (None,):
+            for rescale in (True, False):
+                got = expect_cores(
+                    torch, lambda: pc.fused_precond(r, g, l, rescale=rescale,
+                                                    core=core),
+                    {"fused_precond": 1, "matmul": 1}, {core or route: 2},
+                    f"fused_precond {b}x{di}x{do}")
+                want = pc.fused_precond_plain(r, g, l, rescale=rescale)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                # the float32 intermediate rides the tensor cores as a
+                # bf16 hi/lo pair (16 significant bits) and sums run in
+                # another order: 2e-4 of the largest entry
+                tol = 2e-4 * want.abs().max().item()
+                print(f"fused_precond {b}x{di}x{do} rescale={rescale} "
+                      f"[{core or route}]: max_abs_err {err:.3e} "
+                      f"(tol {tol:.3e})")
+                require(math.isfinite(err) and err <= tol,
+                        f"fused_precond {b}x{di}x{do} [{core or route}] "
+                        "disagrees with its plain version")
+                row.add(err)
+                del got, want
         if main:
             ms = time_ms(torch, lambda: pc.fused_precond(r, g, l))
+            old = time_ms(torch, lambda: pc.fused_precond(r, g, l,
+                                                          core="wmma"))
             plain = time_ms(torch, lambda: pc.fused_precond_plain(r, g, l))
+
+            def yardstick():
+                if do >= di:
+                    d = torch.bmm(r, torch.bmm(g, l), out_dtype=torch.float32)
+                else:
+                    d = torch.bmm(torch.bmm(r, g), l, out_dtype=torch.float32)
+                gn = torch.linalg.vector_norm(g, dim=(1, 2), dtype=torch.float32)
+                dn = torch.linalg.vector_norm(d, dim=(1, 2))
+                return d * (gn / dn.clamp(min=1e-30))[:, None, None]
+            yard = time_ms(torch, yardstick)
             n_bytes = b * ((di * di + do * do + di * do) * 2 + di * do * 4)
             n_ops = b * 2.0 * di * do * (di + do)
             bms, by = row.bound(n_bytes, n_ops)
-            print(f"fused_precond {b}x{di}x{do}: {ms:.4f} ms, plain "
-                  f"{plain:.4f} ms, bound {bms:.4f} ms ({by}), "
-                  f"{n_ops / ms / 1e9:.1f} TFLOP/s")
+            print(f"fused_precond {b}x{di}x{do}: wgmma core {ms:.4f} ms "
+                  f"{rate(n_ops, ms)}; wmma core {old:.4f} ms "
+                  f"{rate(n_ops, old)}; plain {plain:.4f} ms; yardstick "
+                  f"(two bf16 torch.bmm + norms, T rounded to bf16) "
+                  f"{yard:.4f} ms; bound {bms:.4f} ms ({by})")
+            require(ms < old, f"fused_precond {b}x{di}x{do}: the wgmma core "
+                    f"({ms:.4f} ms) is not faster than the wmma core "
+                    f"({old:.4f} ms)")
             row.add(0.0, ms, plain, n_bytes, n_ops)
+            row.other_ms["wmma core"] += old
+            row.other_ms["two torch.bmm + norms"] += yard
         del r, l, g
 
 
@@ -294,43 +366,86 @@ def library_matmul(torch, a, w):
 
 
 def check_matmul(torch, rows):
+    """matmul on the core its route picks (the Hopper core for bf16 rows of
+    16-byte multiples, the WMMA core for 1001 x 600 x 701) and, at the
+    bert-large shapes, on the WMMA core forced; the Hopper core's hi/lo
+    pair epilogue (fused_precond's first product) wherever it runs.  Timed
+    at the bert-large shapes: both cores, the plain version, torch.bmm."""
     from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels.ref import split_hi_lo
     row = rows["matmul"]
     gen = torch.Generator(device="cuda").manual_seed(3)
     # the first products fused_precond hands to matmul at bert-large:
-    # G L⁻¹ for the 1024x1024 and 1024x4096 buckets, R⁻¹ G for 4096x1024
+    # G L⁻¹ for the 1024x1024 and 1024x4096 buckets, R⁻¹ G for 4096x1024;
+    # then ragged shapes, one batch that wraps the persistent grid
     for b, m, k, n, main in [(96, 1024, 1024, 1024, True),
                              (24, 1024, 4096, 4096, True),
                              (24, 4096, 4096, 1024, True),
+                             (2, 1000, 600, 712, False),
+                             (3, 64, 96, 136, False),
+                             (300, 128, 128, 128, False),
                              (3, 1001, 600, 701, False)]:
         a = (torch.randn((b, m, k), generator=gen, device="cuda")
              ).to(torch.bfloat16)
         w = (torch.randn((b, k, n), generator=gen, device="cuda")
              / math.sqrt(k)).to(torch.bfloat16)
-        got = mm.matmul(a, w)
+        route = mm.route_of(a, w)
+        require(route == ("wmma" if k % 8 or n % 8 else "wgmma"),
+                f"matmul {b}x{m}x{k}x{n}: route {route}")
         want = mm.matmul_plain(a, w)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
         # bf16 products are exact in fp32: only the summation order differs
         tol = 1e-5 * want.abs().max().item() * math.sqrt(k)
-        print(f"matmul {b}x{m}x{k}x{n}: max_abs_err {err:.3e} "
-              f"(tol {tol:.3e})")
-        require(math.isfinite(err) and err <= tol,
-                f"matmul {b}x{m}x{k}x{n} disagrees with its plain version")
-        row.add(err)
+        for core in (None, "wmma") if main else (None,):
+            got = expect_cores(torch, lambda: mm.matmul(a, w, core=core),
+                               {"matmul": 1}, {core or route: 1},
+                               f"matmul {b}x{m}x{k}x{n}")
+            err = (got - want).abs().max().item()
+            print(f"matmul {b}x{m}x{k}x{n} [{core or route}]: max_abs_err "
+                  f"{err:.3e} (tol {tol:.3e})")
+            require(math.isfinite(err) and err <= tol,
+                    f"matmul {b}x{m}x{k}x{n} [{core or route}] disagrees "
+                    "with its plain version")
+            row.add(err)
+            del got
+        if route == "wgmma":
+            hi, lo = expect_cores(torch, lambda: mm.matmul_split(a, w),
+                                  {"matmul": 1}, {"wgmma": 1},
+                                  f"matmul hi/lo {b}x{m}x{k}x{n}")
+            err = (hi.float() + lo.float() - want).abs().max().item()
+            # hi is the bf16 rounding of the product: one bf16 ulp from
+            # split_hi_lo of the plain product at most, where the two fp32
+            # sums straddle a rounding boundary
+            ulp, _ = bf16_close(hi, split_hi_lo(want)[0])
+            bad = ((hi.float() - split_hi_lo(want)[0].float()).abs()
+                   > 2.0 ** -7 * want.abs() + tol).sum().item()
+            print(f"matmul hi/lo {b}x{m}x{k}x{n}: |hi + lo - want| max "
+                  f"{err:.3e} (tol {tol:.3e}); hi vs bf16(want) max "
+                  f"{ulp:.3e}, {bad} beyond one ulp (tol 0)")
+            require(math.isfinite(err) and err <= tol and bad == 0,
+                    f"matmul hi/lo {b}x{m}x{k}x{n} disagrees with "
+                    "split_hi_lo of the plain product")
+            row.add(err)
+            del hi, lo
         if main:
             ms = time_ms(torch, lambda: mm.matmul(a, w))
+            old = time_ms(torch, lambda: mm.matmul(a, w, core="wmma"))
             plain = time_ms(torch, lambda: mm.matmul_plain(a, w))
             lib_fn, lib_name = library_matmul(torch, a, w)
             lib = time_ms(torch, lib_fn)
             n_bytes = b * ((m * k + k * n) * 2 + m * n * 4)
             n_ops = b * 2.0 * m * k * n
             bms, by = row.bound(n_bytes, n_ops)
-            print(f"matmul {b}x{m}x{k}x{n}: {ms:.4f} ms, plain {plain:.4f} "
-                  f"ms, {lib_name} {lib:.4f} ms, bound {bms:.4f} ms "
-                  f"({by}), {n_ops / ms / 1e9:.1f} TFLOP/s")
+            print(f"matmul {b}x{m}x{k}x{n}: wgmma core {ms:.4f} ms "
+                  f"{rate(n_ops, ms)}; wmma core {old:.4f} ms "
+                  f"{rate(n_ops, old)}; plain {plain:.4f} ms; {lib_name} "
+                  f"{lib:.4f} ms {rate(n_ops, lib)}; bound {bms:.4f} ms "
+                  f"({by})")
+            require(ms < old, f"matmul {b}x{m}x{k}x{n}: the wgmma core "
+                    f"({ms:.4f} ms) is not faster than the wmma core "
+                    f"({old:.4f} ms)")
             row.add(0.0, ms, plain, n_bytes, n_ops, library_ms=lib)
-        del a, w
+            row.other_ms["wmma core"] += old
+        del a, w, want
 
 
 def check_fused_block_smw(torch, rows):
@@ -850,6 +965,7 @@ def run_path(torch, dev, name, step_fn, opt, params, ds, steps,
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(metrics["loss"]))
     counts = ops.launch_counts()
+    cores = ops.gemm_core_counts()
     fallbacks = ops.fallback_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     print(f"[{name}] train losses {losses}")
@@ -858,7 +974,8 @@ def run_path(torch, dev, name, step_fn, opt, params, ds, steps,
     print(f"[{name}] step ms {[round(t, 3) for t in times]} (median of "
           f"steps {[i for i in range(1, steps) if i not in skip_times]} "
           f"{statistics.median(clean):.3f} ms), peak memory {peak:.3f} GiB")
-    print(f"[{name}] launch counts {counts}, fallbacks {fallbacks}")
+    print(f"[{name}] launch counts {counts}, GEMM cores {cores}, fallbacks "
+          f"{fallbacks}")
     must, must_not = PATH_KERNELS[name]
     for k in must:
         require(counts.get(k, 0) > 0,
@@ -867,6 +984,13 @@ def run_path(torch, dev, name, step_fn, opt, params, ds, steps,
         require(counts.get(k, 0) == 0,
                 f"{name}: {k} was launched on the training path")
     require(not fallbacks, f"{name}: fallbacks on the path: {fallbacks}")
+    if name in WGMMA_PATHS:
+        # every GEMM of matmul and fused_precond (two a launch: its first
+        # product runs through matmul) on the Hopper core
+        gemms = counts.get("matmul", 0) + counts.get("fused_precond", 0)
+        require(cores.get("wmma", 0) == 0 and
+                cores.get("wgmma", 0) == gemms,
+                f"{name}: GEMM cores {cores}, expected all {gemms} on wgmma")
     return params, state, counts
 
 
@@ -1132,7 +1256,7 @@ def profile_step(torch, fn):
         by_name.setdefault(e.name, [0.0, 0])
         by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
         by_name[e.name][1] += 1
-    port = ("mkor::gemm_kernel", "smw_uv_kernel", "smw_write_kernel",
+    port = ("mkor::gemm_kernel", "wgmma_gemm_kernel", "smw_uv_kernel", "smw_write_kernel",
             "sumsq_kernel", "rescale_kernel", "block_uv_kernel",
             "block_mid_kernel", "block_write_kernel")
 
@@ -1205,6 +1329,14 @@ def main() -> int:
     check_fused_smw_int8(torch, rows)
     check_fused_block_smw_int8(torch, rows)
     check_fused_precond_int8(torch, rows)
+    for name in ("matmul", "fused_precond"):
+        r = rows[name]
+        b_ms, b_by = r.bound(r.bytes, r.ops)
+        print(f"{name}, sum of the bert-large shapes: wgmma core {r.ms:.4f} ms "
+              f"{rate(r.ops, r.ms)}, " + ", ".join(
+                  f"{k} {v:.4f} ms" for k, v in r.other_ms.items())
+              + (f", library {r.library_ms:.4f} ms" if r.library_ms else "")
+              + f", plain {r.plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
 

@@ -19,10 +19,15 @@
 // multiplies the accumulator by scale_a[b] * scale_b[b] before the store
 // and before the sum of squares: no decoded copy of the operand exists.
 //
+// This is the WMMA core: it takes every operand type and any row width.
+// Products of bf16 operands with 16-byte rows run on the Hopper core of
+// wgmma_gemm.cuh instead (kernels/matmul.py:gemm_route decides); float32
+// and int8 operands and ragged row widths stay here.
+//
 // Design, simple first: 128x128 block tile, BK = 32, 8 warps each owning
 // a 64x32 sub-tile (4x2 fragments).  Two shared-memory stages with the
 // next tile's global loads held in registers while the current tile is
-// multiplied (no TMA, no wgmma yet).  Ragged M, N and K are masked at the
+// multiplied (no TMA, no wgmma).  Ragged M, N and K are masked at the
 // tile loads (zeros) and at the stores, so callers never pad.  The optional
 // epilogue adds each tile's sum of squares of C into sumsq[b] with one
 // atomic per warp (the order of those float adds varies run to run).

@@ -18,7 +18,9 @@ machine without ``nvcc``.
 Every C entry point launches on the stream it is given (PyTorch's current
 stream), allocates nothing and returns ``cudaGetLastError()``;
 :func:`check` raises if that is not 0.  :func:`note_launch` is the launch
-counter: each wrapper calls it exactly where it launches its kernel.
+counter: each wrapper calls it exactly where it launches its kernel, and
+:func:`note_gemm` counts the GEMMs of ``matmul`` and ``fused_precond`` by
+the core they ran on.
 """
 from __future__ import annotations
 
@@ -60,27 +62,47 @@ _SIGNATURES = {
     "matmul": {
         "mkor_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _LL,
                         _LL, _LL, _I, _I, _I, _I, _I, _I, _P],
+        "mkor_matmul_tma": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I,
+                            _P],
     },
     "precond": {
         "mkor_fused_precond": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _I, _P],
+        "mkor_fused_precond_tma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, _I, _P],
     },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LAUNCHES: Counter = Counter()
+_GEMM_CORES: Counter = Counter()
+GEMM_CORES = ("wgmma", "wmma")
 
 
 def note_launch(kernel: str) -> None:
     _LAUNCHES[kernel] += 1
 
 
+def note_gemm(core: str) -> None:
+    """One GEMM launched on ``core`` ("wgmma": the TMA + wgmma core of
+    ``wgmma_gemm.cuh``; "wmma": ``gemm.cuh``)."""
+    _GEMM_CORES[core] += 1
+
+
 def launch_counts() -> Dict[str, int]:
     return dict(_LAUNCHES)
 
 
+def gemm_core_counts() -> Dict[str, int]:
+    """GEMMs launched on each core since the last reset: ``matmul`` counts
+    one, ``fused_precond`` two (its first product through ``matmul``)."""
+    return dict(_GEMM_CORES)
+
+
 def reset_launch_counts() -> None:
+    """Set the kernel launch counts and the per-core GEMM counts to 0."""
     _LAUNCHES.clear()
+    _GEMM_CORES.clear()
 
 
 def nvcc_path() -> str:

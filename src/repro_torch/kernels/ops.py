@@ -46,6 +46,7 @@ from repro_torch.kernels import rank1_smw as rk
 from repro_torch.kernels.ref import dequant_ref
 
 launch_counts = build.launch_counts
+gemm_core_counts = build.gemm_core_counts
 reset_launch_counts = build.reset_launch_counts
 
 

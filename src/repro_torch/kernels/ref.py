@@ -22,6 +22,17 @@ def dequant_ref(q: torch.Tensor,
                                 device=q.device)[..., None, None]
 
 
+def split_hi_lo(x: torch.Tensor):
+    """x = hi + lo to 16 significant bits: hi = bf16(x), lo = bf16(x − hi),
+    both rounded to nearest even, as the Hopper GEMM core's epilogue writes
+    a float32 intermediate (two bf16 tensors, 4 bytes an element).  The
+    difference x − hi is exact in fp32, so |hi + lo − x| ≤ 2⁻⁹·|x − hi| ≤
+    2⁻¹⁸·|x| for normal x."""
+    xf = x.float()
+    hi = xf.to(torch.bfloat16)
+    return hi, (xf - hi.float()).to(torch.bfloat16)
+
+
 def matvec_ref(j: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """u = J v.  j (d, d), v (d, 1) → (d, 1) fp32."""
     return j.float() @ v.float()

@@ -215,3 +215,118 @@ def test_cuda_fused_precond_int8_matches_plain(cuda_device, b, di, do):
         want = t_mm.matmul_plain(a, b_, **kw)
         assert float((got - want).abs().max()) <= \
             1e-4 * float(want.abs().max())
+
+
+# ----------------------------------------------------------------------- #
+# The two GEMM cores: the Hopper core (TMA ring + wgmma) where the route
+# sends bf16 operands with 16-byte rows, the WMMA core elsewhere
+# ----------------------------------------------------------------------- #
+def _matmul_tol(want, k):
+    # bf16 products are exact in fp32: only the summation order differs
+    return 1e-5 * float(want.abs().max()) * k ** 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,k,n", [(2, 1000, 600, 712), (3, 64, 96, 136),
+                                     (300, 128, 128, 128)])
+def test_cuda_wgmma_matmul_matches_plain(cuda_device, b, m, k, n):
+    """Shapes TMA takes but the 128 x 128 tile does not divide, and a batch
+    of 300 tiles, which wraps the persistent grid (one block an SM) more
+    than twice."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    a = torch.randn((b, m, k), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    w = (torch.randn((b, k, n), generator=gen, device=cuda_device)
+         / k ** 0.5).to(torch.bfloat16)
+    want = t_mm.matmul_plain(a, w)
+    for core in (None, "wgmma", "wmma"):
+        t_ops.reset_launch_counts()
+        got = t_mm.matmul(a, w, core=core)
+        assert t_ops.gemm_core_counts() == {core or "wgmma": 1}
+        assert t_ops.launch_counts() == {"matmul": 1}
+        assert float((got - want).abs().max()) <= _matmul_tol(want, k)
+    # a bf16 output is the hi part of the pair epilogue
+    got = t_mm.matmul(a, w, out_dtype=torch.bfloat16)
+    assert _within(got, want, 2 ** -7, 1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_wgmma_matmul_broadcast_operand(cuda_device):
+    """A 2-D operand broadcast over the other's batch takes a 2-D tensor
+    map, on either side."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    a3 = torch.randn((3, 200, 136), generator=gen,
+                     device=cuda_device).to(torch.bfloat16)
+    b2 = torch.randn((136, 264), generator=gen,
+                     device=cuda_device).to(torch.bfloat16)
+    a2 = torch.randn((200, 136), generator=gen,
+                     device=cuda_device).to(torch.bfloat16)
+    b3 = torch.randn((3, 136, 264), generator=gen,
+                     device=cuda_device).to(torch.bfloat16)
+    for a, b in ((a3, b2), (a2, b3), (a2, b2)):
+        t_ops.reset_launch_counts()
+        got = t_mm.matmul(a, b)
+        assert t_ops.gemm_core_counts() == {"wgmma": 1}
+        want = t_mm.matmul_plain(a, b)
+        assert got.shape == want.shape
+        assert float((got - want).abs().max()) <= _matmul_tol(want, 136)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,k,n", [(2, 1000, 600, 712), (3, 64, 96, 136)])
+def test_cuda_wgmma_hilo_epilogue(cuda_device, b, m, k, n):
+    """The pair epilogue against split_hi_lo of the plain product: hi + lo
+    within the fp32 bound, hi the bf16 rounding of the product (one bf16
+    ulp apart where the two fp32 sums straddle a rounding boundary)."""
+    from repro_torch.kernels.ref import split_hi_lo
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    a = torch.randn((b, m, k), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    w = (torch.randn((b, k, n), generator=gen, device=cuda_device)
+         / k ** 0.5).to(torch.bfloat16)
+    t_ops.reset_launch_counts()
+    hi, lo = t_mm.matmul_split(a, w)
+    assert t_ops.gemm_core_counts() == {"wgmma": 1}
+    want = t_mm.matmul_plain(a, w)
+    want_hi, want_lo = split_hi_lo(want)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    assert float((hi.float() + lo.float() - want).abs().max()) <= \
+        _matmul_tol(want, k)
+    assert _within(hi, want_hi, 2 ** -7, 1e-5)
+    # lo is the rounding residue of hi: at most half a bf16 ulp of hi
+    assert bool(torch.all(lo.float().abs() <= hi.float().abs() * 2 ** -8
+                          + 1e-30))
+    with pytest.raises(ValueError, match="wgmma"):
+        t_mm.matmul_split(a[:, :, :k - 1].contiguous(),
+                          w[:, :k - 1].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,di,do", [(2, 1000, 712), (2, 712, 1000),
+                                     (3, 64, 136), (3, 1001, 600)])
+def test_cuda_fused_precond_cores(cuda_device, b, di, do):
+    """fused_precond on the core its route picks -- the Hopper core in split
+    mode for the TMA-eligible shapes (T on the right for d_out >= d_in, on
+    the left otherwise), the WMMA core for 1001 -- and on the WMMA core
+    forced, against the plain version, rescale on and off."""
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+
+    def bank(d):
+        return (torch.eye(d, device=cuda_device) + 0.01 * torch.randn(
+            (b, d, d), generator=gen, device=cuda_device)).to(torch.bfloat16)
+    r, l = bank(di), bank(do)
+    g = (0.01 * torch.randn((b, di, do), generator=gen,
+                            device=cuda_device)).to(torch.bfloat16)
+    route = "wmma" if di % 8 or do % 8 else "wgmma"
+    for core in (None, "wmma"):
+        for rescale in (True, False):
+            t_ops.reset_launch_counts()
+            got = t_pc.fused_precond(r, g, l, rescale=rescale, core=core)
+            assert t_ops.launch_counts() == {"fused_precond": 1, "matmul": 1}
+            assert t_ops.gemm_core_counts() == {core or route: 2}
+            want = t_pc.fused_precond_plain(r, g, l, rescale=rescale)
+            assert float((got - want).abs().max()) <= \
+                2e-4 * float(want.abs().max())
+    if route == "wmma":
+        with pytest.raises(ValueError, match="wgmma"):
+            t_pc.fused_precond(r, g, l, core="wgmma")
