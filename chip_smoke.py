@@ -7,18 +7,20 @@ Phases (each prints its own lines; any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build of every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc per
      source, in parallel, timed);
-  3. each of the six kernels, and the int8 variants of three of them
-     (fused_smw[int8], fused_block_smw[int8], fused_precond[int8]: codes
-     of an int8 bank with per-slice scales), against its plain PyTorch
-     version on the card, at the shapes full-width bert-large gives it and
-     at ragged shapes: max abs error and tolerance, kernel / plain /
-     library ms, and the least time the card could take (bytes over 3.35
-     TB/s, or operations over the peak of their type -- 989 TFLOP/s for
-     the bf16 tensor cores, 67 TFLOP/s for fp32 -- whichever is larger);
-     matmul and fused_precond on both GEMM cores (the Hopper core of
-     wgmma_gemm.cuh where the route sends them, the WMMA core of gemm.cuh
-     forced), each launch's core read from the per-core counts, with
-     TFLOP/s and the share of the bf16 peak;
+  3. each of the six kernels, and the int8 variants of four of them
+     (fused_smw[int8], fused_block_smw[int8], fused_precond[int8] and
+     matmul[int8 operand]: codes of an int8 bank with per-slice scales),
+     against its plain PyTorch version on the card, at the shapes
+     full-width bert-large gives it and at ragged shapes: max abs error and
+     tolerance, kernel / plain / library ms, and the least time the card
+     could take (bytes over 3.35 TB/s, or operations over the peak of their
+     type -- 989 TFLOP/s for the bf16 tensor cores, which also run the
+     int8 codes widened to bf16, 67 TFLOP/s for fp32 -- whichever is
+     larger); matmul, fused_precond and their int8 variants on both GEMM
+     cores (the Hopper core of wgmma_gemm.cuh where the route sends them,
+     the WMMA core of gemm.cuh forced), each launch's core read from the
+     per-core counts, with TFLOP/s and the share of the bf16 peak, the
+     Hopper core required faster at each bert-large shape;
   4. full-width bert-large (24 layers, random weights from seed 0, batch 8
      x 128) trained with mkor(lamb) through the kernels on three paths,
      each with the launch counts set to 0 just before it and read just
@@ -46,8 +48,8 @@ Phases (each prints its own lines; any failure exits non-zero):
         feedback, with codes at most one step apart; the kernel route
         decodes no bank (only window rows);
      each profiled step also lists the host's waits on the device; on
-     paths a-c every GEMM of matmul and fused_precond must run on the
-     Hopper core (per-core counts), on d-f the counts are printed;
+     every path every GEMM of matmul and fused_precond (and of their int8
+     variants) must run on the Hopper core (per-core counts);
   5. one JSON line listing every kernel, the card's name and power limit,
      and, last, ``{"ok": true, "device": {...}}``.
 
@@ -81,6 +83,9 @@ REPLACES = {
     "fused_smw[int8]": "src/repro/kernels/rank1_smw.py:139",
     "fused_block_smw[int8]": "src/repro/kernels/rank1_smw.py:214",
     "fused_precond[int8]": "src/repro/kernels/precond.py:57",
+    # the int8 first product of that body (the reference's matmul takes no
+    # int8 operand)
+    "matmul[int8 operand]": "src/repro/kernels/precond.py:77",
 }
 SOURCES = {
     "fused_smw": "src/repro_torch/csrc/rank1_smw.cu",
@@ -92,10 +97,11 @@ SOURCES = {
     "fused_smw[int8]": "src/repro_torch/csrc/rank1_smw.cu",
     "fused_block_smw[int8]": "src/repro_torch/csrc/block_smw.cu",
     "fused_precond[int8]": "src/repro_torch/csrc/precond.cu",
+    "matmul[int8 operand]": "src/repro_torch/csrc/matmul.cu",
 }
 # the peak rate of each kernel's operations: tensor-core GEMMs in bf16
-# (int8 codes enter them as bf16), the SMW kernels' fp32 FMAs on the CUDA
-# cores
+# (int8 codes enter them widened to bf16: there is no int8 x bf16
+# product), the SMW kernels' fp32 FMAs on the CUDA cores
 PEAK_OPS = {"fused_smw": PEAK_FP32_OPS_PER_S,
             "fused_precond": PEAK_BF16_OPS_PER_S,
             "matmul": PEAK_BF16_OPS_PER_S,
@@ -104,24 +110,29 @@ PEAK_OPS = {"fused_smw": PEAK_FP32_OPS_PER_S,
             "rank1_update": PEAK_FP32_OPS_PER_S,
             "fused_smw[int8]": PEAK_FP32_OPS_PER_S,
             "fused_block_smw[int8]": PEAK_FP32_OPS_PER_S,
-            "fused_precond[int8]": PEAK_BF16_OPS_PER_S}
+            "fused_precond[int8]": PEAK_BF16_OPS_PER_S,
+            "matmul[int8 operand]": PEAK_BF16_OPS_PER_S}
 # the kernels each training path must launch (and must not)
-_NOT_INT8 = ("fused_smw", "fused_block_smw", "fused_precond")
+_NOT_INT8 = ("fused_smw", "fused_block_smw", "fused_precond", "matmul")
+_INT8_GEMMS = ("fused_precond[int8]", "matmul[int8 operand]")
 PATH_KERNELS = {
     "rank1": (("fused_smw", "fused_precond", "matmul"), ("fused_block_smw",)),
     "rank4": (("fused_block_smw", "fused_precond", "matmul"), ("fused_smw",)),
     "staleness1": (("fused_block_smw", "fused_precond", "matmul"),
                    ("fused_smw",)),
-    "int8_rank1": (("fused_smw[int8]", "fused_precond[int8]", "matmul"),
+    "int8_rank1": (("fused_smw[int8]",) + _INT8_GEMMS,
                    _NOT_INT8 + ("fused_block_smw[int8]",)),
-    "int8_rank4": (("fused_block_smw[int8]", "fused_precond[int8]",
-                    "matmul"), _NOT_INT8 + ("fused_smw[int8]",)),
-    "int8_staleness1": (("fused_block_smw[int8]", "fused_precond[int8]",
-                         "matmul"), _NOT_INT8 + ("fused_smw[int8]",)),
+    "int8_rank4": (("fused_block_smw[int8]",) + _INT8_GEMMS,
+                   _NOT_INT8 + ("fused_smw[int8]",)),
+    "int8_staleness1": (("fused_block_smw[int8]",) + _INT8_GEMMS,
+                        _NOT_INT8 + ("fused_smw[int8]",)),
 }
-# the paths whose GEMMs all run on the Hopper core (bf16 factors); the int8
-# paths' GEMMs take int8 codes and stay on the WMMA core
-WGMMA_PATHS = ("rank1", "rank4", "staleness1")
+# the paths whose GEMMs all run on the Hopper core: every one (bf16
+# factors, and int8 codes widened to bf16 in shared memory)
+WGMMA_PATHS = tuple(PATH_KERNELS)
+# the GEMM kernels: matmul counts one GEMM a launch, fused_precond two
+GEMM_KERNELS = ("matmul", "matmul[int8 operand]", "fused_precond",
+                "fused_precond[int8]")
 TRAIN_STEPS = 6                   # rank 1: two full inv_freq=3 windows
 RANK4_STEPS = 8                   # rank 4, inv_freq 4: two windows a bucket
 STALE_STEPS = 9                   # staleness 1, inv_freq 3: three ticks
@@ -702,45 +713,161 @@ def check_fused_block_smw_int8(torch, rows):
 
 def check_fused_precond_int8(torch, rows):
     """fused_precond on int8 R and L with their scales (the first product
-    through matmul with an int8 operand), rescale on and off; the bf16
-    route's bound 2e-4·max|want| (the fp32 intermediate rides the tensor
-    cores as a bf16 hi/lo pair)."""
+    through matmul with an int8 operand) on the core its route picks -- the
+    Hopper core (codes widened to bf16 in shared memory) at the bert-large
+    shapes and at ragged ones whose rows are multiples of 16 codes, the
+    WMMA core at (3, 1001, 600) -- and, at the bert-large shapes, on the
+    WMMA core forced, rescale on and off; the bf16 route's bound
+    2e-4·max|want| (the fp32 intermediate rides the tensor cores as a bf16
+    hi/lo pair).  Timed at the bert-large shapes: both cores and the plain
+    version; the Hopper core must be faster."""
     from repro_torch.kernels import precond as pc
     row = rows["fused_precond[int8]"]
     gen = torch.Generator(device="cuda").manual_seed(13)
     for b, di, do, main in [(96, 1024, 1024, True), (24, 1024, 4096, True),
-                            (24, 4096, 1024, True), (3, 1001, 600, False)]:
+                            (24, 4096, 1024, True), (2, 1008, 720, False),
+                            (2, 720, 1008, False), (3, 1001, 600, False)]:
         rq, rsc = int8_bank(torch, b, di, gen)
         lq, lsc = int8_bank(torch, b, do, gen)
         g = (torch.randn((b, di, do), generator=gen, device="cuda")
              * 1e-2).to(torch.bfloat16)
         kw = dict(r_scale=rsc, l_scale=lsc)
-        for rescale in (True, False):
-            got = pc.fused_precond(rq, g, lq, rescale=rescale, **kw)
-            want = pc.fused_precond_plain(rq, g, lq, rescale=rescale, **kw)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            tol = 2e-4 * want.abs().max().item()
-            print(f"fused_precond[int8] {b}x{di}x{do} rescale={rescale}: "
-                  f"max_abs_err {err:.3e} (tol {tol:.3e})")
-            require(math.isfinite(err) and err <= tol,
-                    f"fused_precond[int8] {b}x{di}x{do} disagrees with its "
-                    "plain version")
-            row.add(err)
-            del got, want
+        route = pc.precond_route(rq.dtype, g.dtype, lq.dtype, di, do,
+                                 rq.data_ptr(), g.data_ptr(), lq.data_ptr())
+        require(route == ("wmma" if di % 16 or do % 16 else "wgmma"),
+                f"fused_precond[int8] {b}x{di}x{do}: route {route}")
+        for core in (None, "wmma") if main else (None,):
+            for rescale in (True, False):
+                got = expect_cores(
+                    torch, lambda: pc.fused_precond(rq, g, lq,
+                                                    rescale=rescale,
+                                                    core=core, **kw),
+                    {"fused_precond[int8]": 1, "matmul[int8 operand]": 1},
+                    {core or route: 2}, f"fused_precond[int8] {b}x{di}x{do}")
+                want = pc.fused_precond_plain(rq, g, lq, rescale=rescale,
+                                              **kw)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                tol = 2e-4 * want.abs().max().item()
+                print(f"fused_precond[int8] {b}x{di}x{do} rescale={rescale} "
+                      f"[{core or route}]: max_abs_err {err:.3e} "
+                      f"(tol {tol:.3e})")
+                require(math.isfinite(err) and err <= tol,
+                        f"fused_precond[int8] {b}x{di}x{do} "
+                        f"[{core or route}] disagrees with its plain version")
+                row.add(err)
+                del got, want
         if main:
             ms = time_ms(torch, lambda: pc.fused_precond(rq, g, lq, **kw))
+            old = time_ms(torch, lambda: pc.fused_precond(rq, g, lq,
+                                                          core="wmma", **kw))
             plain = time_ms(torch, lambda: pc.fused_precond_plain(
                 rq, g, lq, **kw))
             n_bytes = b * ((di * di + do * do) * 1 + di * do * 2
                            + di * do * 4 + 8)
             n_ops = b * 2.0 * di * do * (di + do)
             bms, by = row.bound(n_bytes, n_ops)
-            print(f"fused_precond[int8] {b}x{di}x{do}: {ms:.4f} ms, plain "
-                  f"{plain:.4f} ms, bound {bms:.4f} ms ({by}), "
-                  f"{n_ops / ms / 1e9:.1f} TFLOP/s")
+            print(f"fused_precond[int8] {b}x{di}x{do}: wgmma core {ms:.4f} ms "
+                  f"{rate(n_ops, ms)}; wmma core {old:.4f} ms "
+                  f"{rate(n_ops, old)}; plain {plain:.4f} ms; bound "
+                  f"{bms:.4f} ms ({by})")
+            require(ms < old, f"fused_precond[int8] {b}x{di}x{do}: the "
+                    f"wgmma core ({ms:.4f} ms) is not faster than the wmma "
+                    f"core ({old:.4f} ms)")
             row.add(0.0, ms, plain, n_bytes, n_ops)
+            row.other_ms["wmma core"] += old
         del rq, lq, g
+
+
+def check_matmul_int8(torch, rows):
+    """matmul with an int8 operand (codes and (b,) scales) on the core its
+    route picks -- the Hopper core at the first products fused_precond[int8]
+    gives it at bert-large (G L⁻¹ with int8 L, R⁻¹ G with int8 R) and at
+    ragged shapes of 16-code rows, the WMMA core for rows of 600 codes --
+    and on the WMMA core forced at the bert-large shapes; the hi/lo pair of
+    the scaled product wherever the Hopper core runs.  The plain version
+    decodes first; the kernels scale the exact product of the codes, so
+    fp32 rounding in another order: 1e-4·max|want| (the int8 bound of
+    tests/test_torch_cuda.py).  Timed at the bert-large shapes: both cores
+    and the plain version (no single PyTorch call takes an int8 operand
+    beside a bf16 one: library_ms is null)."""
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels.ref import split_hi_lo
+    row = rows["matmul[int8 operand]"]
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    for b, m, k, n, side, main in [(96, 1024, 1024, 1024, "b", True),
+                                   (24, 1024, 4096, 4096, "b", True),
+                                   (24, 4096, 4096, 1024, "a", True),
+                                   (2, 1000, 1008, 720, "a", False),
+                                   (3, 64, 96, 144, "b", False),
+                                   (3, 1001, 600, 701, "a", False)]:
+        if side == "a":
+            a, sc = int8_bank(torch, b, m, gen) if m == k else (
+                torch.randint(-127, 128, (b, m, k), generator=gen,
+                              device="cuda").to(torch.int8),
+                torch.full((b,), 1.0 / 127, device="cuda"))
+            w = (torch.randn((b, k, n), generator=gen, device="cuda")
+                 * 1e-2).to(torch.bfloat16)
+            kw = dict(a_scale=sc)
+        else:
+            a = (torch.randn((b, m, k), generator=gen, device="cuda")
+                 * 1e-2).to(torch.bfloat16)
+            w, sc = int8_bank(torch, b, n, gen) if k == n else (
+                torch.randint(-127, 128, (b, k, n), generator=gen,
+                              device="cuda").to(torch.int8),
+                torch.full((b,), 1.0 / 127, device="cuda"))
+            kw = dict(b_scale=sc)
+        route = mm.route_of(a, w)
+        require(route == ("wmma" if (k if side == "a" else n) % 16
+                          else "wgmma"),
+                f"matmul[int8 operand] {b}x{m}x{k}x{n}: route {route}")
+        want = mm.matmul_plain(a, w, **kw)
+        tol = 1e-4 * want.abs().max().item()
+        tag = f"matmul[int8 operand] {b}x{m}x{k}x{n} (int8 {side.upper()})"
+        for core in (None, "wmma") if main else (None,):
+            got = expect_cores(torch, lambda: mm.matmul(a, w, core=core,
+                                                        **kw),
+                               {"matmul[int8 operand]": 1}, {core or route: 1},
+                               tag)
+            err = (got - want).abs().max().item()
+            print(f"{tag} [{core or route}]: max_abs_err {err:.3e} "
+                  f"(tol {tol:.3e})")
+            require(math.isfinite(err) and err <= tol,
+                    f"{tag} [{core or route}] disagrees with its plain "
+                    "version")
+            row.add(err)
+            del got
+        if route == "wgmma":
+            hi, lo = expect_cores(torch, lambda: mm.matmul_split(a, w, **kw),
+                                  {"matmul[int8 operand]": 1}, {"wgmma": 1},
+                                  f"{tag} hi/lo")
+            err = (hi.float() + lo.float() - want).abs().max().item()
+            bad = ((hi.float() - split_hi_lo(want)[0].float()).abs()
+                   > 2.0 ** -7 * want.abs() + tol).sum().item()
+            print(f"{tag} hi/lo: |hi + lo - want| max {err:.3e} (tol "
+                  f"{tol:.3e}); {bad} of hi beyond one bf16 ulp of "
+                  "bf16(want) (tol 0)")
+            require(math.isfinite(err) and err <= tol and bad == 0,
+                    f"{tag} hi/lo disagrees with split_hi_lo of the plain "
+                    "product")
+            row.add(err)
+            del hi, lo
+        if main:
+            ms = time_ms(torch, lambda: mm.matmul(a, w, **kw))
+            old = time_ms(torch, lambda: mm.matmul(a, w, core="wmma", **kw))
+            plain = time_ms(torch, lambda: mm.matmul_plain(a, w, **kw))
+            n_bytes = b * (m * k * a.element_size() + k * n * w.element_size()
+                           + m * n * 4 + 4)
+            n_ops = b * 2.0 * m * k * n
+            bms, by = row.bound(n_bytes, n_ops)
+            print(f"{tag}: wgmma core {ms:.4f} ms {rate(n_ops, ms)}; wmma "
+                  f"core {old:.4f} ms {rate(n_ops, old)}; plain {plain:.4f} "
+                  f"ms; bound {bms:.4f} ms ({by})")
+            require(ms < old, f"{tag}: the wgmma core ({ms:.4f} ms) is not "
+                    f"faster than the wmma core ({old:.4f} ms)")
+            row.add(0.0, ms, plain, n_bytes, n_ops)
+            row.other_ms["wmma core"] += old
+        del a, w, want
 
 
 # ----------------------------------------------------------------------- #
@@ -917,7 +1044,7 @@ class PlainTee:
     def precompute(self, state, params=None, **kw):
         self.events.append("precompute")
         new = self.opt_k.precompute(state, params=params, **kw)
-        count = state["count"]
+        count = int(state["count"])
         if count in self.tick_at:
             plain = self.plain(self.opt_p.precompute, state, params=params,
                                **kw)
@@ -931,7 +1058,7 @@ class PlainTee:
         self.events.append("update")
         out = self.opt_k.update(grads, state, params=params, stats=stats,
                                 **kw)
-        count = state["count"]
+        count = int(state["count"])
         if count in self.update_at:
             plain = self.plain(self.opt_p.update, grads, state,
                                params=params, stats=stats, **kw)
@@ -987,7 +1114,7 @@ def run_path(torch, dev, name, step_fn, opt, params, ds, steps,
     if name in WGMMA_PATHS:
         # every GEMM of matmul and fused_precond (two a launch: its first
         # product runs through matmul) on the Hopper core
-        gemms = counts.get("matmul", 0) + counts.get("fused_precond", 0)
+        gemms = sum(counts.get(k, 0) for k in GEMM_KERNELS)
         require(cores.get("wmma", 0) == 0 and
                 cores.get("wgmma", 0) == gemms,
                 f"{name}: GEMM cores {cores}, expected all {gemms} on wgmma")
@@ -1329,7 +1456,8 @@ def main() -> int:
     check_fused_smw_int8(torch, rows)
     check_fused_block_smw_int8(torch, rows)
     check_fused_precond_int8(torch, rows)
-    for name in ("matmul", "fused_precond"):
+    check_matmul_int8(torch, rows)
+    for name in GEMM_KERNELS:
         r = rows[name]
         b_ms, b_by = r.bound(r.bytes, r.ops)
         print(f"{name}, sum of the bert-large shapes: wgmma core {r.ms:.4f} ms "

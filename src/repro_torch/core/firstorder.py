@@ -6,10 +6,12 @@ A functional ``(init, update)`` pair over dict parameter trees rather than a
 exactly as the reference does.  ``update`` returns *additive* updates that
 already carry the ``-lr``; apply them with :func:`apply_updates`.
 
-Step counts are Python ints and the per-step scalars (bias corrections,
-learning rate) are computed on the host in float32, as the reference
-computes them in float32 on the device; everything per element stays on
-the tensors' device, with no host sync.
+Step counts are 0-d int32 tensors, the reference's int32 scalars, kept on
+the CPU whatever device the parameters are on: the per-step scalars (bias
+corrections, learning rate) are computed from them on the host in
+float32, as the reference computes them in float32 on the device, and
+reading a CPU count costs no host sync.  Everything per element stays on
+the tensors' device.
 """
 from __future__ import annotations
 
@@ -52,6 +54,11 @@ def as_schedule(lr) -> Schedule:
     return lambda step: value
 
 
+def step_count(value: int = 0) -> torch.Tensor:
+    """A step count as the state holds it: 0-d int32 on the CPU."""
+    return torch.tensor(value, dtype=torch.int32)
+
+
 def _bias_correction(beta: float, step: int) -> float:
     return float(np.float32(1.0) - np.float32(beta) ** np.float32(step))
 
@@ -74,12 +81,13 @@ def lamb(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
     lr = as_schedule(lr)
 
     def init(params):
-        return {"count": 0, "m": _tree_zeros(params), "v": _tree_zeros(params)}
+        return {"count": step_count(), "m": _tree_zeros(params),
+                "v": _tree_zeros(params)}
 
     def update(grads, state, params=None, **_):
         if params is None:
             raise ValueError("lamb needs params (trust ratio)")
-        step = state["count"] + 1
+        step = int(state["count"]) + 1
         m, v = _adam_moments(grads, state, b1, b2)
         bc1 = _bias_correction(b1, step)
         bc2 = _bias_correction(b2, step)
@@ -98,7 +106,7 @@ def lamb(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
             return ((-lr_t * trust) * r).to(p.dtype)
 
         updates = tree_map(upd, m, v, params)
-        return updates, {"count": step, "m": m, "v": v}
+        return updates, {"count": step_count(step), "m": m, "v": v}
 
     return GradientTransformation(init, update)
 

@@ -72,10 +72,18 @@ off, ``variant`` ``paper`` and ``exact_smw``, factor storage ``none`` /
 per-layer layout raises ``ValueError``, as in the reference).
 ``MKORConfig`` keeps every field of the reference with the same default,
 with ``use_pallas`` renamed ``use_kernels`` and the Pallas-only
-``interpret`` dropped.  The state holds ``count``, ``factor_banks``,
-``stat_windows`` (rank > 1 or staleness 1), ``pending_banks`` (staleness
-1) and ``backend``; the reference's ``hybrid`` entry arrives with
-``mkor_h``.
+``interpret`` dropped.
+
+The state is the reference's tree, key for key, with the reference's
+dtypes and shapes: ``count``, ``factor_banks``, ``stat_windows`` (rank > 1
+or staleness 1), ``pending_banks`` (staleness 1), ``hybrid`` (MKOR-H's
+switch, ``{"on": bool, "ema_fast": fp32, "ema_slow": fp32}`` scalars,
+carried unchanged: ``hybrid=True`` is not ported yet) and ``backend``, so
+``interop.opt_state_from_numpy`` carries a JAX state across whole.
+``count`` is a 0-d int32 tensor kept on the CPU whatever device the banks
+are on: the inversion schedule is a host branch on it, and a CUDA count
+would add a device-to-host sync to every step of a host-bound loop.  A
+device-side counter belongs with CUDA-graph capture (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -85,10 +93,11 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import stats as statlib
-from repro_torch.core.firstorder import GradientTransformation
+from repro_torch.core.firstorder import GradientTransformation, step_count
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.precond import rescale_update  # Alg. 1 line 10
 from repro_torch.kernels.rank1_smw import fused_block_smw_plain
+from repro_torch.tree import tree_leaves
 
 
 @dataclass(frozen=True)
@@ -120,6 +129,13 @@ class MKORConfig:
     hybrid_ema_slow: float = 0.99
     hybrid_threshold: float = 0.02
     hybrid_min_steps: int = 50
+
+
+def _hybrid_init(device) -> Dict[str, torch.Tensor]:
+    """MKOR-H's switch state, as the reference's ``_hybrid_init``."""
+    return {"on": torch.ones((), dtype=torch.bool, device=device),
+            "ema_fast": torch.zeros((), dtype=torch.float32, device=device),
+            "ema_slow": torch.zeros((), dtype=torch.float32, device=device)}
 
 
 # the quantized identity's scale: codes 127·I decode to exactly I·(127/127)
@@ -398,7 +414,7 @@ def mkor(backend: GradientTransformation,
                         win[k] = torch.zeros(shape + (cfg.rank,),
                                              dtype=torch.float32, device=dev)
                 windows[b.bucket_id] = win
-        state = {"count": 0, "factor_banks": banks}
+        state = {"count": step_count(), "factor_banks": banks}
         if needs_window:
             state["stat_windows"] = windows
         if cfg.staleness:
@@ -406,6 +422,7 @@ def mkor(backend: GradientTransformation,
             state["pending_banks"] = {
                 bid: {k: t.clone() for k, t in bank.items()}
                 for bid, bank in banks.items()}
+        state["hybrid"] = _hybrid_init(tree_leaves(params)[0].device)
         state["backend"] = backend.init(params)
         return state
 
@@ -474,7 +491,7 @@ def mkor(backend: GradientTransformation,
         return out
 
     def update_sync(grads, state, params, stats):
-        count = state["count"]
+        count = int(state["count"])
         manifest = manifest_for(params if params is not None else grads, cfg)
         phases = statlib.bucket_phases(manifest, cfg.inv_freq, cfg.stagger)
         new_banks: Dict[str, Dict[str, torch.Tensor]] = {}
@@ -529,7 +546,7 @@ def mkor(backend: GradientTransformation,
         so the error feedback rides the pending bank."""
         manifest = manifest_for(tree, cfg)
         phases = statlib.bucket_phases(manifest, cfg.inv_freq, cfg.stagger)
-        count = state["count"]
+        count = int(state["count"])
         active = dict(state["factor_banks"])
         pending = dict(state["pending_banks"])
         windows = dict(state["stat_windows"])
@@ -587,7 +604,8 @@ def mkor(backend: GradientTransformation,
         updates, backend_state = backend.update(out, state["backend"],
                                                 params=params)
         updates = statlib.zero_probes(updates)
-        return updates, {"count": state["count"] + 1, **fstate,
+        return updates, {"count": step_count(int(state["count"]) + 1),
+                         **fstate, "hybrid": state["hybrid"],
                          "backend": backend_state}
 
     return GradientTransformation(init, update,

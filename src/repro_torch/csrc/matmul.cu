@@ -9,21 +9,21 @@
 // arithmetic intensity is far above the card's ~295 bf16 operations per
 // byte, so it is bound by tensor-core operations.  Two cores, picked by the
 // wrapper before the launch (kernels/matmul.py:gemm_route):
-//   * mkor_matmul_tma -- bf16 operands whose bases are 16-byte aligned and
-//     whose rows are multiples of 16 bytes (every bert-large shape): the
-//     Hopper core of wgmma_gemm.cuh (TMA ring of swizzled stages, wgmma,
-//     one persistent block per SM).  Its output is fp32 C or, for the first
-//     product of fused_precond, a bf16 hi/lo pair (hi = bf16(c),
-//     lo = bf16(c - hi)) that the second product loads by TMA;
+//   * mkor_matmul_tma -- bf16 operands, or one operand of int8 codes (an
+//     int8 factor bank's, with one fp32 scale per batch entry), whose bases
+//     are 16-byte aligned and whose rows and batch strides are multiples of
+//     16 bytes (every bert-large shape): the Hopper core of wgmma_gemm.cuh
+//     (TMA ring of swizzled stages, wgmma, one persistent block per SM).
+//     int8 codes arrive by TMA into a raw buffer of the stage and are
+//     widened exactly to bf16 in shared memory by the producer warpgroup;
+//     the scale multiplies the accumulator in the epilogue.  Its output is
+//     fp32 C or, for the first product of fused_precond, a bf16 hi/lo pair
+//     (hi = bf16(c), lo = bf16(c - hi)) of the scaled product that the
+//     second product loads by TMA;
 //   * mkor_matmul -- everything else, on the WMMA core of gemm.cuh:
 //     float32 operands (split into bf16 hi/lo parts on their way into
-//     shared memory, 16 significant bits), ragged row widths, and int8
-//     operands.  An int8 operand (an int8 factor bank's codes, with one
-//     fp32 scale per batch entry) enters the tensor cores as exact bf16
-//     parts and its scale multiplies the accumulator in the epilogue: the
-//     first product of fused_precond[int8] runs here with no decoded copy of
-//     the bank.  It stays on this core until an int8 widening stage exists
-//     for the TMA core (wgmma_gemm.cuh says why).
+//     shared memory, 16 significant bits) and ragged row widths, int8
+//     codes included (exact bf16 parts, the scale in the epilogue).
 #include "gemm.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -41,21 +41,36 @@ extern "C" int mkor_matmul(const void* a, const void* b, void* c,
                                   static_cast<cudaStream_t>(stream));
 }
 
-// The Hopper core: a (batch, m, k) @ b (batch, k, n), both bf16, with batch
-// strides sa / sb in elements (0 broadcasts a 2-D operand).  hilo = 0: c is
-// (batch, m, n) fp32.  hilo = 1: c is the bf16 hi part and c_lo, when not
-// null, the bf16 lo part.
+// The Hopper core: a (batch, m, k) @ b (batch, k, n), bf16, or int8 codes
+// for the one operand whose scale (a_scale / b_scale, (batch,) fp32) is not
+// null; batch strides sa / sb in elements (0 broadcasts a 2-D operand).
+// hilo = 0: c is (batch, m, n) fp32.  hilo = 1: c is the bf16 hi part and
+// c_lo, when not null, the bf16 lo part.
 extern "C" int mkor_matmul_tma(const void* a, const void* b, void* c,
-                               void* c_lo, int m, int n, int k, long long sa,
-                               long long sb, int batch, int hilo,
-                               void* stream) {
-  const mkor::wg::Operand oa{a, nullptr, sa}, ob{b, nullptr, sb};
+                               void* c_lo, const float* a_scale,
+                               const float* b_scale, int m, int n, int k,
+                               long long sa, long long sb, int batch,
+                               int hilo, void* stream) {
+  namespace wg = mkor::wg;
+  if (a_scale != nullptr && b_scale != nullptr)
+    return (int)cudaErrorInvalidValue;
+  const wg::Operand oa{a, nullptr, sa, a_scale}, ob{b, nullptr, sb, b_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      hilo ? mkor::wg::launch<false, false, true>(oa, ob, c, c_lo, nullptr,
-                                                  m, n, k, batch, s)
-           : mkor::wg::launch<false, false, false>(oa, ob, c, nullptr,
-                                                   nullptr, m, n, k, batch,
-                                                   s);
+  cudaError_t err;
+  if (hilo)
+    err = a_scale ? wg::launch<false, false, true, true, false>(
+                        oa, ob, c, c_lo, nullptr, m, n, k, batch, s)
+        : b_scale ? wg::launch<false, false, true, false, true>(
+                        oa, ob, c, c_lo, nullptr, m, n, k, batch, s)
+                  : wg::launch<false, false, true>(oa, ob, c, c_lo, nullptr,
+                                                   m, n, k, batch, s);
+  else
+    err = a_scale ? wg::launch<false, false, false, true, false>(
+                        oa, ob, c, nullptr, nullptr, m, n, k, batch, s)
+        : b_scale ? wg::launch<false, false, false, false, true>(
+                        oa, ob, c, nullptr, nullptr, m, n, k, batch, s)
+                  : wg::launch<false, false, false>(oa, ob, c, nullptr,
+                                                    nullptr, m, n, k, batch,
+                                                    s);
   return (int)err;
 }

@@ -26,13 +26,13 @@
 // read: tensor-core operations at every bert-large shape.  The scale pass
 // re-reads D (fp32), a bytes-bound tail.  Two cores, picked by the wrapper
 // before the launch (kernels/matmul.py:gemm_route):
-//   * mkor_fused_precond_tma -- bf16 R, G and L with rows that are
-//     multiples of 16 bytes (every bert-large shape): the first product
-//     writes T directly as a bf16 hi/lo pair (hi = bf16(T), lo =
-//     bf16(T - hi), 4 bytes an element as fp32), and the second product
-//     runs on the Hopper core of wgmma_gemm.cuh in split mode: both parts
-//     of T arrive by TMA into the same stage as the factor's tile and each
-//     k-step issues wgmma(T_hi, F) and wgmma(T_lo, F) into one
+//   * mkor_fused_precond_tma -- bf16 R, G and L, or int8 R and L, with
+//     rows that are multiples of 16 bytes (every bert-large shape): the
+//     first product writes T directly as a bf16 hi/lo pair (hi = bf16(T),
+//     lo = bf16(T - hi), 4 bytes an element as fp32), and the second
+//     product runs on the Hopper core of wgmma_gemm.cuh in split mode: both
+//     parts of T arrive by TMA into the same stage as the factor's tile and
+//     each k-step issues wgmma(T_hi, F) and wgmma(T_lo, F) into one
 //     accumulator -- the hi*f + lo*f arithmetic of the WMMA core, on
 //     Hopper's tensor-core path;
 //   * mkor_fused_precond -- everything else, on the WMMA core of gemm.cuh
@@ -43,16 +43,17 @@
 // int8 factors (fused_precond[int8], MKOR's int8 factor state): replaces
 // the quant body of the same TPU kernel (precond.py:57-63, the dequantized
 // R and L panels at :86-88 and :94-96, the scale operands at :140-143).
-// R and L arrive as int8 codes with one fp32 scale per slice.  The codes
-// enter the tensor cores as single bf16 parts (exact, gemm.cuh) in both
-// products -- the first one through matmul.cu, with the scale of its int8
-// operand -- and each product's scale multiplies its accumulator in the
-// epilogue, before the sum of squares of D and before the store.  With
+// R and L arrive as int8 codes with one fp32 scale per slice, and no
+// decoded copy of a bank is made.  On the Hopper core the codes are
+// TMA-loaded as bytes and widened exactly to bf16 in shared memory
+// (wgmma_gemm.cuh) in both products -- the first one through matmul.cu,
+// whose hi/lo pair is of the scaled product -- and each product's scale
+// multiplies its accumulator in the epilogue, before the sum of squares of
+// D and before the store; on the WMMA core (ragged rows) the codes enter
+// the tensor cores as single bf16 parts, with the same epilogue.  With
 // rescale on the two scales cancel in exact arithmetic, but they are
 // applied all the same: the output without rescale, and the sum of
-// squares against the 1e-30 guard, depend on them.  This body stays on
-// the WMMA core: TMA cannot widen int8 codes to bf16, so the Hopper core
-// needs a widening stage first (wgmma_gemm.cuh).
+// squares against the 1e-30 guard, depend on them.
 #include "gemm.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -146,16 +147,23 @@ extern "C" int mkor_fused_precond(const void* p, const void* q,
   return (int)finish_rescale(out, per_out, batch, sums, stream);
 }
 
-// The Hopper core: p (batch, m, k) @ q (batch, k, n) -> out fp32, all bf16,
-// with exactly one operand a hi/lo pair (p_lo or q_lo not null: the first
-// product's T); otherwise as mkor_fused_precond.
+// The Hopper core: p (batch, m, k) @ q (batch, k, n) -> out fp32, with
+// exactly one operand a bf16 hi/lo pair (p_lo or q_lo not null: the first
+// product's T) and the other a bf16 factor, or int8 codes when its scale
+// (p_scale / q_scale, (batch,) fp32) is not null; otherwise as
+// mkor_fused_precond.
 extern "C" int mkor_fused_precond_tma(const void* p, const void* p_lo,
                                       const void* q, const void* q_lo,
                                       const void* g, float* out, float* sums,
-                                      int m, int n, int k, int batch,
-                                      int g_f32, int rescale,
-                                      void* stream_ptr) {
-  if ((p_lo == nullptr) == (q_lo == nullptr)) return (int)cudaErrorInvalidValue;
+                                      const float* p_scale,
+                                      const float* q_scale, int m, int n,
+                                      int k, int batch, int g_f32,
+                                      int rescale, void* stream_ptr) {
+  namespace wg = mkor::wg;
+  if ((p_lo == nullptr) == (q_lo == nullptr) ||
+      (p_lo != nullptr && p_scale != nullptr) ||
+      (q_lo != nullptr && q_scale != nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const long long per_out = (long long)m * n;
   float* dsq = rescale ? sums + batch : nullptr;
@@ -164,14 +172,19 @@ extern "C" int mkor_fused_precond_tma(const void* p, const void* p_lo,
                                        stream);
     if (err != cudaSuccess) return (int)err;
   }
-  const mkor::wg::Operand a{p, p_lo, (long long)m * k};
-  const mkor::wg::Operand b{q, q_lo, (long long)k * n};
-  cudaError_t err =
-      p_lo != nullptr
-          ? mkor::wg::launch<true, false, false>(a, b, out, nullptr, dsq, m,
-                                                 n, k, batch, stream)
-          : mkor::wg::launch<false, true, false>(a, b, out, nullptr, dsq, m,
-                                                 n, k, batch, stream);
+  const wg::Operand a{p, p_lo, (long long)m * k, p_scale};
+  const wg::Operand b{q, q_lo, (long long)k * n, q_scale};
+  cudaError_t err;
+  if (p_lo != nullptr)
+    err = q_scale ? wg::launch<true, false, false, false, true>(
+                        a, b, out, nullptr, dsq, m, n, k, batch, stream)
+                  : wg::launch<true, false, false>(a, b, out, nullptr, dsq,
+                                                   m, n, k, batch, stream);
+  else
+    err = p_scale ? wg::launch<false, true, false, true, false>(
+                        a, b, out, nullptr, dsq, m, n, k, batch, stream)
+                  : wg::launch<false, true, false>(a, b, out, nullptr, dsq,
+                                                   m, n, k, batch, stream);
   if (err != cudaSuccess || !rescale) return (int)err;
   return (int)finish_rescale(out, per_out, batch, sums, stream);
 }

@@ -1,7 +1,8 @@
 // Batched bf16 GEMM for Hopper: TMA ring + wgmma, shared by matmul.cu and
 // precond.cu beside the WMMA core (gemm.cuh).
 //
-// C[b] = A[b] (M, K) @ B[b] (K, N), both row-major bf16, fp32 accumulation.
+// C[b] = A[b] (M, K) @ B[b] (K, N), both row-major, bf16 or (one of them)
+// int8 codes with a per-slice fp32 scale, fp32 accumulation.
 //
 // Replaces, with gemm.cuh, the TPU kernels src/repro/kernels/matmul.py:35
 // (matmul) and src/repro/kernels/precond.py:108 (fused_precond's two
@@ -41,13 +42,30 @@
 // (the first product of fused_precond, 4 bytes an element as fp32), or hi
 // alone (a bf16 C).
 //
+// int8 operands (QA / QB: an int8 factor bank's codes, one fp32 scale a
+// slice) are widened on chip.  TMA copies bytes and cannot widen a code,
+// and wgmma has no int8 x bf16 product, so the producer thread TMA-loads a
+// k-block's codes into a raw buffer of the stage (an int8 map, boxes 64
+// codes wide, no swizzle) and completes a "raw full" mbarrier; the
+// producer warpgroup's other three warps, idle otherwise, wait on it,
+// widen each code exactly to bf16 (|code| <= 127 has 7 significant bits)
+// and store the 128-byte-swizzled bf16 tile where TMA would have put it
+// (16-byte unit u of row r at unit u ^ r % 8), so the consumers'
+// descriptors and loop do not change.  Each widening thread then fences
+// its generic-proxy stores for the async proxy (fence.proxy.async) and
+// arrives on the stage's full barrier, which expects one arrival for the
+// TMA transaction plus one per widening thread.  The raw buffer is freed
+// with the stage.  The scale is a scalar factor of each slice's product:
+// the epilogue multiplies the accumulator by scale_a[b] * scale_b[b]
+// before anything else (the hi/lo split, the sum of squares, the store).
+// The widening is integer and packed-bf16 arithmetic (widen4), not the
+// conversion unit: three warps converting with I2F/F2F took ~2x a stage's
+// tensor time for a 64 x 256 int8 B tile (PERF.md).
+//
 // What stays on the WMMA core, and why: float32 operands handed to matmul,
-// rows that are not a multiple of 16 bytes or bases that are not 16-byte
-// aligned (TMA's rule), and int8 operands.  TMA copies bytes and cannot
-// widen an int8 code to bf16, and wgmma takes no int8 x bf16 product, so an
-// int8 factor needs a widening stage -- in registers for A (wgmma with A
-// from registers), in shared memory for B -- which is later work; until
-// then fused_precond[int8] and its first product run on gemm.cuh.
+// and rows that are not a multiple of 16 bytes or bases that are not
+// 16-byte aligned (TMA's rule; for int8 codes, rows of a multiple of 16
+// codes).
 //
 // The tensor maps are encoded on the host per call, through
 // cuTensorMapEncodeTiled reached with cudaGetDriverEntryPoint (no -lcuda),
@@ -71,35 +89,51 @@ constexpr int kBBox = BK * kBoxCols * 2;       // one (64 x 64) box, 8 KB
 constexpr int kSmemLimit = 232448;             // a block's 227 KB
 constexpr int kMaxStages = 6;
 constexpr int kEpiBytes = 64 * 64 * 4;         // a warpgroup's staging buffer
+constexpr int kWideners = 96;                  // producer warps 1-3
+constexpr int kQBox = BK * kBoxCols;           // one (64 x 64) int8 box, 4 KB
 
 // Tile width: 256 where B is one tensor (measured 1.2-1.3x faster than 128
-// at the bert-large products), 128 where B is a hi/lo pair (two 256-wide B
-// parts would leave room for only two stages).
-template <bool SB>
-__host__ __device__ constexpr int tile_n() { return SB ? 128 : 256; }
+// at the bert-large products), 128 where B is a hi/lo pair, and where A is
+// a pair and B int8 codes (two 256-wide B parts, or a pair beside 16 KB of
+// raw codes, would leave room for only two stages).
+template <bool SA, bool SB, bool QB>
+__host__ __device__ constexpr int tile_n() {
+  return (SB || (SA && QB)) ? 128 : 256;
+}
 
-template <bool SA, bool SB, int BN>
+template <bool SA, bool SB, int BN, bool QA, bool QB>
 struct Ring {
   static constexpr int A_PARTS = SA ? 2 : 1;
   static constexpr int B_PARTS = SB ? 2 : 1;
   static constexpr int B_BYTES = BK * BN * 2;    // BN / 64 boxes
-  static constexpr int STAGE = kABytes * A_PARTS + B_BYTES * B_PARTS;
+  // the raw int8 codes of a QA / QB operand follow the bf16 tiles
+  static constexpr int RAW = kABytes * A_PARTS + B_BYTES * B_PARTS;
+  static constexpr int Q_BYTES = QA ? BM * BK : (QB ? BK * BN : 0);
+  static constexpr int STAGE = RAW + Q_BYTES;
+  // the bytes TMA writes into the bf16 tiles (a widened tile is stored by
+  // the widening warps instead)
+  static constexpr int TMA_BYTES =
+      RAW - (QA ? kABytes : 0) - (QB ? B_BYTES : 0);
   static constexpr int EPI = kConsumers * kEpiBytes;
+  // a full and an empty mbarrier a stage, and a raw-full one for codes
+  static constexpr int BARS = (QA || QB) ? 24 : 16;
   static constexpr int FIT =
-      (kSmemLimit - 1024 - EPI - 16 * kMaxStages) / STAGE;
+      (kSmemLimit - 1024 - EPI - BARS * kMaxStages) / STAGE;
   static constexpr int STAGES = FIT < kMaxStages ? FIT : kMaxStages;
   // 1024 bytes of slack to align the ring to the swizzle atom, then the
-  // stages, the epilogue's staging buffers, and a full and an empty
-  // mbarrier a stage
-  static constexpr int BYTES = 1024 + STAGES * STAGE + EPI + 16 * STAGES;
+  // stages, the epilogue's staging buffers, and the mbarriers
+  static constexpr int BYTES = 1024 + STAGES * STAGE + EPI + BARS * STAGES;
   static_assert(STAGES >= 2, "the ring needs two stages");
 };
 
 struct Params {
-  CUtensorMap a, a_lo, b, b_lo;  // the lo maps are read in split mode only
+  CUtensorMap a, a_lo, b, b_lo;  // the lo maps are read in split mode only;
+                                 // a / b map int8 codes for QA / QB
   void* c;                       // fp32 C, or the bf16 hi part
   void* c_lo;                    // bf16 lo part, or null
   float* sumsq;                  // per-batch sum of squares of C, or null
+  const float* scale_a;          // (batch,) scales of int8 A / B codes
+  const float* scale_b;
   int m, n, k, batch;
   int a_3d, b_3d;                // 0: 2-D map, broadcast over the batch
   int tiles_m, tiles_n;
@@ -188,6 +222,67 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint2 lds64(uint32_t addr) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(v.x), "=r"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// The four int8 codes of w as two bf16 pairs, exactly, without the
+// conversion unit (a quarter-rate pipe, and the first design's bottleneck:
+// one I2F a code and one F2F a pair kept the int8-B products at ~2.4x the
+// bf16 time).  A code x with low bits l = x & 0x7f and sign bit s is
+// (128 + l) - (128 + 128 s); both terms are bf16 bit patterns built by byte
+// permutes -- high byte 0x43 (2^7), low byte l, or 0x00 / 0x80 for 128 /
+// 256 -- and one packed bf16 subtraction a pair gives x exactly (every
+// term and the result are integers of at most 8 significant bits).
+__device__ __forceinline__ uint2 widen4(uint32_t w) {
+  const uint32_t low = w & 0x7f7f7f7fu, sign = w & 0x80808080u;
+  uint2 out;
+  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    // bytes {code 2h, 0x43, code 2h + 1, 0x43}
+    const uint32_t sel = h ? 0x4342u : 0x4140u;
+    const uint32_t a = __byte_perm(low, 0x43434343u, sel);
+    const uint32_t b = __byte_perm(sign, 0x43434343u, sel);
+    o[h] = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                   *reinterpret_cast<const __nv_bfloat162*>(&b));
+  }
+  return out;
+}
+
+// A stage's int8 codes (raw: (rows x 64) boxes of 64-byte rows) into the
+// bf16 tile at dst ((rows x 64) boxes of 128-byte rows, TMA's 128-byte
+// swizzle: 16-byte unit u of row r stored at unit u ^ r % 8).  Chunk c is
+// 8 codes, raw bytes 8c.., bf16 row c / 8, unit c % 8.  Widening thread t
+// takes chunks t, t + 96, ...: always unit u = t % 8, rows t / 8 + 12 i,
+// and 12 i moves row % 8 by 4 i, so the swizzled unit alternates between
+// two values and the addresses advance by constants.
+static_assert(kWideners % 8 == 0, "a widening thread keeps its unit");
+template <int CHUNKS>
+__device__ __forceinline__ void widen_stage(uint32_t raw, uint32_t dst,
+                                            int t) {
+  const int r0 = t >> 3;
+  const uint32_t swz = ((t & 7) ^ (r0 & 7)) << 4;
+  raw += 8 * t;
+  dst += r0 * 128;
+#pragma unroll 2
+  for (int i = 0; t + i * kWideners < CHUNKS; ++i) {
+    const uint2 w = lds64(raw + i * 8 * kWideners);
+    const uint2 lo = widen4(w.x), hi = widen4(w.y);
+    sts128(dst + i * (kWideners / 8) * 128 + (swz ^ ((i & 1) << 6)),
+           make_uint4(lo.x, lo.y, hi.x, hi.y));
+  }
 }
 
 // Barrier of one consumer warpgroup (ids 1 and 2; 0 is __syncthreads).
@@ -289,22 +384,27 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[128], uint64_t da,
 }
 
 // SA / SB: A / B arrives as a bf16 hi/lo pair (split mode).  HILO: write C
-// as bf16 hi (and lo when c_lo is set) instead of fp32.
-template <bool SA, bool SB, bool HILO>
+// as bf16 hi (and lo when c_lo is set) instead of fp32.  QA / QB: A / B
+// arrives as int8 codes, widened on chip, with scale_a / scale_b.
+template <bool SA, bool SB, bool HILO, bool QA, bool QB>
 __global__ void __launch_bounds__(kThreads, 1)
     wgmma_gemm_kernel(__grid_constant__ const Params p) {
-  constexpr int BN = tile_n<SB>();
-  using R = Ring<SA, SB, BN>;
+  constexpr bool Q = QA || QB;
+  constexpr int BN = tile_n<SA, SB, QB>();
+  using R = Ring<SA, SB, BN, QA, QB>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bars = base + R::STAGES * R::STAGE + kConsumers * kEpiBytes;
   auto full = [&](uint32_t s) { return bars + 8 * s; };
   auto empty = [&](uint32_t s) { return bars + 8 * (R::STAGES + s); };
+  auto raw_full = [&](uint32_t s) { return bars + 8 * (2 * R::STAGES + s); };
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < R::STAGES; ++s) {
-      mbar_init(full(s), 1);                  // the producer's expect_tx
+      // the producer's expect_tx, and each widening thread's arrive
+      mbar_init(full(s), Q ? 1 + kWideners : 1);
       mbar_init(empty(s), kConsumers * 4);    // one arrive per consumer warp
+      if (Q) mbar_init(raw_full(s), 1);       // the codes' expect_tx
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -318,7 +418,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (wg == kConsumers) {
     // ---------------- producer: one thread issues every copy -------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == kConsumers * 128) {
+    const int pt = threadIdx.x - kConsumers * 128;
+    if (pt == 0) {
       uint32_t it = 0;
       for (int t = blockIdx.x; t < total; t += gridDim.x) {
         const int b = t / per_slice, r = t % per_slice;
@@ -328,18 +429,54 @@ __global__ void __launch_bounds__(kThreads, 1)
           mbar_wait(empty(s), ((it / R::STAGES) & 1) ^ 1);
           const uint32_t stage = base + s * R::STAGE;
           const uint32_t bar = full(s);
-          mbar_expect_tx(bar, R::STAGE);
           const int k0 = kb * BK;
-          tma_load(stage, &p.a, bar, k0, m0, b, p.a_3d);
-          if (SA) tma_load(stage + kABytes, &p.a_lo, bar, k0, m0, b, p.a_3d);
-          const uint32_t bt = stage + kABytes * R::A_PARTS;
+          if constexpr (Q) {           // the codes first: widening waits
+            const uint32_t rb = raw_full(s), raw = stage + R::RAW;
+            mbar_expect_tx(rb, R::Q_BYTES);
+            if constexpr (QA) {
+              tma_load(raw, &p.a, rb, k0, m0, b, p.a_3d);
+            } else {
 #pragma unroll
-          for (int j = 0; j < BN / kBoxCols; ++j) {
-            tma_load(bt + j * kBBox, &p.b, bar, n0 + j * kBoxCols, k0, b,
-                     p.b_3d);
-            if (SB)
-              tma_load(bt + R::B_BYTES + j * kBBox, &p.b_lo, bar,
-                       n0 + j * kBoxCols, k0, b, p.b_3d);
+              for (int j = 0; j < BN / kBoxCols; ++j)
+                tma_load(raw + j * kQBox, &p.b, rb, n0 + j * kBoxCols, k0, b,
+                         p.b_3d);
+            }
+          }
+          mbar_expect_tx(bar, R::TMA_BYTES);
+          if constexpr (!QA) {
+            tma_load(stage, &p.a, bar, k0, m0, b, p.a_3d);
+            if (SA)
+              tma_load(stage + kABytes, &p.a_lo, bar, k0, m0, b, p.a_3d);
+          }
+          const uint32_t bt = stage + kABytes * R::A_PARTS;
+          if constexpr (!QB) {
+#pragma unroll
+            for (int j = 0; j < BN / kBoxCols; ++j) {
+              tma_load(bt + j * kBBox, &p.b, bar, n0 + j * kBoxCols, k0, b,
+                       p.b_3d);
+              if (SB)
+                tma_load(bt + R::B_BYTES + j * kBBox, &p.b_lo, bar,
+                         n0 + j * kBoxCols, k0, b, p.b_3d);
+            }
+          }
+        }
+      }
+    } else if constexpr (Q) {
+      // ------------- widening warps: int8 codes -> swizzled bf16 --------
+      if (pt >= 32) {
+        uint32_t it = 0;
+        for (int t = blockIdx.x; t < total; t += gridDim.x) {
+          for (int kb = 0; kb < k_blocks; ++kb, ++it) {
+            const uint32_t s = it % R::STAGES;
+            mbar_wait(raw_full(s), (it / R::STAGES) & 1);
+            const uint32_t stage = base + s * R::STAGE;
+            widen_stage<R::Q_BYTES / 8>(
+                stage + R::RAW, QA ? stage : stage + kABytes * R::A_PARTS,
+                pt - 32);
+            // make the generic-proxy stores visible to wgmma's async
+            // proxy, then count this thread in the stage's full barrier
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            mbar_arrive(full(s));
           }
         }
       }
@@ -391,6 +528,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int q = lane % 4, tid = threadIdx.x % 128;
       const int rows_left = p.m - (m0 + wg * 64);
       const long long slice = (long long)b * p.m * p.n;
+      // the int8 operands' scales, a factor of the whole slice's product:
+      // applied first, so the hi/lo pair, the sum of squares and the
+      // stored C are all of the scaled product
+      float sc = 1.0f;
+      if constexpr (QA) sc *= p.scale_a[b];
+      if constexpr (QB) sc *= p.scale_b[b];
       float sq = 0.0f;
 #pragma unroll
       for (int c = 0; c < BN / 64; ++c) {
@@ -402,7 +545,11 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int h = 0; h < 2; ++h) {
             const int row = warp * 16 + lane / 4 + h * 8;
             const int i = 4 * (c * 8 + jj) + 2 * h;
-            const float v0 = acc[i], v1 = acc[i + 1];
+            float v0 = acc[i], v1 = acc[i + 1];
+            if constexpr (QA || QB) {
+              v0 *= sc;
+              v1 *= sc;
+            }
             sq += v0 * v0 + v1 * v1;   // zero outside C: TMA zero-fills
             if constexpr (HILO) {
               const __nv_bfloat162 hi = __floats2bfloat162_rn(v0, v1);
@@ -488,49 +635,64 @@ inline EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// A row-major bf16 (batch, rows, cols) operand as a map of (box_rows x 64)
-// boxes, 128-byte swizzle, zero fill outside; batch_stride 0 (broadcast)
-// gives a 2-D map.  Strides in elements.
+// A row-major (batch, rows, cols) operand as a map of (box_rows x 64)
+// boxes, zero fill outside; batch_stride 0 (broadcast) gives a 2-D map.
+// Strides in elements.  bf16 boxes take the 128-byte swizzle the wgmma
+// descriptors read; int8 codes (the raw boxes of a widened operand) take
+// none, 64-byte rows.
 inline bool encode(CUtensorMap* map, const void* ptr, int rows, int cols,
-                   int batch, long long batch_stride, int box_rows) {
+                   int batch, long long batch_stride, int box_rows,
+                   bool int8 = false) {
   const EncodeTiledFn fn = encode_fn();
   if (fn == nullptr || ptr == nullptr) return false;
+  const cuuint64_t elem_bytes = int8 ? 1 : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
                               (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
-                                 (cuuint64_t)batch_stride * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * elem_bytes,
+                                 (cuuint64_t)batch_stride * elem_bytes};
   const cuuint32_t box[3] = {(cuuint32_t)kBoxCols, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, batch_stride != 0 ? 3 : 2,
-            const_cast<void*>(ptr), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return fn(map,
+            int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            batch_stride != 0 ? 3 : 2, const_cast<void*>(ptr), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            int8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// One bf16 operand: its hi part, its lo part in split mode (else null),
-// and its batch stride in elements (0: broadcast over the batch).
+// One operand: its hi part (or its int8 codes), its lo part in split mode
+// (else null), its batch stride in elements (0: broadcast over the batch),
+// and the (batch,) fp32 scales of int8 codes (else null).
 struct Operand {
   const void* hi;
   const void* lo;
   long long batch_stride;
+  const float* scale;
 };
 
-template <bool SA, bool SB, bool HILO>
+template <bool SA, bool SB, bool HILO, bool QA = false, bool QB = false>
 cudaError_t launch(const Operand& a, const Operand& b, void* c, void* c_lo,
                    float* sumsq, int m, int n, int k, int batch,
                    cudaStream_t stream) {
-  constexpr int BN = tile_n<SB>();
-  using R = Ring<SA, SB, BN>;
+  static_assert(!(QA && (SA || QB)) && !(QB && SB),
+                "int8 codes are one tensor, in one operand");
+  constexpr int BN = tile_n<SA, SB, QB>();
+  using R = Ring<SA, SB, BN, QA, QB>;
   Params p{};
-  if (!encode(&p.a, a.hi, m, k, batch, a.batch_stride, BM) ||
+  if ((QA && a.scale == nullptr) || (QB && b.scale == nullptr))
+    return cudaErrorInvalidValue;
+  if (!encode(&p.a, a.hi, m, k, batch, a.batch_stride, BM, QA) ||
       (SA && !encode(&p.a_lo, a.lo, m, k, batch, a.batch_stride, BM)) ||
-      !encode(&p.b, b.hi, k, n, batch, b.batch_stride, BK) ||
+      !encode(&p.b, b.hi, k, n, batch, b.batch_stride, BK, QB) ||
       (SB && !encode(&p.b_lo, b.lo, k, n, batch, b.batch_stride, BK)))
     return cudaErrorInvalidValue;
   p.c = c;
   p.c_lo = c_lo;
   p.sumsq = sumsq;
+  p.scale_a = a.scale;
+  p.scale_b = b.scale;
   p.m = m;
   p.n = n;
   p.k = k;
@@ -546,12 +708,13 @@ cudaError_t launch(const Operand& a, const Operand& b, void* c, void* c_lo,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(wgmma_gemm_kernel<SA, SB, HILO>,
+  err = cudaFuncSetAttribute(wgmma_gemm_kernel<SA, SB, HILO, QA, QB>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              R::BYTES);
   if (err != cudaSuccess) return err;
   const int grid = total < sms ? (int)total : sms;
-  wgmma_gemm_kernel<SA, SB, HILO><<<grid, kThreads, R::BYTES, stream>>>(p);
+  wgmma_gemm_kernel<SA, SB, HILO, QA, QB>
+      <<<grid, kThreads, R::BYTES, stream>>>(p);
   return cudaGetLastError();
 }
 

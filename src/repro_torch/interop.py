@@ -2,8 +2,9 @@
 
 The caller turns a JAX tree into numpy first (``jax.tree.map(np.asarray,
 tree)``, done in the tests, never here: the port does not import JAX) and
-hands the numpy tree to :func:`params_from_numpy`, :func:`banks_from_numpy`
-or :func:`windows_from_numpy`.  The trees keep their structure exactly: dicts,
+hands the numpy tree to :func:`params_from_numpy`, or a whole optimizer
+state to :func:`opt_state_from_numpy` (:func:`opt_state_to_numpy` is its
+inverse).  The trees keep their structure exactly: dicts,
 lists (``params["blocks"]``), the ``probe`` leaves and the stacked leading
 layer dim of ``scan_layers=True``.
 
@@ -76,3 +77,47 @@ def tree_to_numpy(tree: Any) -> Any:
             t = t.float()
         return t.numpy()
     return tree_map(leaf, tree)
+
+
+def opt_state_from_numpy(host_state: Any, device: DeviceLike = None) -> Any:
+    """A JAX MKOR or LAMB optimizer state (as numpy; a ``chain``'s tuple of
+    states too) → the port's state, every leaf copied with the reference's
+    dtype: factor and pending banks (bf16 or the int8 6-key sides, as
+    :func:`banks_from_numpy`), stat windows (:func:`windows_from_numpy`),
+    ``hybrid`` and the backend's moments on ``device``; each ``count`` (MKOR's
+    and its backend's) a 0-d int32 tensor on the CPU whatever ``device``
+    is, as the port keeps it (its schedule branches on it on the host)."""
+    dev = resolve_device(device)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: _count_from_numpy(v) if k == "count" else walk(v)
+                    for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v) for v in tree)
+        return None if tree is None else _leaf_from_numpy(tree, dev)
+    return walk(host_state)
+
+
+def _count_from_numpy(x) -> torch.Tensor:
+    arr = np.asarray(x)
+    if arr.shape != () or arr.dtype != np.int32:
+        raise ValueError(f"a step count is a 0-d int32 scalar, got "
+                         f"{arr.dtype} {arr.shape}")
+    return torch.from_numpy(np.array(arr, copy=True))
+
+
+def opt_state_to_numpy(state: Any) -> Any:
+    """The inverse of :func:`opt_state_from_numpy`: every leaf to numpy on
+    the host, copied, with its dtype -- bf16 leaves as ``ml_dtypes.bfloat16``
+    arrays (the numpy dtype JAX uses), bit for bit -- ready for
+    ``jax.tree.map(jnp.asarray, ...)``."""
+    import ml_dtypes     # JAX's numpy dtypes: the state goes back to JAX
+
+    def leaf(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return np.array(t.view(torch.int16).numpy().view(
+                ml_dtypes.bfloat16), copy=True)
+        return np.array(t.numpy(), copy=True)
+    return tree_map(leaf, state)

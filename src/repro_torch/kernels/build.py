@@ -62,14 +62,14 @@ _SIGNATURES = {
     "matmul": {
         "mkor_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _LL,
                         _LL, _LL, _I, _I, _I, _I, _I, _I, _P],
-        "mkor_matmul_tma": [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I,
-                            _P],
+        "mkor_matmul_tma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL,
+                            _I, _I, _P],
     },
     "precond": {
         "mkor_fused_precond": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _I, _P],
-        "mkor_fused_precond_tma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                   _I, _I, _I, _P],
+        "mkor_fused_precond_tma": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                   _I, _I, _I, _I, _I, _P],
     },
 }
 
@@ -179,6 +179,11 @@ def check(err: int, kernel: str) -> None:
     never runs, and a later synchronize would not report it)."""
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA error {err} at launch")
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's device pointer for a C entry point, or null for None."""
+    return None if t is None else t.data_ptr()
 
 
 def stream_handle(device) -> int:

@@ -10,14 +10,17 @@ of ``fused_precond`` on int8 factor banks).  CUDA tensors launch a kernel;
 CPU tensors run :func:`matmul_plain`.
 
 Two GEMM cores, and :func:`gemm_route` picks one before the launch from
-dtypes, shape and alignment alone: bf16 operands with 16-byte-aligned
-bases and rows of a multiple of 16 bytes go to the Hopper core
-(``csrc/wgmma_gemm.cuh``: TMA ring + ``wgmma``); everything else -- fp32
-operands (which ride the tensor cores as bf16 hi/lo pairs), int8 codes,
+dtypes, shape and alignment alone: bf16 operands, or one operand of int8
+codes, with 16-byte-aligned bases and rows and batch strides of a multiple
+of 16 bytes go to the Hopper core (``csrc/wgmma_gemm.cuh``: TMA ring +
+``wgmma``; int8 codes are widened to bf16 in shared memory); everything
+else -- fp32 operands (which ride the tensor cores as bf16 hi/lo pairs),
 ragged row widths -- to the WMMA core (``csrc/gemm.cuh``).  ``core=``
 forces one (measurement and tests); forcing ``"wgmma"`` on operands it
 does not take raises.  :func:`matmul_split` returns the product as a bf16
 hi/lo pair, the first product of ``fused_precond`` on the Hopper core.
+Launches with an int8 operand count as ``matmul[int8 operand]``, the
+others as ``matmul``.
 """
 from __future__ import annotations
 
@@ -26,29 +29,38 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import dequant_ref, split_hi_lo
+from repro_torch.kernels.ref import dequant_ref, scale_slices, split_hi_lo
 
 _DTYPES = (torch.bfloat16, torch.float32)
 CORES = (None,) + build.GEMM_CORES
+# the elements in TMA's 16-byte unit, for the dtypes the Hopper core loads
+_TMA_UNIT = {torch.bfloat16: 8, torch.int8: 16}
+
+
+def _tma_operand(dtype: torch.dtype, row: int, addr: int,
+                 batch_stride: int) -> bool:
+    unit = _TMA_UNIT.get(dtype)
+    return (unit is not None and row % unit == 0 and addr % 16 == 0
+            and batch_stride % unit == 0)
 
 
 def gemm_route(a_dtype: torch.dtype, b_dtype: torch.dtype, k: int, n: int,
                a_addr: int, b_addr: int, a_batch_stride: int = 0,
                b_batch_stride: int = 0) -> str:
     """The core that runs A (.., M, K) @ B (.., K, N), both row-major:
-    ``"wgmma"`` when TMA can load both operands as bf16 tiles -- bf16
-    dtypes (a hi/lo pair is two bf16 tensors), 16-byte-aligned base
-    addresses, rows (K for A, N for B) and batch strides (elements; 0
-    broadcasts a 2-D operand, which takes a 2-D tensor map) that are
-    multiples of 16 bytes -- else ``"wmma"``.  M never matters: TMA
-    zero-fills a ragged tile edge within its slice."""
-    if a_dtype != torch.bfloat16 or b_dtype != torch.bfloat16:
+    ``"wgmma"`` when TMA can load both operands -- bf16 (a hi/lo pair is
+    two bf16 tensors), or int8 codes in at most one of them, with
+    16-byte-aligned base addresses, and rows (K for A, N for B) and batch
+    strides (elements; 0 broadcasts a 2-D operand, which takes a 2-D
+    tensor map) that are multiples of 16 bytes: 8 bf16 values, 16 codes --
+    else ``"wmma"``.  M never matters: TMA zero-fills a ragged tile edge
+    within its slice."""
+    if a_dtype == b_dtype == torch.int8:
         return "wmma"
-    if k % 8 or n % 8 or a_addr % 16 or b_addr % 16:
-        return "wmma"
-    if a_batch_stride % 8 or b_batch_stride % 8:
-        return "wmma"
-    return "wgmma"
+    if _tma_operand(a_dtype, k, a_addr, a_batch_stride) and \
+            _tma_operand(b_dtype, n, b_addr, b_batch_stride):
+        return "wgmma"
+    return "wmma"
 
 
 def matmul_plain(a: torch.Tensor, b: torch.Tensor,
@@ -57,6 +69,11 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor,
                  b_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     return torch.matmul(dequant_ref(a, a_scale),
                         dequant_ref(b, b_scale)).to(out_dtype)
+
+
+def _kernel_name(a, b) -> str:
+    return "matmul[int8 operand]" if torch.int8 in (a.dtype, b.dtype) \
+        else "matmul"
 
 
 def _check_shapes(a, b, a_scale, b_scale, out_dtype, core):
@@ -96,26 +113,29 @@ def route_of(a: torch.Tensor, b: torch.Tensor) -> str:
 def _pick_core(a, b, core, kernel):
     route = route_of(a, b)
     if core == "wgmma" and route != "wgmma":
-        raise ValueError(f"{kernel}: the wgmma core takes bf16 operands "
-                         "with 16-byte-aligned bases and rows; got "
+        raise ValueError(f"{kernel}: the wgmma core takes bf16 operands, "
+                         "or one of int8 codes, with 16-byte-aligned bases "
+                         "and rows; got "
                          f"{a.dtype} {tuple(a.shape)} @ {b.dtype} "
                          f"{tuple(b.shape)}")
     return core or route
 
 
 def _launch_tma(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
-                out_lo: Optional[torch.Tensor] = None) -> None:
+                out_lo: Optional[torch.Tensor] = None,
+                a_scale: Optional[torch.Tensor] = None,
+                b_scale: Optional[torch.Tensor] = None) -> None:
     """``mkor_matmul_tma`` into ``out`` (fp32, or bf16 hi with ``out_lo``
-    its bf16 lo part or None); counts one ``wgmma`` GEMM."""
+    its bf16 lo part or None), an int8 operand with its scale; counts one
+    ``wgmma`` GEMM."""
     m, k, n, batch, sa, sb = _geometry(a, b)
     lib = build.library("matmul")
     with torch.cuda.device(a.device):
         err = lib.mkor_matmul_tma(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(),
-            None if out_lo is None else out_lo.data_ptr(), m, n, k, sa, sb,
-            batch, int(out.dtype == torch.bfloat16),
-            build.stream_handle(a.device))
-    build.check(err, "matmul")
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), build.ptr(out_lo),
+            build.ptr(a_scale), build.ptr(b_scale), m, n, k, sa, sb, batch,
+            int(out.dtype == torch.bfloat16), build.stream_handle(a.device))
+    build.check(err, _kernel_name(a, b))
     build.note_gemm("wgmma")
 
 
@@ -127,7 +147,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=torch.float32,
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_plain(a, b, out_dtype, a_scale=a_scale,
                             b_scale=b_scale)
-    kernel = "matmul"
+    kernel = _kernel_name(a, b)
     build.check_tensor(a, "a", kernel, _DTYPES + (torch.int8,))
     build.check_tensor(b, "b", kernel, _DTYPES + (torch.int8,),
                        device=a.device)
@@ -146,7 +166,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=torch.float32,
     if k == 0:
         return out.zero_()[0] if squeeze else out.zero_()
     if _pick_core(a, b, core, kernel) == "wgmma":
-        _launch_tma(a, b, out)
+        _launch_tma(a, b, out, a_scale=a_scale, b_scale=b_scale)
         build.note_launch(kernel)
         return out[0] if squeeze else out
     vec_a = build.rows_aligned(a, k) and (sa * a.element_size()) % 16 == 0
@@ -154,9 +174,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=torch.float32,
     lib = build.library("matmul")
     with torch.cuda.device(a.device):
         err = lib.mkor_matmul(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(),
-            None if a_scale is None else a_scale.data_ptr(),
-            None if b_scale is None else b_scale.data_ptr(), m, n, k, k, n,
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), build.ptr(a_scale),
+            build.ptr(b_scale), m, n, k, k, n,
             n, sa, sb, m * n, batch, build.dtype_code(a),
             build.dtype_code(b), int(out_dtype == torch.float32),
             int(vec_a), int(vec_b), build.stream_handle(a.device))
@@ -166,21 +185,34 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=torch.float32,
     return out[0] if squeeze else out
 
 
-def matmul_split(a: torch.Tensor, b: torch.Tensor
+def matmul_split(a: torch.Tensor, b: torch.Tensor, *,
+                 a_scale: Optional[torch.Tensor] = None,
+                 b_scale: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A @ B (3-D, or 2-D broadcast) as a bf16 pair (hi, lo) with
     hi = bf16(c), lo = bf16(c − hi) of the fp32 product c, each
     (batch, M, N): the fp32 intermediate of ``fused_precond`` in the form
-    the Hopper core loads by TMA.  Only the ``wgmma`` route writes it; CPU
-    tensors run ``split_hi_lo(matmul_plain(a, b))``."""
-    _check_shapes(a, b, None, None, torch.float32, None)
+    the Hopper core loads by TMA.  One operand may be int8 codes with its
+    (B,) scale (``a_scale=`` / ``b_scale=``): c is then the scaled product,
+    split after the scale.  Only the ``wgmma`` route writes it; CPU tensors
+    run ``split_hi_lo`` of the same fp32 arithmetic (:func:`matmul_plain`
+    for bf16 operands)."""
+    _check_shapes(a, b, a_scale, b_scale, torch.float32, None)
     if a.device.type == "cpu" and b.device.type == "cpu":
-        c = matmul_plain(a, b)
+        # the Hopper core's arithmetic: the codes widened exactly, the
+        # product, then the int8 operand's scale (bf16 operands:
+        # matmul_plain's fp32 product)
+        c = torch.matmul(a.float(), b.float())
+        c = scale_slices(scale_slices(c, a_scale), b_scale)
         return split_hi_lo(c if c.ndim == 3 else c[None])
-    kernel = "matmul"
-    build.check_tensor(a, "a", kernel, (torch.bfloat16,))
-    build.check_tensor(b, "b", kernel, (torch.bfloat16,), device=a.device)
+    kernel = _kernel_name(a, b)
+    dtypes = (torch.bfloat16, torch.int8)
+    build.check_tensor(a, "a", kernel, dtypes)
+    build.check_tensor(b, "b", kernel, dtypes, device=a.device)
     m, k, n, batch, _, _ = _geometry(a, b)
+    for sc, name in ((a_scale, "a_scale"), (b_scale, "b_scale")):
+        if sc is not None:
+            build.check_scale(sc, name, kernel, batch, a.device)
     hi = torch.empty((batch, m, n), dtype=torch.bfloat16, device=a.device)
     lo = torch.empty_like(hi)
     if hi.numel() == 0:
@@ -188,6 +220,6 @@ def matmul_split(a: torch.Tensor, b: torch.Tensor
     if k == 0:
         return hi.zero_(), lo.zero_()
     _pick_core(a, b, "wgmma", kernel)
-    _launch_tma(a, b, hi, lo)
+    _launch_tma(a, b, hi, lo, a_scale, b_scale)
     build.note_launch(kernel)
     return hi, lo

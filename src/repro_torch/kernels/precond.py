@@ -14,19 +14,22 @@ are masked or zero-filled in the kernels), so the reference's padding
 contract holds trivially.  CPU tensors run :func:`fused_precond_plain`.
 
 :func:`precond_route` picks the GEMM core before the launch.  On the
-Hopper core (``"wgmma"``: bf16 R, G, L, rows of a multiple of 16 bytes --
-every bert-large shape) the first product writes T as a bf16 hi/lo pair
-(``matmul_split``) and the second runs ``T_hi·F + T_lo·F`` in one
-accumulator (:func:`fused_precond_split_plain` states that arithmetic);
-elsewhere (``"wmma"``) T is fp32 scratch, split on its way into the
-tensor cores.  The two are the same operands and the same tolerance.
+Hopper core (``"wgmma"``: bf16 G, bf16 or int8 R and L, rows of a multiple
+of 16 bytes -- every bert-large shape) the first product writes T as a
+bf16 hi/lo pair (``matmul_split``) and the second runs ``T_hi·F + T_lo·F``
+in one accumulator (:func:`fused_precond_split_plain` states that
+arithmetic); elsewhere (``"wmma"``) T is fp32 scratch, split on its way
+into the tensor cores.  The two are the same operands and the same
+tolerance.
 
 int8 factor banks (MKOR's int8 factor state) come as codes with
 ``r_scale=`` / ``l_scale=``, their (B,) fp32 per-slice scales, both or
-neither.  Both products take the codes directly (exact bf16 parts on the
-tensor cores) and apply the scale of their int8 operand to the
-accumulator in the epilogue, before the sum of squares: no decoded copy of
-a bank is made.  These launches count as ``fused_precond[int8]``.
+neither.  Both products take the codes directly (widened exactly to bf16
+in shared memory on the Hopper core, exact bf16 parts on the WMMA core)
+and apply the scale of their int8 operand to the accumulator in the
+epilogue, before the hi/lo split of T and before the sum of squares: no
+decoded copy of a bank is made.  These launches count as
+``fused_precond[int8]``, their first products as ``matmul[int8 operand]``.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import matmul as mm
-from repro_torch.kernels.ref import dequant_ref, split_hi_lo
+from repro_torch.kernels.ref import dequant_ref, scale_slices, split_hi_lo
 
 _DTYPES = (torch.bfloat16, torch.float32)
 
@@ -66,18 +69,24 @@ def fused_precond_plain(r_inv: torch.Tensor, g: torch.Tensor,
 
 
 def fused_precond_split_plain(r_inv: torch.Tensor, g: torch.Tensor,
-                              l_inv: torch.Tensor, *,
-                              rescale: bool = True) -> torch.Tensor:
+                              l_inv: torch.Tensor, *, rescale: bool = True,
+                              r_scale: Optional[torch.Tensor] = None,
+                              l_scale: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
     """The Hopper route's arithmetic in fp32: the first product split into
     a bf16 pair T = hi + lo (``split_hi_lo``), the second as
-    (T_hi @ F) + (T_lo @ F), in the kernel's association."""
+    (T_hi @ F) + (T_lo @ F), in the kernel's association.  int8 factors:
+    the codes widened exactly, each product's scale applied to its
+    accumulator -- the first one's before the split."""
     r, gf, l = r_inv.float(), g.float(), l_inv.float()
     if g.shape[-1] >= g.shape[-2]:      # R⁻¹ (G L⁻¹)
-        hi, lo = split_hi_lo(torch.matmul(gf, l))
-        delta = torch.matmul(r, hi.float()) + torch.matmul(r, lo.float())
+        hi, lo = split_hi_lo(scale_slices(torch.matmul(gf, l), l_scale))
+        delta = scale_slices(torch.matmul(r, hi.float())
+                             + torch.matmul(r, lo.float()), r_scale)
     else:                               # (R⁻¹ G) L⁻¹
-        hi, lo = split_hi_lo(torch.matmul(r, gf))
-        delta = torch.matmul(hi.float(), l) + torch.matmul(lo.float(), l)
+        hi, lo = split_hi_lo(scale_slices(torch.matmul(r, gf), r_scale))
+        delta = scale_slices(torch.matmul(hi.float(), l)
+                             + torch.matmul(lo.float(), l), l_scale)
     return rescale_update(delta, g, n_lead=1) if rescale else delta
 
 
@@ -144,26 +153,31 @@ def fused_precond(r_inv: torch.Tensor, g: torch.Tensor, l_inv: torch.Tensor,
     route = precond_route(r_inv.dtype, g.dtype, l_inv.dtype, d_in, d_out,
                           r_inv.data_ptr(), g.data_ptr(), l_inv.data_ptr())
     if core == "wgmma" and route != "wgmma":
-        raise ValueError("fused_precond: the wgmma core takes bf16 R, G "
-                         "and L with 16-byte-aligned bases and rows; got "
+        raise ValueError("fused_precond: the wgmma core takes bf16 G and "
+                         "bf16 or int8 R and L with 16-byte-aligned bases "
+                         "and rows; got "
                          f"{r_inv.dtype} / {g.dtype} / {l_inv.dtype}, "
                          f"d_in {d_in}, d_out {d_out}")
     sums = torch.empty((2 * b,), dtype=torch.float32, device=g.device)
     if (core or route) == "wgmma":
-        # T as a bf16 hi/lo pair; the second product takes both parts
+        # T as a bf16 hi/lo pair (of the scaled product for an int8
+        # factor); the second product takes both parts and the other
+        # factor, with its scale
         if d_out >= d_in:  # R⁻¹ (G L⁻¹): the pair is on the right
-            (p, p_lo), (q, q_lo) = (r_inv, None), mm.matmul_split(g, l_inv)
-            k = d_in
+            (p, p_lo), (q, q_lo) = (r_inv, None), mm.matmul_split(
+                g, l_inv, b_scale=l_scale)
+            k, p_scale, q_scale = d_in, r_scale, None
         else:              # (R⁻¹ G) L⁻¹: the pair is on the left
-            (p, p_lo), (q, q_lo) = mm.matmul_split(r_inv, g), (l_inv, None)
-            k = d_out
+            (p, p_lo), (q, q_lo) = mm.matmul_split(
+                r_inv, g, a_scale=r_scale), (l_inv, None)
+            k, p_scale, q_scale = d_out, None, l_scale
         lib = build.library("precond")
         with torch.cuda.device(g.device):
             err = lib.mkor_fused_precond_tma(
-                p.data_ptr(), None if p_lo is None else p_lo.data_ptr(),
-                q.data_ptr(), None if q_lo is None else q_lo.data_ptr(),
-                g.data_ptr(), out.data_ptr(), sums.data_ptr(), d_in, d_out,
-                k, b, int(g.dtype == torch.float32), int(rescale),
+                p.data_ptr(), build.ptr(p_lo), q.data_ptr(), build.ptr(q_lo),
+                g.data_ptr(), out.data_ptr(), sums.data_ptr(),
+                build.ptr(p_scale), build.ptr(q_scale), d_in, d_out, k, b,
+                int(g.dtype == torch.float32), int(rescale),
                 build.stream_handle(g.device))
         build.check(err, kernel)
         build.note_gemm("wgmma")
@@ -184,10 +198,8 @@ def fused_precond(r_inv: torch.Tensor, g: torch.Tensor, l_inv: torch.Tensor,
     with torch.cuda.device(g.device):
         err = lib.mkor_fused_precond(
             p.data_ptr(), q.data_ptr(), g.data_ptr(), out.data_ptr(),
-            sums.data_ptr(),
-            None if p_scale is None else p_scale.data_ptr(),
-            None if q_scale is None else q_scale.data_ptr(), d_in, d_out, k,
-            b, build.dtype_code(p), build.dtype_code(q),
+            sums.data_ptr(), build.ptr(p_scale), build.ptr(q_scale), d_in,
+            d_out, k, b, build.dtype_code(p), build.dtype_code(q),
             int(g.dtype == torch.float32), int(vec_p), int(vec_q),
             int(rescale), build.stream_handle(g.device))
     build.check(err, kernel)

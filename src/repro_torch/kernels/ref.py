@@ -22,6 +22,14 @@ def dequant_ref(q: torch.Tensor,
                                 device=q.device)[..., None, None]
 
 
+def scale_slices(x: torch.Tensor,
+                 scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """x (B, ...) times its (B,) per-slice scale, as the GEMM epilogues
+    apply an int8 operand's scale to its product; ``None`` leaves x."""
+    return x if scale is None else \
+        x * scale.reshape(scale.shape + (1,) * (x.ndim - 1))
+
+
 def split_hi_lo(x: torch.Tensor):
     """x = hi + lo to 16 significant bits: hi = bf16(x), lo = bf16(x − hi),
     both rounded to nearest even, as the Hopper GEMM core's epilogue writes

@@ -187,34 +187,99 @@ def test_cuda_fused_block_smw_int8_matches_plain(cuda_device, b, d, r,
     assert torch.equal(banked, got)
 
 
+def _int8_route(*dims):
+    """The core int8 codes take: the Hopper core for rows of 16 codes."""
+    return "wmma" if any(d % 16 for d in dims) else "wgmma"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,di,do", [(2, 64, 96), (3, 1001, 600),
-                                     (2, 600, 1001)])
+                                     (2, 600, 1001), (2, 1008, 720),
+                                     (2, 720, 1008), (2, 1000, 712)])
 def test_cuda_fused_precond_int8_matches_plain(cuda_device, b, di, do):
+    """On the core the route picks -- the Hopper core (codes widened in
+    shared memory) for rows of 16 codes, tiles ragged at 1008 and 720; the
+    WMMA core for 1001, 600 and 1000 -- and on each core forced where it
+    takes the operands."""
     gen = torch.Generator(device=cuda_device).manual_seed(6)
     rq, rsc = _int8_bank(b, di, gen, cuda_device)
     lq, lsc = _int8_bank(b, do, gen, cuda_device)
     g = (0.01 * torch.randn((b, di, do), generator=gen,
                             device=cuda_device)).to(torch.bfloat16)
-    for rescale in (True, False):
-        t_ops.reset_launch_counts()
-        got = t_pc.fused_precond(rq, g, lq, rescale=rescale, r_scale=rsc,
-                                 l_scale=lsc)
-        assert t_ops.launch_counts() == {"fused_precond[int8]": 1,
-                                         "matmul": 1}
-        want = t_pc.fused_precond_plain(rq, g, lq, rescale=rescale,
-                                        r_scale=rsc, l_scale=lsc)
-        # the fp32 first product rides the tensor cores as a bf16 hi/lo
-        # pair, as on the bf16 route: 2e-4 of the largest entry
-        assert float((got - want).abs().max()) <= \
-            2e-4 * float(want.abs().max())
+    route = _int8_route(di, do)
+    for core in (None, "wgmma", "wmma") if route == "wgmma" else \
+            (None, "wmma"):
+        for rescale in (True, False):
+            t_ops.reset_launch_counts()
+            got = t_pc.fused_precond(rq, g, lq, rescale=rescale,
+                                     r_scale=rsc, l_scale=lsc, core=core)
+            assert t_ops.launch_counts() == {"fused_precond[int8]": 1,
+                                             "matmul[int8 operand]": 1}
+            assert t_ops.gemm_core_counts() == {core or route: 2}
+            want = t_pc.fused_precond_plain(rq, g, lq, rescale=rescale,
+                                            r_scale=rsc, l_scale=lsc)
+            # the fp32 first product rides the tensor cores as a bf16
+            # hi/lo pair, as on the bf16 route: 2e-4 of the largest entry
+            assert float((got - want).abs().max()) <= \
+                2e-4 * float(want.abs().max())
+    if route == "wmma":
+        with pytest.raises(ValueError, match="wgmma"):
+            t_pc.fused_precond(rq, g, lq, r_scale=rsc, l_scale=lsc,
+                               core="wgmma")
     # the first products alone: int8 codes enter exactly, the scale in
     # the epilogue; bf16 products are exact in fp32, only the order differs
     for a, b_, kw in ((rq, g, dict(a_scale=rsc)), (g, lq, dict(b_scale=lsc))):
-        got = t_mm.matmul(a, b_, **kw)
         want = t_mm.matmul_plain(a, b_, **kw)
+        for core in (None, "wmma"):
+            t_ops.reset_launch_counts()
+            got = t_mm.matmul(a, b_, core=core, **kw)
+            assert t_ops.launch_counts() == {"matmul[int8 operand]": 1}
+            assert t_ops.gemm_core_counts() == {
+                core or t_mm.route_of(a, b_): 1}
+            assert float((got - want).abs().max()) <= \
+                1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,k,n", [(2, 1000, 1008, 720), (3, 64, 96, 144),
+                                     (130, 128, 128, 128),
+                                     (3, 1001, 600, 701)])
+@pytest.mark.parametrize("side", ["a", "b"])
+def test_cuda_int8_operand_cores(cuda_device, b, m, k, n, side):
+    """matmul with int8 codes as A or B on each core that takes them, the
+    Hopper core's hi/lo pair of the scaled product, and a ragged int8 row
+    (600 or 701 codes) that stays on the WMMA core, whose wgmma forcing
+    raises.  130 slices of 128^3 wrap the persistent grid."""
+    from repro_torch.kernels.ref import split_hi_lo
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    x = torch.randn((b, m, k) if side == "b" else (b, k, n), generator=gen,
+                    device=cuda_device)
+    q8 = torch.randint(-127, 128, (b, m, k) if side == "a" else (b, k, n),
+                       generator=gen, device=cuda_device).to(torch.int8)
+    sc = torch.rand((b,), generator=gen, device=cuda_device) / 127 + 1e-3
+    x = (x / k ** 0.5).to(torch.bfloat16)
+    a, w, kw = (q8, x, dict(a_scale=sc)) if side == "a" else \
+        (x, q8, dict(b_scale=sc))
+    route = t_mm.route_of(a, w)
+    assert route == _int8_route(k if side == "a" else n)
+    want = t_mm.matmul_plain(a, w, **kw)
+    for core in (None, "wgmma", "wmma") if route == "wgmma" else \
+            (None, "wmma"):
+        t_ops.reset_launch_counts()
+        got = t_mm.matmul(a, w, core=core, **kw)
+        assert t_ops.launch_counts() == {"matmul[int8 operand]": 1}
+        assert t_ops.gemm_core_counts() == {core or route: 1}
         assert float((got - want).abs().max()) <= \
             1e-4 * float(want.abs().max())
+    if route == "wgmma":
+        hi, lo = t_mm.matmul_split(a, w, **kw)
+        want_hi, _ = split_hi_lo(want)
+        assert float((hi.float() + lo.float() - want).abs().max()) <= \
+            1e-4 * float(want.abs().max())
+        assert _within(hi, want_hi, 2 ** -7, 1e-5)
+    else:
+        with pytest.raises(ValueError, match="wgmma"):
+            t_mm.matmul(a, w, core="wgmma", **kw)
 
 
 # ----------------------------------------------------------------------- #

@@ -2,12 +2,14 @@
 
 ``gemm_route`` / ``precond_route`` decide, from dtypes, shape and alignment
 alone, whether a product runs on the Hopper core (TMA ring + wgmma,
-``csrc/wgmma_gemm.cuh``) or on the WMMA core (``csrc/gemm.cuh``);
-``split_hi_lo`` states the bf16 hi/lo pair the Hopper core writes for
-``fused_precond``'s fp32 intermediate; ``fused_precond_split_plain`` states
-the second product's arithmetic on that pair, (T_hi @ F) + (T_lo @ F), and
-is held against the JAX package's ``fused_precond`` in interpret mode (as
-tests/test_torch_kernels.py runs it).  The kernels themselves run only on
+``csrc/wgmma_gemm.cuh``; int8 codes widened in shared memory) or on the
+WMMA core (``csrc/gemm.cuh``); ``split_hi_lo`` states the bf16 hi/lo pair
+the Hopper core writes for ``fused_precond``'s fp32 intermediate;
+``fused_precond_split_plain`` states the second product's arithmetic on
+that pair, (T_hi @ F) + (T_lo @ F), with int8 factors' scales applied to
+each product (the first one's before the split), and is held against the
+JAX package's ``fused_precond`` in interpret mode (as
+tests/test_torch_kernels.py runs it), bf16 and int8 bodies.  The kernels themselves run only on
 a GPU (tests/test_torch_cuda.py)."""
 import jax.numpy as jnp
 import numpy as np
@@ -41,8 +43,10 @@ def test_bert_large_products_go_to_wgmma(case):
 @pytest.mark.parametrize("case,why", [
     ((F32, BF, 1024, 1024, 0, 0, 0, 0), "fp32 A"),
     ((BF, F32, 1024, 1024, 0, 0, 0, 0), "fp32 B"),
-    ((I8, BF, 1024, 1024, 0, 0, 1 << 20, 1 << 20), "int8 A"),
-    ((BF, I8, 1024, 1024, 0, 0, 1 << 20, 1 << 20), "int8 B"),
+    ((I8, BF, 1000, 1024, 0, 0, 1000 * 1024, 1 << 20),
+     "int8 A, a row of 1000 codes"),
+    ((BF, I8, 1024, 1000, 0, 0, 1 << 20, 1000 * 1024),
+     "int8 B, a row of 1000 codes"),
     ((BF, BF, 1024, 1001, 0, 0, 0, 0), "N not a multiple of 8"),
     ((BF, BF, 1001, 1024, 0, 0, 0, 0), "K not a multiple of 8"),
     ((BF, BF, 1024, 1024, 8, 0, 0, 0), "A base not 16-byte aligned"),
@@ -51,6 +55,34 @@ def test_bert_large_products_go_to_wgmma(case):
 ])
 def test_other_operands_stay_on_wmma(case, why):
     assert t_mm.gemm_route(*case) == "wmma", why
+
+
+@pytest.mark.parametrize("case,why", [
+    ((I8, BF, 1024, 1024, 0, 0, 1 << 20, 1 << 20), "int8 A"),
+    ((BF, I8, 1024, 1024, 0, 0, 1 << 20, 1 << 20), "int8 B"),
+    ((BF, I8, 4096, 4096, 0, 0, 1024 * 4096, 4096 * 4096),
+     "G L⁻¹ of the 1024x4096 bucket"),
+    ((I8, BF, 4096, 1024, 0, 0, 4096 * 4096, 4096 * 1024),
+     "R⁻¹ G of the 4096x1024 bucket"),
+    ((I8, BF, 1008, 1024, 16, 0, 1008 * 64, 0), "rows of 1008 codes"),
+])
+def test_int8_operands_go_to_wgmma(case, why):
+    """int8 codes go to the Hopper core (widened to bf16 in shared memory)
+    when TMA can copy them: rows, batch strides and base addresses of a
+    multiple of 16 bytes, 16 codes."""
+    assert t_mm.gemm_route(*case) == "wgmma", why
+
+
+@pytest.mark.parametrize("case,why", [
+    ((I8, BF, 1024, 1024, 8, 0, 1 << 20, 1 << 20), "A base 8 bytes off"),
+    ((I8, BF, 1024, 1024, 0, 0, (1 << 20) + 8, 1 << 20),
+     "A batch stride of 8 codes over"),
+    ((BF, I8, 1024, 1024, 0, 0, 1 << 20, 1 << 20, ), "control: on wgmma"),
+    ((I8, I8, 1024, 1024, 0, 0, 1 << 20, 1 << 20), "both int8"),
+])
+def test_int8_route_rules(case, why):
+    want = "wgmma" if why.startswith("control") else "wmma"
+    assert t_mm.gemm_route(*case) == want, why
 
 
 @pytest.mark.parametrize("sa,sb", [(0, 96 * 136), (64 * 96, 0), (0, 0)])
@@ -79,11 +111,15 @@ def test_route_of_tensors():
     ((BF, BF, BF), 1024, 1024, "wgmma"),
     ((BF, BF, BF), 1024, 4096, "wgmma"),
     ((BF, BF, BF), 4096, 1024, "wgmma"),
-    ((I8, BF, I8), 1024, 1024, "wmma"),
+    ((I8, BF, I8), 1024, 1024, "wgmma"),
     ((BF, F32, BF), 1024, 4096, "wmma"),
     ((F32, BF, F32), 4096, 1024, "wmma"),
     ((BF, BF, BF), 1001, 600, "wmma"),
     ((BF, BF, BF), 600, 1001, "wmma"),
+    ((I8, BF, I8), 1024, 4096, "wgmma"),
+    ((I8, BF, I8), 4096, 1024, "wgmma"),
+    ((I8, BF, I8), 1000, 712, "wmma"),
+    ((I8, BF, I8), 712, 1000, "wmma"),
 ])
 def test_precond_route(dtypes, di, do, want):
     """Both products of fused_precond on one core: the Hopper core only
@@ -144,6 +180,69 @@ def test_split_route_matches_jax_kernel(din, dout, rescale):
     # and the split costs no more than its bound against the unsplit plain
     plain = t_pc.fused_precond_plain(tr, tg, tl, rescale=rescale).numpy()
     assert np.abs(got.numpy() - plain).max() <= 2e-4 * np.abs(plain).max()
+
+
+def _int8_bank(rng, b, d):
+    """int8 codes and (b,) fp32 scales of near-identity factors with
+    off-diagonal noise, encoded as ``quant_encode`` does (codes =
+    round(x / scale), scale = max|x| / 127)."""
+    x = np.eye(d) + rng.standard_normal((b, d, d)) * 0.05
+    scale = (np.abs(x).max(axis=(1, 2)) / 127.0).astype(np.float32)
+    q = np.clip(np.rint(x / scale[:, None, None]), -127, 127).astype(np.int8)
+    return q, scale
+
+
+@pytest.mark.parametrize("din,dout", [(24, 40), (40, 24), (64, 64)])
+@pytest.mark.parametrize("rescale", [True, False])
+def test_int8_split_route_matches_jax_kernel(din, dout, rescale):
+    """The int8 Hopper route's arithmetic -- codes widened exactly, the
+    first product's scale applied before the hi/lo split, the second's to
+    its accumulator -- against the JAX package's fused_precond int8 body
+    (interpret mode) on the same codes, scales and bf16 G, at the bound of
+    the bf16 route, 2e-4·max|want|, in both associations."""
+    rng = np.random.default_rng(7 * din + dout + rescale)
+    rq, rs = _int8_bank(rng, 2, din)
+    lq, ls = _int8_bank(rng, 2, dout)
+    g = (rng.standard_normal((2, din, dout)) * 1e-2).astype(np.float32)
+    jg = jnp.asarray(g).astype(jnp.bfloat16)
+    want = np.asarray(j_ops.fused_precondition_banked(
+        jnp.asarray(lq), jnp.asarray(rq), jg, rescale=rescale,
+        interpret=True, l_scale=jnp.asarray(ls), r_scale=jnp.asarray(rs)))
+    tg = torch.tensor(np.asarray(jg.astype(jnp.float32))).to(BF)
+    kw = dict(r_scale=torch.tensor(rs), l_scale=torch.tensor(ls))
+    got = t_pc.fused_precond_split_plain(torch.tensor(rq), tg,
+                                         torch.tensor(lq), rescale=rescale,
+                                         **kw)
+    assert got.dtype == F32
+    assert np.abs(got.numpy() - want).max() <= 2e-4 * np.abs(want).max()
+    plain = t_pc.fused_precond_plain(torch.tensor(rq), tg, torch.tensor(lq),
+                                     rescale=rescale, **kw).numpy()
+    assert np.abs(got.numpy() - plain).max() <= 2e-4 * np.abs(plain).max()
+
+
+@pytest.mark.parametrize("side", ["a", "b"])
+def test_int8_matmul_split_on_cpu(side):
+    """matmul_split with an int8 operand on the CPU: the codes' exact
+    product, scaled, then split; hi + lo within the split's 2^-16 of each
+    element of the plain (decode-first) product, plus fp32 rounding of
+    sums taken in another order (1e-6 of the largest entry)."""
+    rng = np.random.default_rng(11)
+    q, sc = _int8_bank(rng, 3, 40)
+    x = torch.tensor(rng.standard_normal((3, 40, 40)).astype(np.float32)
+                     ).to(BF)
+    q, sc = torch.tensor(q), torch.tensor(sc)
+    if side == "a":
+        a, b, kw = q, x, dict(a_scale=sc)
+    else:
+        a, b, kw = x, q, dict(b_scale=sc)
+    hi, lo = t_mm.matmul_split(a, b, **kw)
+    want_hi, want_lo = split_hi_lo(
+        torch.matmul(a.float(), b.float()) * sc[:, None, None])
+    assert torch.equal(hi, want_hi) and torch.equal(lo, want_lo)
+    plain = t_mm.matmul_plain(a, b, **kw)
+    err = (hi.float() + lo.float() - plain).abs()
+    assert torch.all(err <= 2.0 ** -16 * plain.abs()
+                     + 1e-6 * plain.abs().max())
 
 
 @pytest.mark.parametrize("b,m,k,n", [(3, 24, 40, 16), (1, 130, 64, 72)])

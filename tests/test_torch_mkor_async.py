@@ -120,16 +120,7 @@ def test_resume_from_jax_state_mid_window(kw, tiny_model_cfg):
     hs = _host(js)
     assert max(int(w["n"].max()) for w in hs["stat_windows"].values()) > 0
     tp = interop.params_from_numpy(_host(jp), CPU)
-    ts = {"count": int(hs["count"]),
-          "factor_banks": interop.banks_from_numpy(hs["factor_banks"], CPU),
-          "stat_windows": interop.windows_from_numpy(hs["stat_windows"],
-                                                     CPU),
-          "backend": {"count": int(hs["backend"]["count"]),
-                      **interop.tree_from_numpy(
-                          {k: hs["backend"][k] for k in ("m", "v")}, CPU)}}
-    if "pending_banks" in hs:
-        ts["pending_banks"] = interop.banks_from_numpy(hs["pending_banks"],
-                                                       CPU)
+    ts = interop.opt_state_from_numpy(hs, CPU)
     assert ts["stat_windows"][next(iter(ts["stat_windows"]))]["n"].dtype \
         == torch.int32
     for i in range(5, 8):

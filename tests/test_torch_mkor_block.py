@@ -180,9 +180,9 @@ def check_runs(j_run, t_run, factor_dtype, steps):
     np.testing.assert_allclose(j_losses, t_losses, rtol=1e-5)
     assert _max_err(jp, tp) < 2e-4
     assert ts["count"] == int(js["count"]) == steps
-    # the state tree: the reference's keys but ``hybrid`` (mkor_h's entry,
-    # not ported), and the same buckets and leaves below each
-    assert set(ts) == set(js) - {"hybrid"}
+    # the state tree: the reference's keys, and the same buckets and
+    # leaves below each
+    assert set(ts) == set(js)
     for key in ("factor_banks", "stat_windows", "pending_banks"):
         if key in js:
             assert jax.tree.structure(jax.tree.map(np.asarray, js[key])) == \

@@ -96,7 +96,7 @@ def test_mkor_int8_six_steps_match(kw, tiny_model_cfg):
     np.testing.assert_allclose(j_losses, t_losses, rtol=1e-5)
     assert _max_err(jp, tp) < 2e-4
     assert ts["count"] == int(js["count"]) == 6
-    assert set(ts) == set(js) - {"hybrid"}
+    assert set(ts) == set(js)
     for key in ("factor_banks", "stat_windows", "pending_banks"):
         if key in js:
             assert jax.tree.structure(jax.tree.map(np.asarray, js[key])) == \
@@ -120,18 +120,7 @@ def test_mkor_int8_six_steps_match(kw, tiny_model_cfg):
 
 def _port_state(js):
     """The port's optimizer state from the JAX package's (interop)."""
-    hs = _host(js)
-    ts = {"count": int(hs["count"]),
-          "backend": {"count": int(hs["backend"]["count"]),
-                      **interop.tree_from_numpy(
-                          {k: hs["backend"][k] for k in ("m", "v")}, CPU)}}
-    for key in ("factor_banks", "pending_banks"):
-        if key in hs:
-            ts[key] = interop.banks_from_numpy(hs[key], CPU)
-    if "stat_windows" in hs:
-        ts["stat_windows"] = interop.windows_from_numpy(hs["stat_windows"],
-                                                        CPU)
-    return ts
+    return interop.opt_state_from_numpy(_host(js), CPU)
 
 
 def _draw(rng, host):
@@ -187,7 +176,7 @@ def test_int8_state_structure_and_identity(ae_params, rank, staleness):
         jax.tree.map(jnp.asarray, _host(ae_params)))
     tp = interop.params_from_numpy(_host(ae_params), CPU)
     ts = t_mkor.mkor(t_fo.lamb(1e-3), t_mkor.MKORConfig(**kw)).init(tp)
-    assert set(ts) == set(js) - {"hybrid"}
+    assert set(ts) == set(js)
     for key in ("factor_banks", "stat_windows", "pending_banks"):
         if key not in js:
             assert key not in ts
