@@ -16,7 +16,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      could take (bytes over 3.35 TB/s, or operations over the peak of their
      type -- 989 TFLOP/s for the bf16 tensor cores, which also run the
      int8 codes widened to bf16, 67 TFLOP/s for fp32 -- whichever is
-     larger); matmul, fused_precond and their int8 variants on both GEMM
+     larger), the SMW kernels' achieved GB/s and share of their bound at
+     each shape (fused_block_smw also at r = 1, as the staleness-1 paths
+     launch it) and a second call of each required to give the same bits;
+     matmul, fused_precond and their int8 variants on both GEMM
      cores (the Hopper core of wgmma_gemm.cuh where the route sends them,
      the WMMA core of gemm.cuh forced), each launch's core read from the
      per-core counts, with TFLOP/s and the share of the bf16 peak, the
@@ -44,9 +47,10 @@ Phases (each prints its own lines; any failure exits non-zero):
         steps), rank 4 (inv_freq 4, 8 steps) and staleness 1 (inv_freq 3,
         9 steps) -- each bucket's first inversion (first launching tick
         with a non-empty window) held against the plain route from the
-        same state on the reconstructed fp32 bank decode(codes) + error
-        feedback, with codes at most one step apart; the kernel route
-        decodes no bank (only window rows);
+        same state, its block update evaluated in float64, on the
+        reconstructed fp32 bank decode(codes) + error feedback, with codes
+        at most one step apart; the kernel route decodes no bank (only
+        window rows);
      each profiled step also lists the host's waits on the device; on
      every path every GEMM of matmul and fused_precond (and of their int8
      variants) must run on the Hopper core (per-core counts);
@@ -88,13 +92,13 @@ REPLACES = {
     "matmul[int8 operand]": "src/repro/kernels/precond.py:77",
 }
 SOURCES = {
-    "fused_smw": "src/repro_torch/csrc/rank1_smw.cu",
+    "fused_smw": "src/repro_torch/csrc/block_smw.cu",
     "fused_precond": "src/repro_torch/csrc/precond.cu",
     "matmul": "src/repro_torch/csrc/matmul.cu",
     "fused_block_smw": "src/repro_torch/csrc/block_smw.cu",
     "matvec": "src/repro_torch/csrc/rank1_smw.cu",
     "rank1_update": "src/repro_torch/csrc/rank1_smw.cu",
-    "fused_smw[int8]": "src/repro_torch/csrc/rank1_smw.cu",
+    "fused_smw[int8]": "src/repro_torch/csrc/block_smw.cu",
     "fused_block_smw[int8]": "src/repro_torch/csrc/block_smw.cu",
     "fused_precond[int8]": "src/repro_torch/csrc/precond.cu",
     "matmul[int8 operand]": "src/repro_torch/csrc/matmul.cu",
@@ -130,6 +134,9 @@ PATH_KERNELS = {
 # the paths whose GEMMs all run on the Hopper core: every one (bf16
 # factors, and int8 codes widened to bf16 in shared memory)
 WGMMA_PATHS = tuple(PATH_KERNELS)
+# the SMW kernels: one persistent launch each, bound by bytes
+SMW_KERNELS = ("fused_smw", "fused_block_smw", "fused_smw[int8]",
+               "fused_block_smw[int8]")
 # the GEMM kernels: matmul counts one GEMM a launch, fused_precond two
 GEMM_KERNELS = ("matmul", "matmul[int8 operand]", "fused_precond",
                 "fused_precond[int8]")
@@ -151,6 +158,24 @@ def bound_ms(n_bytes: float, n_ops: float, peak_ops: float):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def stream_rate(n_bytes: float, ms: float, bms: float) -> str:
+    """A bytes-bound kernel's achieved rate (the bytes its bound counts
+    over its time) and the share of its bound it reaches."""
+    return (f"{n_bytes / ms / 1e6:.1f} GB/s, {100 * bms / ms:.1f} % of the "
+            "bound")
+
+
+def require_repeatable(torch, fn, first, tag):
+    """A second call on the same inputs must give the same bits (the SMW
+    kernels sum S in a fixed order)."""
+    again = fn()
+    torch.cuda.synchronize()
+    a = again[0] if isinstance(again, tuple) else again
+    f = first[0] if isinstance(first, tuple) else first
+    require(bool(torch.equal(a, f)), f"{tag}: a second call on the same "
+            "inputs gave other bits")
 
 
 def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
@@ -252,6 +277,9 @@ def check_fused_smw(torch, rows):
             require(math.isfinite(ratio) and ratio <= 1.0,
                     f"fused_smw {b}x{d} {variant} disagrees with its plain "
                     "version")
+            require_repeatable(torch, lambda: rk.fused_smw(
+                j, v, gamma=0.9, variant=variant), got,
+                f"fused_smw {b}x{d} {variant}")
             row.add(err)
         if main:
             ms = time_ms(torch, lambda: rk.fused_smw(j, v, gamma=0.9))
@@ -261,7 +289,8 @@ def check_fused_smw(torch, rows):
             n_ops = b * 4.0 * d * d
             bms, by = row.bound(n_bytes, n_ops)
             print(f"fused_smw {b}x{d}x{d}: {ms:.4f} ms, plain {plain:.4f} ms,"
-                  f" bound {bms:.4f} ms ({by})")
+                  f" bound {bms:.4f} ms ({by}); "
+                  f"{stream_rate(n_bytes, ms, bms)}")
             row.add(0.0, ms, plain, n_bytes, n_ops)
         del j, v
 
@@ -509,6 +538,8 @@ def check_fused_block_smw(torch, rows):
                 empty = n == 0
                 require(bool(torch.equal(got[empty], j[empty])),
                         f"{tag}: an empty window changed its slice")
+            require_repeatable(torch, lambda: rk.fused_block_smw(
+                j, vt, gm, variant=variant, with_pivot=pivot), res, tag)
             if pivot:
                 # Gauss-Jordan pivots against the plain version's squared
                 # Cholesky diagonal: the same fp32 numbers, 1e-3 relative
@@ -527,8 +558,29 @@ def check_fused_block_smw(torch, rows):
             n_ops = b * ((4.0 * r + 1) * d * d + 4.0 * r * r * d)
             bms, by = row.bound(n_bytes, n_ops)
             print(f"fused_block_smw {b}x{d}x{d} r={r}: {ms:.4f} ms, plain "
-                  f"{plain:.4f} ms, bound {bms:.4f} ms ({by})")
+                  f"{plain:.4f} ms, bound {bms:.4f} ms ({by}); "
+                  f"{stream_rate(n_bytes, ms, bms)}")
             row.add(0.0, ms, plain, n_bytes, n_ops)
+            # r = 1, as the staleness-1 paths launch it (a 1-row window)
+            sq1, gm1 = block_weights(torch.ones((b,), device="cuda"), 1, 0.9)
+            vt1 = (v[:, :1] * sq1[..., None]).contiguous()
+            got = rk.fused_block_smw(j, vt1, gm1)
+            want = rk.fused_block_smw_plain(j, vt1, gm1)
+            torch.cuda.synchronize()
+            err, ratio = bf16_close(got, want)
+            require(math.isfinite(ratio) and ratio <= 1.0,
+                    f"fused_block_smw {b}x{d} r=1 disagrees with its plain "
+                    f"version ({ratio:.3f})")
+            row.add(err)
+            del got, want
+            ms1 = time_ms(torch, lambda: rk.fused_block_smw(j, vt1, gm1))
+            n_bytes1 = b * (2 * d * d * j.element_size() + d * 4 + 4)
+            bms1, by1 = row.bound(n_bytes1, b * (5.0 * d * d + 4.0 * d))
+            print(f"fused_block_smw {b}x{d}x{d} r=1: max_abs_err {err:.3e}, "
+                  f"ratio {ratio:.3f} (tol 1); {ms1:.4f} ms, bound "
+                  f"{bms1:.4f} ms ({by1}); {stream_rate(n_bytes1, ms1, bms1)}")
+            row.other_ms["r=1"] += ms1
+            row.other_ms["r=1 bound"] += bms1
         del j, v, vt
 
 
@@ -630,6 +682,9 @@ def check_fused_smw_int8(torch, rows):
             require(math.isfinite(ratio) and ratio <= 1.0,
                     f"fused_smw[int8] {b}x{d} {variant} disagrees with its "
                     "plain version")
+            require_repeatable(torch, lambda: rk.fused_smw(
+                q, v, gamma=0.9, variant=variant, scale=sc), got,
+                f"fused_smw[int8] {b}x{d} {variant}")
             row.add(err)
             del got, want
         if main:
@@ -643,7 +698,8 @@ def check_fused_smw_int8(torch, rows):
             n_ops = b * 5.0 * d * d
             bms, by = row.bound(n_bytes, n_ops)
             print(f"fused_smw[int8] {b}x{d}x{d}: {ms:.4f} ms, plain "
-                  f"{plain:.4f} ms, bound {bms:.4f} ms ({by})")
+                  f"{plain:.4f} ms, bound {bms:.4f} ms ({by}); "
+                  f"{stream_rate(n_bytes, ms, bms)}")
             row.add(0.0, ms, plain, n_bytes, n_ops)
         del q, sc, v
 
@@ -688,6 +744,9 @@ def check_fused_block_smw_int8(torch, rows):
                 require(bool(torch.equal(
                     got[empty], q[empty].float() * sc[empty][:, None, None])),
                     f"{tag}: an empty window changed its decoded slice")
+            require_repeatable(torch, lambda: rk.fused_block_smw(
+                q, vt, gm, variant=variant, with_pivot=pivot, scale=sc),
+                res, tag)
             if pivot:
                 p_err = ((res[1] - want[1]).abs()
                          / want[1].abs()).max().item()
@@ -706,7 +765,8 @@ def check_fused_block_smw_int8(torch, rows):
             n_ops = b * ((4.0 * r + 2) * d * d + 4.0 * r * r * d)
             bms, by = row.bound(n_bytes, n_ops)
             print(f"fused_block_smw[int8] {b}x{d}x{d} r={r}: {ms:.4f} ms, "
-                  f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by})")
+                  f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}); "
+                  f"{stream_rate(n_bytes, ms, bms)}")
             row.add(0.0, ms, plain, n_bytes, n_ops)
         del q, sc, v, vt
 
@@ -960,15 +1020,52 @@ def compare_banks(tag, got, want, bucket_ids=None):
                     f"{tag} bank {bid}/{side} differs")
 
 
+def block_update_f64(j, vt, gm, *, variant="paper", with_pivot=False,
+                     scale=None):
+    """``fused_block_smw_plain``'s update evaluated in float64 over the
+    whole bank and rounded once to j's dtype (fp32 for int8 codes with
+    ``scale``): the plain route's block update on the int8 paths, whose
+    bank check holds the kernel route to an fp32 bound.  A window of nearly
+    collinear rows makes the mid matrix ill-conditioned, and then U summed
+    over d terms in fp32 carries an error, times that condition, beyond the
+    bound (``scripts/smw_f64_probe.py`` holds the kernel and the fp32 plain
+    version against this)."""
+    import torch
+    jf = j.double() if scale is None else \
+        j.double() * scale.double()[..., None, None]
+    vf = vt.double()
+    g = torch.as_tensor(gm, dtype=torch.float64,
+                        device=jf.device)[..., None, None]
+    u = torch.matmul(vf, jf.transpose(-1, -2))          # rows (J ṽ_i)ᵀ
+    s = torch.matmul(vf, u.transpose(-1, -2))           # ṼJṼᵀ (r, r)
+    eye = torch.eye(vf.shape[-2], dtype=torch.float64, device=jf.device)
+    if variant == "paper":
+        mid = g * g * eye + g * g * g * s
+        new = g * jf + torch.matmul(u.transpose(-1, -2),
+                                    torch.linalg.solve(mid, u))
+    else:
+        mid = g * eye + s
+        new = (jf - torch.matmul(u.transpose(-1, -2),
+                                 torch.linalg.solve(mid, u))) / g
+    new = new.float() if scale is not None else new.to(j.dtype)
+    if not with_pivot:
+        return new
+    chol, info = torch.linalg.cholesky_ex(mid)
+    piv = torch.amin(torch.diagonal(chol, dim1=-2, dim2=-1) ** 2,
+                     dim=-1).float()
+    return new, torch.where(info == 0, piv, torch.full_like(piv, math.nan))
+
+
 class Int8BankCheck:
-    """Holds int8 bank sides of the kernel route against the plain route's:
-    the reconstructed fp32 bank decode(codes, scale) + error feedback with
+    """Holds int8 bank sides of the kernel route against the plain route's
+    (its block update in float64, :func:`block_update_f64`): the
+    reconstructed fp32 bank decode(codes, scale) + error feedback with
     the fp32 elementwise bound 1e-5|want| + 1e-6 max|want| (it equals the
-    stabilized fp32 update plus the old error feedback exactly, and the two
-    routes' updates differ by fp32 rounding only), and the codes at most
-    one step apart (a rounding difference can move a value across a code
-    boundary; the error feedback carries the other side).  Records the
-    worst ratio and the share of codes that differ."""
+    stabilized fp32 update plus the old error feedback exactly, and the
+    kernel's update differs from the exact one by fp32 rounding only), and
+    the codes at most one step apart (a rounding difference can move a
+    value across a code boundary; the error feedback carries the other
+    side).  Records the worst ratio and the share of codes that differ."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -1001,7 +1098,8 @@ class Int8BankCheck:
 
     def summary(self, name):
         share = self.flipped / max(self.codes, 1)
-        print(f"[{name}] kernel vs plain route: worst decode+ef ratio "
+        print(f"[{name}] kernel vs plain route (block update in float64): "
+              f"worst decode+ef ratio "
               f"{self.worst:.3f} (tol 1), {self.flipped} of {self.codes} "
               f"codes differ by one step ({share:.3e})")
 
@@ -1010,26 +1108,34 @@ class PlainTee:
     """An optimizer that runs the kernel route and, at the listed counts,
     also the plain route on the same inputs, and holds the banks of the
     buckets that invert against each other (``compare``, default the
-    elementwise bf16 bound of :func:`compare_banks`).  The plain route
+    elementwise bf16 bound of :func:`compare_banks`).  ``block``, when
+    given, stands in for the plain route's block update
+    (``core.mkor.fused_block_smw_plain``) while it runs.  The plain route
     launches no kernel, so the launch counts stay those of the main path;
     ``in_plain`` is True while it runs.  ``events`` records the call order
     of precompute and update."""
 
     def __init__(self, torch, opt_k, opt_p, phases, inv_freq,
-                 update_at=(), tick_at=(), compare=None):
+                 update_at=(), tick_at=(), compare=None, block=None):
         self.torch, self.opt_k, self.opt_p = torch, opt_k, opt_p
         self.phases, self.inv_freq = phases, inv_freq
         self.update_at, self.tick_at = set(update_at), set(tick_at)
         self.compare = compare or compare_banks
+        self.block = block
         self.events, self.compared = [], []
         self.in_plain = False
 
     def plain(self, fn, *args, **kw):
+        from repro_torch.core import mkor as mkor_lib
+        kept = mkor_lib.fused_block_smw_plain
+        if self.block is not None:
+            mkor_lib.fused_block_smw_plain = self.block
         self.in_plain = True
         try:
             return fn(*args, **kw)
         finally:
             self.in_plain = False
+            mkor_lib.fused_block_smw_plain = kept
 
     def due(self, count):
         return [b for b, ph in sorted(self.phases.items())
@@ -1227,7 +1333,8 @@ def train_staleness1(torch, dev, setup):
 
 def _int8_path(torch, dev, setup, name, steps, **kw):
     """One int8 training path (factor_quant="int8"): the kernel route,
-    teed to the plain route at each bucket's first inversion (staleness 1:
+    teed to the plain route (its block update in float64) at each
+    bucket's first inversion (staleness 1:
     the first tick that launches, and each bucket's first tick with a
     non-empty window); counts the bank decodes the kernel route makes
     (window rows are decoded; banks must not be)."""
@@ -1243,11 +1350,11 @@ def _int8_path(torch, dev, setup, name, steps, **kw):
     if mcfg.staleness:
         at = [0] + [ph + mcfg.inv_freq for ph in firsts]
         tee = PlainTee(torch, opt_k, opt_p, phases, mcfg.inv_freq,
-                       tick_at=at, compare=check)
+                       tick_at=at, compare=check, block=block_update_f64)
     else:
         at = firsts
         tee = PlainTee(torch, opt_k, opt_p, phases, mcfg.inv_freq,
-                       update_at=at, compare=check)
+                       update_at=at, compare=check, block=block_update_f64)
     opt = tee.transformation()
     step_fn = train_lib.make_train_step(cfg, opt)
     decode, forward = statlib.quant_decode, model_lib.forward
@@ -1383,9 +1490,8 @@ def profile_step(torch, fn):
         by_name.setdefault(e.name, [0.0, 0])
         by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
         by_name[e.name][1] += 1
-    port = ("mkor::gemm_kernel", "wgmma_gemm_kernel", "smw_uv_kernel", "smw_write_kernel",
-            "sumsq_kernel", "rescale_kernel", "block_uv_kernel",
-            "block_mid_kernel", "block_write_kernel")
+    port = ("mkor::gemm_kernel", "wgmma_gemm_kernel", "sumsq_kernel",
+            "rescale_kernel", "block_smw_kernel")
 
     def is_port(n):
         return any(p in n for p in port)
@@ -1465,6 +1571,13 @@ def main() -> int:
                   f"{k} {v:.4f} ms" for k, v in r.other_ms.items())
               + (f", library {r.library_ms:.4f} ms" if r.library_ms else "")
               + f", plain {r.plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    for name in SMW_KERNELS:
+        r = rows[name]
+        b_ms, b_by = r.bound(r.bytes, r.ops)
+        print(f"{name}, sum of the bert-large shapes: {r.ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), {stream_rate(r.bytes, r.ms, b_ms)}"
+              + "".join(f", {k} {v:.4f} ms" for k, v in r.other_ms.items())
+              + f", plain {r.plain_ms:.4f} ms")
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
 

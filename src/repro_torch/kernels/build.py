@@ -48,16 +48,16 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
 _SIGNATURES = {
     "rank1_smw": {
-        "mkor_fused_smw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
-                           _P],
-        "mkor_smw_partials": [_I],
         "mkor_matvec": [_P, _P, _P, _I, _I, _I, _I, _P],
         "mkor_rank1_update": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     },
     "block_smw": {
-        "mkor_fused_block_smw": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                 _I, _I, _I, _I, _I, _P],
-        "mkor_block_smw_partials": [_I],
+        "mkor_fused_block_smw": [_P, _P, _P, _F, _F, _P, _P, _P, _P, _P, _I,
+                                 _I, _I, _I, _I, _I, _I, _P],
+        "mkor_block_smw_work": [_I, _I, _I, _I],
+        "mkor_block_smw_resident": [_I, _I, _I, _I, _I, _P],
+        "mkor_block_smw_plan": [_I, _I, _I, _I, _LL, _P],
+        "mkor_block_smw_ticket": [_I, _I, _I, _I, _P],
     },
     "matmul": {
         "mkor_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _LL,
@@ -73,6 +73,9 @@ _SIGNATURES = {
     },
 }
 
+# entry points that return something other than a CUDA error code
+_RESTYPES = {"mkor_block_smw_work": _LL, "mkor_block_smw_plan": None,
+             "mkor_block_smw_ticket": None}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LAUNCHES: Counter = Counter()
 _GEMM_CORES: Counter = Counter()
@@ -169,7 +172,7 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_library_path(name)))
         for fn, argtypes in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = _RESTYPES.get(fn, ctypes.c_int)
         _LIBS[name] = lib
     return lib
 

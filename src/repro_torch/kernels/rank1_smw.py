@@ -1,9 +1,11 @@
 """The SMW kernels of MKOR's O(d²) factor update (port of
-``repro/kernels/rank1_smw.py``; CUDA sources ``csrc/rank1_smw.cu`` and
-``csrc/block_smw.cu``, whose headers say how each maps onto the H100):
+``repro/kernels/rank1_smw.py``; CUDA sources ``csrc/block_smw.cu`` and
+``csrc/rank1_smw.cu``, whose headers say how each maps onto the H100):
 
 * :func:`fused_smw` — the rank-1 update of a whole bank, per slice
-  u = J v;  s = vᵀu;  J ← scale·J + coef(s)·u uᵀ.
+  u = J v;  s = vᵀu;  J ← scale·J + coef(s)·u uᵀ.  It launches the block
+  kernel at r = 1 with Ṽ = v, γ^m = γ and a row weight 1 − γ (the header
+  of ``block_smw.cu`` shows the two forms agree).
 * :func:`fused_block_smw` — the block rank-r Woodbury update of a whole
   bank, per slice U = JṼᵀ, S = ṼU, M = A(gm, S)⁻¹ and
   ``paper``: gm·J + U M Uᵀ (A = gm²I + gm³S) or
@@ -17,6 +19,10 @@ MKOR's int8 factor state with ``scale=`` its (B,) fp32 per-slice scales.
 The kernels decode each code at its load and return the update in fp32
 for the caller to requantize (the reference's ``scale=`` operand); these
 launches count as ``fused_smw[int8]`` and ``fused_block_smw[int8]``.
+
+Both run as one persistent launch whose blocks take runs of row tiles from
+an in-order ticket counter; the kernel plans the tiles, the runs and how
+far the writes trail pass 1 (``csrc/smw_plan.cuh``).
 
 Each wrapper launches its kernel for CUDA tensors and raises on what it
 does not take; for CPU tensors it runs the plain PyTorch version beside it
@@ -106,20 +112,10 @@ def fused_smw(j: torch.Tensor, v: torch.Tensor, *, gamma: float,
     b, d = j.shape[0], j.shape[-1]
     if b == 0 or d == 0:
         return out
-    lib = build.library("rank1_smw")
-    u = torch.empty((b, d), dtype=torch.float32, device=j.device)
-    s_part = torch.empty((b, lib.mkor_smw_partials(d)), dtype=torch.float32,
-                         device=j.device)
-    vec = build.rows_aligned(j, d) and build.rows_aligned(out, d)
+    # the r = 1 block update: Ṽ = v, γ^m = γ on every slice, row weight 1 − γ
     with torch.cuda.device(j.device):
-        err = lib.mkor_fused_smw(
-            j.data_ptr(), v.data_ptr(),
-            None if scale is None else scale.data_ptr(), out.data_ptr(),
-            u.data_ptr(), s_part.data_ptr(), d, b, build.dtype_code(j),
-            int(vec), float(gamma), VARIANTS[variant],
-            build.stream_handle(j.device))
-    build.check(err, kernel)
-    build.note_launch(kernel)
+        _launch_block(kernel, j, v.view(b, 1, d), None, float(gamma),
+                      1.0 - float(gamma), scale, out, None, 1, 1, variant)
     return out
 
 
@@ -127,6 +123,35 @@ def fused_smw(j: torch.Tensor, v: torch.Tensor, *, gamma: float,
 # Block rank-r Woodbury update
 # ----------------------------------------------------------------------- #
 BLOCK_RANKS = (1, 2, 4, 8, 16)   # kernel instances; r is padded up to one
+
+
+def _bulk_rows(d: int, j: torch.Tensor, out: torch.Tensor,
+               vt: torch.Tensor) -> bool:
+    """The kernel's bulk path takes the bank: 16-byte rows of J and of the
+    output on 16-byte bases (a tile's rows are one bulk copy, the output
+    and Ṽ move in 4-element vectors)."""
+    return build.rows_aligned(j, d) and build.rows_aligned(out, d) and \
+        vt.data_ptr() % 16 == 0
+
+
+def _launch_block(kernel, j, vt, gm, gm_all, vweight, scale, out, piv, rank,
+                  r_real, variant):
+    """One launch of the block kernel over the bank ``j`` (checked by the
+    caller); ``gm`` None applies ``gm_all`` to every slice."""
+    b, d = j.shape[0], j.shape[-1]
+    lib = build.library("block_smw")
+    work = torch.empty((lib.mkor_block_smw_work(d, b, rank,
+                                                j.element_size()),),
+                       dtype=torch.float32, device=j.device)
+    sync = torch.zeros((1 + 2 * b,), dtype=torch.int32, device=j.device)
+    err = lib.mkor_fused_block_smw(
+        j.data_ptr(), vt.data_ptr(), build.ptr(gm), float(gm_all),
+        float(vweight), build.ptr(scale), out.data_ptr(), work.data_ptr(),
+        sync.data_ptr(), build.ptr(piv), d, b, rank, r_real,
+        build.dtype_code(j), int(_bulk_rows(d, j, out, vt)), VARIANTS[variant],
+        build.stream_handle(j.device))
+    build.check(err, kernel)
+    build.note_launch(kernel)
 
 
 def fused_block_smw_plain(j: torch.Tensor, vt: torch.Tensor,
@@ -220,23 +245,9 @@ def fused_block_smw(j: torch.Tensor, vt: torch.Tensor, gm: torch.Tensor, *,
         return (out, piv) if with_pivot else out
     if rank != r:                       # zero rows are inert (header note)
         vt = torch.cat([vt, vt.new_zeros((b, rank - r, d))], dim=1)
-    lib = build.library("block_smw")
-    u = torch.empty((b, d, rank), dtype=torch.float32, device=j.device)
-    s_part = torch.empty((b, lib.mkor_block_smw_partials(d), rank * rank),
-                         dtype=torch.float32, device=j.device)
-    m = torch.empty((b, rank * rank), dtype=torch.float32, device=j.device)
-    vec = build.rows_aligned(j, d) and build.rows_aligned(out, d) and \
-        vt.data_ptr() % 16 == 0
     with torch.cuda.device(j.device):
-        err = lib.mkor_fused_block_smw(
-            j.data_ptr(), vt.data_ptr(), gm.data_ptr(),
-            None if scale is None else scale.data_ptr(), out.data_ptr(),
-            u.data_ptr(), s_part.data_ptr(), m.data_ptr(),
-            None if piv is None else piv.data_ptr(), d, b, rank, r,
-            build.dtype_code(j), int(vec), VARIANTS[variant],
-            build.stream_handle(j.device))
-    build.check(err, kernel)
-    build.note_launch(kernel)
+        _launch_block(kernel, j, vt, gm, 1.0, 1.0, scale, out, piv, rank, r,
+                      variant)
     return (out, piv) if with_pivot else out
 
 

@@ -5,9 +5,12 @@ CPU mode).  The file imports no JAX, so it runs on the card's machine:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import ctypes
+
 import pytest
 import torch
 
+import smw_plan_check
 from repro_torch.core.mkor import block_weights
 from repro_torch.kernels import matmul as t_mm
 from repro_torch.kernels import ops as t_ops
@@ -395,3 +398,153 @@ def test_cuda_fused_precond_cores(cuda_device, b, di, do):
     if route == "wmma":
         with pytest.raises(ValueError, match="wgmma"):
             t_pc.fused_precond(r, g, l, core="wgmma")
+
+
+# ----------------------------------------------------------------------- #
+# The persistent SMW kernel (block_smw.cu): fused_block_smw at every built
+# rank and fused_smw as its r = 1 instance, on every body (bf16, fp32 and
+# int8 codes with fp32 out)
+# ----------------------------------------------------------------------- #
+SMW_KINDS = ["bfloat16", "float32", "int8"]
+# (b, d, unaligned): a bucket of 64 slices of 1024² whose write runs and
+# pass-1 runs interleave, a batch of 1, ragged d (1001, the element path),
+# and a base one element off 16-byte alignment (the element path at d = 64)
+SMW_SHAPES = [(64, 1024, False), (1, 1024, False), (3, 1001, False),
+              (2, 64, True)]
+SMW_ITEM = {"bfloat16": 2, "float32": 4, "int8": 1}
+
+
+def _smw_bank(kind, b, d, unaligned, gen, device):
+    """(j, scale) of kind ``kind``; ``unaligned`` puts j one element past
+    an aligned base."""
+    if kind == "int8":
+        q, sc = _int8_bank(b, d, gen, device)
+    else:
+        q = (torch.eye(d, device=device) + 0.01 * torch.randn(
+            (b, d, d), generator=gen, device=device)).to(getattr(torch, kind))
+        sc = None
+    return (_unaligned_copy(q) if unaligned else q), sc
+
+
+def _unaligned_copy(x):
+    """A copy of x whose base lies one element past an aligned one."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    flat[1:].copy_(x.reshape(-1))
+    return flat[1:].view(x.shape)
+
+
+def _smw_tol(kind):
+    # bf16 out: fp32 sums in another order may round an element to its
+    # neighbouring bf16 value (2^-7 of itself); fp32 out: rounding only
+    return (2 ** -7, 1e-5) if kind == "bfloat16" else (1e-5, 1e-6)
+
+
+def _launch_plan(kind, b, d, rank, vec=1):
+    """The kernel's library (its plan entries bound), and the blocks this
+    card holds at once for a launch on a (b, d, d) bank of ``kind`` at
+    kernel rank ``rank`` (``vec``: the bulk path's alignment)."""
+    from repro_torch.kernels import build
+    lib = smw_plan_check.bind(build.library("block_smw"))
+    resident = ctypes.c_longlong()
+    build.check(lib.mkor_block_smw_resident(
+        d, b, rank, {"bfloat16": 0, "float32": 1, "int8": 2}[kind], vec,
+        ctypes.byref(resident)), "mkor_block_smw_resident")
+    return lib, resident.value
+
+
+def _interleaved(kind, b, d, r):
+    """The launch on a (b, d, d) bank at rank r (padded to a built kernel
+    rank) lets write runs come between pass-1 runs (the two passes are not
+    one after the other)."""
+    rank = next(k for k in t_rk.BLOCK_RANKS if k >= r)
+    lib, resident = _launch_plan(kind, b, d, rank)
+    plan = smw_plan_check.plan(lib, b, d, rank, SMW_ITEM[kind], resident)
+    return plan["lag"] < b * plan["runs"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,unaligned", SMW_SHAPES)
+@pytest.mark.parametrize("kind", SMW_KINDS)
+@pytest.mark.parametrize("variant", ["paper", "exact_smw"])
+def test_cuda_block_smw_design(cuda_device, b, d, unaligned, kind,
+                               variant):
+    """Every built rank, with padding (r = 1, 2, 3, 4, 5, 8, 13, 16),
+    windows filled to 0, 1 and r (full at a batch of 1), with the pivot:
+    against the plain version; an empty window's slice is its input
+    exactly; a second call gives the same bits (S summed in a fixed
+    order); the update in place (out is j) gives them too."""
+    gen = torch.Generator(device=cuda_device).manual_seed(20)
+    j, sc = _smw_bank(kind, b, d, unaligned, gen, cuda_device)
+    rel, floor = _smw_tol(kind)
+    for r in (1, 2, 3, 4, 5, 8, 13, 16):
+        if (b, d) == (64, 1024):
+            assert _interleaved(kind, b, d, r)
+        v = torch.randn((b, r, d), generator=gen, device=cuda_device)
+        n = torch.tensor([(0, 1, r)[i % 3] for i in range(b)] if b > 1
+                         else [r], device=cuda_device)
+        sq, gm = block_weights(n, r, 0.9)
+        vt = (v * sq[..., None]).contiguous()
+        t_ops.reset_launch_counts()
+        got, piv = t_rk.fused_block_smw(j, vt, gm, variant=variant,
+                                        with_pivot=True, scale=sc)
+        name = "fused_block_smw" + ("[int8]" if sc is not None else "")
+        assert t_ops.launch_counts() == {name: 1}
+        want, want_piv = t_rk.fused_block_smw_plain(
+            j, vt, gm, variant=variant, with_pivot=True, scale=sc)
+        assert _within(got, want, rel, floor), r
+        assert torch.allclose(piv, want_piv, rtol=1e-3), r
+        empty = n == 0
+        base = j[empty] if sc is None else \
+            j[empty].float() * sc[empty][:, None, None]
+        assert torch.equal(got[empty], base), r
+        again, again_piv = t_rk.fused_block_smw(
+            j, vt, gm, variant=variant, with_pivot=True, scale=sc)
+        assert torch.equal(again, got) and torch.equal(again_piv, piv), r
+        if sc is None:
+            inplace = _unaligned_copy(j) if unaligned else j.clone()
+            t_rk.fused_block_smw(inplace, vt, gm, variant=variant,
+                                 out=inplace)
+            assert torch.equal(inplace, got), r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,unaligned", SMW_SHAPES)
+@pytest.mark.parametrize("kind", SMW_KINDS)
+@pytest.mark.parametrize("variant", ["paper", "exact_smw"])
+def test_cuda_fused_smw_design(cuda_device, b, d, unaligned, kind, variant):
+    """fused_smw, the r = 1 instance of the same kernel: one launch under
+    its own name, against its plain version, a second call giving the same
+    bits, and in place (out is j)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    j, sc = _smw_bank(kind, b, d, unaligned, gen, cuda_device)
+    if (b, d) == (64, 1024):
+        assert _interleaved(kind, b, d, 1)
+    v = torch.randn((b, d), generator=gen, device=cuda_device)
+    t_ops.reset_launch_counts()
+    got = t_rk.fused_smw(j, v, gamma=0.9, variant=variant, scale=sc)
+    name = "fused_smw" + ("[int8]" if sc is not None else "")
+    assert t_ops.launch_counts() == {name: 1}
+    want = t_rk.fused_smw_plain(j, v, gamma=0.9, variant=variant, scale=sc)
+    assert _within(got, want, *_smw_tol(kind))
+    assert torch.equal(t_rk.fused_smw(j, v, gamma=0.9, variant=variant,
+                                      scale=sc), got)
+    if sc is None:
+        inplace = _unaligned_copy(j) if unaligned else j.clone()
+        t_rk.fused_smw(inplace, v, gamma=0.9, variant=variant, out=inplace)
+        assert torch.equal(inplace, got)
+
+
+@pytest.mark.cuda
+def test_cuda_block_smw_ticket_order(cuda_device):
+    """The plan and the ticket order of the kernel's own library, on the
+    blocks this card holds for each launch, hold the invariants of
+    :func:`smw_plan_check.check_plan`."""
+    for kind, b, d, rank, vec in [("bfloat16", 96, 1024, 4, 1),
+                                  ("bfloat16", 24, 4096, 1, 1),
+                                  ("int8", 24, 4096, 4, 1),
+                                  ("float32", 7, 1001, 16, 0),
+                                  ("float32", 5, 100, 2, 0)]:
+        lib, resident = _launch_plan(kind, b, d, rank, vec)
+        assert resident >= torch.cuda.get_device_properties(
+            cuda_device).multi_processor_count
+        smw_plan_check.check_plan(lib, b, d, rank, SMW_ITEM[kind], resident)
