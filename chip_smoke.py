@@ -23,14 +23,19 @@ Phases (each prints its own lines; any failure exits non-zero):
      cores (the Hopper core of wgmma_gemm.cuh where the route sends them,
      the WMMA core of gemm.cuh forced), each launch's core read from the
      per-core counts, with TFLOP/s and the share of the bf16 peak, the
-     Hopper core required faster at each bert-large shape;
+     Hopper core required faster at each bert-large shape; matvec and
+     rank1_update (on no path) at d = 1024, 4096 and 1001, beside torch.mv
+     and torch.addr, also by device time (the profiler's kernel
+     durations) from a cold L2 (after a 128 MB write; and after the write
+     and a 128 MB read) and a warm one, with the share of the bound;
   4. full-width bert-large (24 layers, random weights from seed 0, batch 8
      x 128) trained with mkor(lamb) through the kernels on three paths,
      each with the launch counts set to 0 just before it and read just
      after:
      a. rank 1, staleness 0 (inv_freq 3): step 0 against the plain route
         from the same state (banks, update, loss after the step), then 6
-        steps with losses, step time, peak memory, launches and fallbacks,
+        steps with losses, step time, peak memory (also over the steps
+        after a path's last compared step), launches and fallbacks,
         a profiler breakdown and phase times of one more step;
      b. block rank 4 (inv_freq 4, stagger), 8 steps: every bucket consumes
         a partial and a full window; at each bucket's first full window
@@ -225,7 +230,8 @@ class KernelRow:
                 "source": SOURCES[self.name], "replaces": REPLACES[self.name],
                 "launches": launches, "max_abs_err": self.err, "ms": self.ms,
                 "plain_ms": self.plain_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": self.library_ms}
+                "bound_by": b_by, "library_ms": self.library_ms,
+                "further_ms": dict(self.other_ms)}
 
 
 def bf16_close(got, want, rel=2.0 ** -7, floor=1e-5):
@@ -584,12 +590,140 @@ def check_fused_block_smw(torch, rows):
         del j, v, vt
 
 
+L2_FLUSH_BYTES = 128 * 2 ** 20    # scratch for a cold L2: 2.5x the 50 MB
+
+
+def device_kernels(torch, body):
+    """(name, ms) of each device kernel ``body`` launches, from the
+    profiler's kernel events: the device's own durations."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        body()
+        torch.cuda.synchronize()
+    return [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+class DeviceTimer:
+    """Device time of one call, by the kernels' own durations, in three
+    states of the L2 cache:
+
+    * ``cold``: each call follows a write of a 128 MB scratch buffer
+      (more than twice the L2), so the operands are not in L2, which
+      holds the scratch's dirty lines instead;
+    * ``cold, clean``: the write, then a read of another 128 MB buffer, so
+      the operands are not in L2 and its lines are clean;
+    * ``warm``: back-to-back calls, the operands in L2 where they fit.
+
+    The set-up's kernels are told apart from the call's by name (learned
+    from a run of each alone) and left out; every set-up runs outside the
+    measured kernels."""
+
+    STATES = ("cold", "cold, clean", "warm")
+
+    def __init__(self, torch, reps=20):
+        self.torch, self.reps = torch, reps
+        n = L2_FLUSH_BYTES // 4
+        scratch = torch.empty(n, device="cuda")
+        other = torch.ones(n, device="cuda")
+
+        def write():
+            scratch.fill_(1.0)
+
+        def write_read():
+            scratch.fill_(1.0)
+            other.sum()
+
+        self.setups = dict(zip(self.STATES, (write, write_read, None)))
+        self.setup_names = set()
+        for fn in (write, write_read):
+            self.setup_names |= {k for k, _ in device_kernels(torch, fn)}
+
+    def __call__(self, fn, tag):
+        """{state: mean device ms of one call of ``fn``}."""
+        fn()
+        for _ in range(5):      # the profiler may drop the events: see below
+            own = collections.Counter(k for k, _ in device_kernels(
+                self.torch, fn))
+            if own:
+                break
+            print(f"{tag}: the profiler returned no kernel events; taken "
+                  "again")
+        require(bool(own) and not set(own) & self.setup_names,
+                f"{tag}: kernels {sorted(own)} cannot be told from the "
+                f"cold-L2 set-up's {sorted(self.setup_names)}")
+        out = {}
+        for state, before in self.setups.items():
+            def body():
+                for _ in range(self.reps):
+                    if before is not None:
+                        before()
+                    fn()
+            # the profiler drops some of a trace's kernel events now and
+            # then, or all of them: each kernel's time is the mean of the
+            # events that came back, and a trace that kept fewer than half
+            # of some kernel's, or more than it launched, is taken again,
+            # at most four times
+            want = {k: self.reps * n for k, n in own.items()}
+            for _ in range(5):
+                events = device_kernels(self.torch, body)
+                got = {k: [t for n, t in events if n == k] for k in own}
+                off = {k: len(got[k]) for k in own
+                       if not want[k] <= 2 * len(got[k]) <= 2 * want[k]}
+                if not off:
+                    break
+                print(f"{tag}, {state}: the profiler returned {off} kernel "
+                      f"events of {want} ({len(events)} in all); taken again")
+            require(not off, f"{tag}: kernel events {off} of {want}")
+            lost = sum(want[k] - len(got[k]) for k in own)
+            if lost:
+                print(f"{tag}, {state}: {lost} of {sum(want.values())} "
+                      "kernel events missing from the trace; the mean of "
+                      "the rest is kept")
+            out[state] = sum(own[k] * sum(ts) / len(ts)
+                             for k, ts in got.items())
+        return out
+
+
+# the library call each unfused building block is held against
+UNFUSED = {"matvec": ("torch.mv", "bf16 vector and output"),
+           "rank1_update": ("torch.addr", "bf16 vectors")}
+
+
+def _device_line(times):
+    return (f"{times['cold']:.4f} ms cold ({times['cold, clean']:.4f} "
+            f"clean, {times['warm']:.4f} warm)")
+
+
 def check_matvec_and_rank1_update(torch, rows):
     """The two unfused building blocks, at d = 1024, 4096 and 1001 (bf16
-    J, fp32 vectors).  They are on no training path; ms, plain, library
-    and bound sum the three shapes."""
+    J, fp32 vectors), each call twice for the same bits.  They are on no
+    training path.  Timed by device time (:class:`DeviceTimer`) beside
+    the call time (events around back-to-back calls), each beside its
+    bound, as are ``torch.mv`` and ``torch.addr``; ms, plain, library and
+    bound sum the three shapes, the device times go in the rows' further
+    timings."""
     from repro_torch.kernels import rank1_smw as rk
     gen = torch.Generator(device="cuda").manual_seed(5)
+    timer = DeviceTimer(torch)
+
+    def record(name, d, dev, lib_dev, ms, lib, plain, n_bytes, n_ops, err):
+        row = rows[name]
+        lib_name, note = UNFUSED[name]
+        bms, by = row.bound(n_bytes, n_ops)
+        print(f"{name} {d}x{d}: device {_device_line(dev)}; call {ms:.4f} "
+              f"ms; bound {bms:.4f} ms ({by}), {100 * bms / dev['cold']:.1f} "
+              f"% of it cold, {100 * bms / ms:.1f} % by call; {lib_name} "
+              f"({note}) device {_device_line(lib_dev)}, "
+              f"call {lib:.4f} ms; plain call {plain:.4f} ms")
+        row.add(err, ms, plain, n_bytes, n_ops, library_ms=lib)
+        for state in dev:
+            row.other_ms[f"device {state}"] += dev[state]
+            row.other_ms[f"{lib_name} device {state}"] += lib_dev[state]
+
     for d in (1024, 4096, 1001):
         j = near_identity(torch, 1, d, gen, torch.bfloat16)[0]
         v = torch.randn((d, 1), generator=gen, device="cuda")
@@ -602,17 +736,16 @@ def check_matvec_and_rank1_update(torch, rows):
               f"(1e-5 max|want|) {ratio:.3f} (tol 1)")
         require(math.isfinite(ratio) and ratio <= 1.0,
                 f"matvec {d} disagrees with its plain version")
+        require_repeatable(torch, lambda: rk.matvec(j, v), got,
+                           f"matvec {d}")
         vb = v.to(torch.bfloat16)
-        ms = time_ms(torch, lambda: rk.matvec(j, v), reps=50)
-        plain = time_ms(torch, lambda: rk.matvec_plain(j, v), reps=50)
-        lib = time_ms(torch, lambda: torch.mv(j, vb[:, 0]), reps=50)
-        n_bytes = d * d * 2 + 2 * d * 4
-        n_ops = 2.0 * d * d
-        bms, by = rows["matvec"].bound(n_bytes, n_ops)
-        print(f"matvec {d}x{d}: {ms:.4f} ms, plain {plain:.4f} ms, torch.mv "
-              f"(bf16 vector and output) {lib:.4f} ms, bound {bms:.4f} ms "
-              f"({by})")
-        rows["matvec"].add(err, ms, plain, n_bytes, n_ops, library_ms=lib)
+        record("matvec", d,
+               timer(lambda: rk.matvec(j, v), f"matvec {d}"),
+               timer(lambda: torch.mv(j, vb[:, 0]), f"torch.mv {d}"),
+               time_ms(torch, lambda: rk.matvec(j, v), reps=50),
+               time_ms(torch, lambda: torch.mv(j, vb[:, 0]), reps=50),
+               time_ms(torch, lambda: rk.matvec_plain(j, v), reps=50),
+               d * d * 2 + 2 * d * 4, 2.0 * d * d, err)
 
         u = (want / math.sqrt(d)).contiguous()
         coef = torch.full((1, 1), 0.37, device="cuda")
@@ -625,22 +758,22 @@ def check_matvec_and_rank1_update(torch, rows):
               "(tol 1)")
         require(math.isfinite(ratio) and ratio <= 1.0,
                 f"rank1_update {d} disagrees with its plain version")
+        require_repeatable(torch, lambda: rk.rank1_update(
+            j, u, coef, gamma=0.9), got, f"rank1_update {d}")
         ub = u[:, 0].to(torch.bfloat16)
         c = coef.item()
-        ms = time_ms(torch, lambda: rk.rank1_update(j, u, coef, gamma=0.9),
-                     reps=50)
-        plain = time_ms(torch, lambda: rk.rank1_update_plain(
-            j, u, coef, gamma=0.9), reps=50)
-        lib = time_ms(torch, lambda: torch.addr(j, ub, ub, beta=0.9,
-                                                alpha=c), reps=50)
-        n_bytes = 2 * d * d * 2 + d * 4 + 4
-        n_ops = 3.0 * d * d
-        bms, by = rows["rank1_update"].bound(n_bytes, n_ops)
-        print(f"rank1_update {d}x{d}: {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"torch.addr (bf16 vectors) {lib:.4f} ms, bound {bms:.4f} ms "
-              f"({by})")
-        rows["rank1_update"].add(err, ms, plain, n_bytes, n_ops,
-                                 library_ms=lib)
+        record("rank1_update", d,
+               timer(lambda: rk.rank1_update(j, u, coef, gamma=0.9),
+                     f"rank1_update {d}"),
+               timer(lambda: torch.addr(j, ub, ub, beta=0.9, alpha=c),
+                     f"torch.addr {d}"),
+               time_ms(torch, lambda: rk.rank1_update(j, u, coef, gamma=0.9),
+                       reps=50),
+               time_ms(torch, lambda: torch.addr(j, ub, ub, beta=0.9,
+                                                 alpha=c), reps=50),
+               time_ms(torch, lambda: rk.rank1_update_plain(
+                   j, u, coef, gamma=0.9), reps=50),
+               2 * d * d * 2 + d * 4 + 4, 3.0 * d * d, err)
         del j, v
 
 
@@ -1178,8 +1311,10 @@ class PlainTee:
 def run_path(torch, dev, name, step_fn, opt, params, ds, steps,
              skip_times=()):
     """One counted training path: launch counts and fallbacks set to 0
-    just before it, read just after; fresh optimizer state.  Returns
-    (params, state, counts)."""
+    just before it, read just after; fresh optimizer state.  The steps in
+    ``skip_times`` hold the kernel route against the plain route, so the
+    peak memory is also read over the steps after the last of them
+    alone.  Returns (params, state, counts)."""
     from repro_torch.data import pipeline
     from repro_torch.kernels import ops
     from repro_torch.training import loop as train_lib
@@ -1190,6 +1325,8 @@ def run_path(torch, dev, name, step_fn, opt, params, ds, steps,
     ops.reset_fallback_counts()
     state = opt.init(params)
     losses, times = [], []
+    last = max(skip_times, default=None)
+    peak_to_last = 0
     for step in range(steps):
         batch = train_lib.batch_to_device(pipeline.make_batch(ds, step), dev)
         t0 = time.perf_counter()
@@ -1197,16 +1334,30 @@ def run_path(torch, dev, name, step_fn, opt, params, ds, steps,
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(metrics["loss"]))
+        if step == last:
+            peak_to_last = torch.cuda.max_memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats()
     counts = ops.launch_counts()
     cores = ops.gemm_core_counts()
     fallbacks = ops.fallback_counts()
-    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    peak_after = torch.cuda.max_memory_allocated(dev)
+    peak = max(peak_to_last, peak_after) / 2 ** 30
+    if last is None:
+        after = "no step compared on the path"
+    elif last == steps - 1:
+        after = f"no step after the last compared step {last}"
+    else:
+        span = f"step {last + 1}" if last + 2 == steps else \
+            f"steps {last + 1}-{steps - 1}"
+        after = (f"{span}, after the last compared step: "
+                 f"{peak_after / 2 ** 30:.3f} GiB")
     print(f"[{name}] train losses {losses}")
     require(all(math.isfinite(x) for x in losses), f"{name}: non-finite loss")
     clean = [t for i, t in enumerate(times) if i > 0 and i not in skip_times]
     print(f"[{name}] step ms {[round(t, 3) for t in times]} (median of "
           f"steps {[i for i in range(1, steps) if i not in skip_times]} "
-          f"{statistics.median(clean):.3f} ms), peak memory {peak:.3f} GiB")
+          f"{statistics.median(clean):.3f} ms), peak memory {peak:.3f} GiB "
+          f"({after})")
     print(f"[{name}] launch counts {counts}, GEMM cores {cores}, fallbacks "
           f"{fallbacks}")
     must, must_not = PATH_KERNELS[name]
@@ -1578,6 +1729,20 @@ def main() -> int:
               f"{b_ms:.4f} ms ({b_by}), {stream_rate(r.bytes, r.ms, b_ms)}"
               + "".join(f", {k} {v:.4f} ms" for k, v in r.other_ms.items())
               + f", plain {r.plain_ms:.4f} ms")
+    for name, (lib, _) in UNFUSED.items():
+        r = rows[name]
+        b_ms, b_by = r.bound(r.bytes, r.ops)
+        dev = {k: r.other_ms[f"device {k}"] for k in DeviceTimer.STATES}
+        lib_dev = {k: r.other_ms[f"{lib} device {k}"]
+                   for k in DeviceTimer.STATES}
+        verdict = "no slower than" if dev["cold"] <= lib_dev["cold"] else \
+            "slower than"
+        print(f"{name}, sum of d = 1024, 4096, 1001: device "
+              f"{_device_line(dev)}, bound {b_ms:.4f} ms ({b_by}), "
+              f"{100 * b_ms / dev['cold']:.1f} % of it cold; {lib} device "
+              f"{_device_line(lib_dev)}; call {r.ms:.4f} ms, {lib} call "
+              f"{r.library_ms:.4f} ms, plain {r.plain_ms:.4f} ms; by cold "
+              f"device time {verdict} {lib}")
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
 

@@ -157,12 +157,14 @@ def _check_supported(cfg: MKORConfig) -> None:
             "factor_quant='int8' requires layout='bank': the scale / "
             "error-feedback state is per bucket")
     todo = [
-        (cfg.layout != "bank", "layout='per_layer' (ROADMAP queue 1 item "
-         "20)"),
-        (cfg.health, "health=True (ROADMAP queue 1 item 14)"),
+        (cfg.layout != "bank", "layout='per_layer' (ROADMAP queue 1: "
+         "layout='per_layer' and the baselines)"),
+        (cfg.health, "health=True (ROADMAP queue 1: health sentinel and "
+         "chaos)"),
         (cfg.dist is not None or cfg.live is not None,
-         "dist / live (ROADMAP queue 1 items 16-17)"),
-        (cfg.hybrid, "hybrid / mkor_h (ROADMAP queue 1 item 10)"),
+         "dist / live (ROADMAP queue 1: distributed)"),
+        (cfg.hybrid, "hybrid / mkor_h (ROADMAP queue 1: mkor_h, the "
+         "knee-point scheduler and the other first-order optimizers)"),
     ]
     for bad, what in todo:
         if bad:

@@ -17,7 +17,7 @@ The rank-r stat windows (``window_push`` / ``window_ordered``) and the
 int8 storage helpers (``quant_encode`` / ``quant_decode`` /
 ``quant_requantize``, ``window_push_quant`` / ``window_decode``) are here;
 the owner maps of the distributed path arrive with their slice (ROADMAP
-queue 1 item 16).
+queue 1: distributed).
 """
 from __future__ import annotations
 

@@ -12,8 +12,8 @@ Python; the per-layer statistics are stacked back into the same
 Supported so far: attention blocks with dense MLPs (``kind == "attn"``,
 ``mlp == "dense"``), causal or bidirectional, without the multimodal
 frontend — the main path (bert-large).  The other block kinds arrive with
-the model zoo (ROADMAP queue 1 item 18).  Remat is a memory policy with no
-numerical effect and is not applied.
+the model zoo (ROADMAP queue 1: the model zoo).  Remat is a memory policy
+with no numerical effect and is not applied.
 """
 from __future__ import annotations
 
@@ -42,15 +42,15 @@ def check_supported(cfg: ModelConfig) -> None:
         if spec.kind != "attn" or spec.mlp != "dense":
             raise NotImplementedError(
                 f"{cfg.name}: block kind={spec.kind!r} mlp={spec.mlp!r} is "
-                "not ported yet (ROADMAP queue 1 item 18, the model zoo)")
+                "not ported yet (ROADMAP queue 1: the model zoo)")
     if cfg.is_encoder_decoder or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder / multimodal frontends are not "
-            "ported yet (ROADMAP queue 1 item 18)")
+            "ported yet (ROADMAP queue 1: the model zoo)")
     if cfg.post_block_norm:
         raise NotImplementedError(
             f"{cfg.name}: post-block norms are not ported yet "
-            "(ROADMAP queue 1 item 18)")
+            "(ROADMAP queue 1: the model zoo)")
 
 
 # ======================================================================= #

@@ -5,7 +5,8 @@ One step is Algorithm 1 end to end: forward (capturing E[a]) → backward
 (probe gradients = E[g]) → MKOR factor update + preconditioning → backend
 optimizer → parameter update.  PyTorch runs eagerly, so there is no jit;
 the scan-chunked runner of the reference (``make_chunk_runner``) arrives
-in a later slice (ROADMAP queue 1 item 11).
+in a later slice (ROADMAP queue 1: the chunk runner, with CUDA-graph
+capture of the step).
 """
 from __future__ import annotations
 

@@ -170,7 +170,10 @@ def test_port_block_ref_matches_jax_ref():
                                        rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("d,block", [(64, 64), (128, 64), (96, 32)])
+# (256, 256), (512, 256): the reference's default block; (1001, 1001): a
+# ragged d that no 256-wide tiling divides, as one block
+@pytest.mark.parametrize("d,block", [(64, 64), (128, 64), (96, 32),
+                                     (256, 256), (512, 256), (1001, 1001)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_matvec_and_rank1_update_match_jax_kernels(d, block, dtype):
     rng = np.random.default_rng(d + block)

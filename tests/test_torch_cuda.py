@@ -12,6 +12,7 @@ import torch
 
 import smw_plan_check
 from repro_torch.core.mkor import block_weights
+from repro_torch.kernels import build
 from repro_torch.kernels import matmul as t_mm
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import precond as t_pc
@@ -114,26 +115,101 @@ def test_cuda_fused_block_smw_matches_plain(cuda_device, b, d, r, dtype,
     assert torch.equal(inplace, got)
 
 
+def _near_identity(d, dtype, gen, device):
+    return (torch.eye(d, device=device) + 0.01 * torch.randn(
+        (d, d), generator=gen, device=device)).to(dtype)
+
+
+def _rank1_tol(dtype):
+    # bf16 out: one ulp may flip; fp32 out: rounding only
+    return (2 ** -7, 1e-5) if dtype == torch.bfloat16 else (1e-6, 1e-6)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 1001])
+@pytest.mark.parametrize("d", [64, 1001, 1024, 4096, 8200])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cuda_matvec_and_rank1_update_match_plain(cuda_device, d, dtype):
+    """Both kernels against their plain versions at the shapes
+    chip_smoke.py times (1024, 4096, 1001), a small one and 8200, past
+    the columns a block keeps staged; the same bits from a second call,
+    in place equal to out of place, smw_vectors as matvec then vᵀu."""
     gen = torch.Generator(device=cuda_device).manual_seed(3)
-    j = (torch.eye(d, device=cuda_device) + 0.01 * torch.randn(
-        (d, d), generator=gen, device=cuda_device)).to(dtype)
+    j = _near_identity(d, dtype, gen, cuda_device)
     v = torch.randn((d, 1), generator=gen, device=cuda_device)
     u = t_rk.matvec(j, v)
     # fp32 out, the same products summed in another order
     assert _within(u, t_rk.matvec_plain(j, v), 0.0, 1e-5)
+    assert torch.equal(t_rk.matvec(j, v), u)
     uu, s = t_rk.smw_vectors(j, v)
     assert torch.equal(uu, u)
     assert torch.allclose(s, torch.sum(v[:, 0] * u[:, 0]))
+    un = u / d ** 0.5
     coef = torch.full((1, 1), 0.37, device=cuda_device)
-    got = t_rk.rank1_update(j, u / d ** 0.5, coef, gamma=0.9)
-    want = t_rk.rank1_update_plain(j, u / d ** 0.5, coef, gamma=0.9)
-    rel, floor = (2 ** -7, 1e-5) if dtype == torch.bfloat16 else \
-        (1e-6, 1e-6)
-    assert _within(got, want, rel, floor)
+    got = t_rk.rank1_update(j, un, coef, gamma=0.9)
+    assert got.dtype == dtype
+    assert _within(got, t_rk.rank1_update_plain(j, un, coef, gamma=0.9),
+                   *_rank1_tol(dtype))
+    assert torch.equal(t_rk.rank1_update(j, un, coef, gamma=0.9), got)
+    inplace = j.clone()
+    t_rk.rank1_update(inplace, un, coef, gamma=0.9, out=inplace)
+    assert torch.equal(inplace, got)
+
+
+def _offset_view(x, shape):
+    """x's values in a view whose base lies one element past a 16-byte
+    boundary."""
+    buf = torch.empty((x.numel() + 1,), dtype=x.dtype, device=x.device)
+    view = buf[1:].view(shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1024, 1001, 8199, 8201])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_matvec_and_rank1_update_unaligned_rows(cuda_device, d, dtype):
+    """J, v and u in offset views, so no row of J starts on 16 bytes (the
+    wrappers pass vec = 0 and the kernels find each row's boundary) and
+    the vectors stage without float4 loads; an output on another 16-byte
+    phase than J's is written by scalars, and gives the same bits as the
+    vector paths.  At 8199 and 8201 the rows are ragged and wider than the
+    columns a block keeps staged, so per-row heads and scalar columns
+    cross a tile boundary."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    jc = _near_identity(d, dtype, gen, cuda_device)
+    j = _offset_view(jc, (d, d))
+    assert not build.rows_aligned(j, d)
+    v = _offset_view(torch.randn((d, 1), generator=gen, device=cuda_device),
+                     (d, 1))
+    u = t_rk.matvec(j, v)
+    assert _within(u, t_rk.matvec_plain(jc, v), 0.0, 1e-5)
+    assert torch.equal(t_rk.matvec(j, v), u)
+    un = _offset_view(u / d ** 0.5, (d, 1))
+    coef = torch.full((1, 1), 0.37, device=cuda_device)
+    want = t_rk.rank1_update(jc, un, coef, gamma=0.9)      # vectors
+    assert _within(want, t_rk.rank1_update_plain(jc, un, coef, gamma=0.9),
+                   *_rank1_tol(dtype))
+    got = t_rk.rank1_update(j, un, coef, gamma=0.9)        # other phase
+    assert torch.equal(got, want)
+    same = _offset_view(torch.zeros_like(jc), (d, d))      # same phase
+    t_rk.rank1_update(j, un, coef, gamma=0.9, out=same)
+    assert torch.equal(same, want)
+    t_rk.rank1_update(j, un, coef, gamma=0.9, out=j)       # in place
+    assert torch.equal(j, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_matvec_and_rank1_update_empty(cuda_device, dtype):
+    """d = 0 launches nothing and returns empty results."""
+    j = torch.empty((0, 0), dtype=dtype, device=cuda_device)
+    v = torch.empty((0, 1), device=cuda_device)
+    t_ops.reset_launch_counts()
+    assert t_rk.matvec(j, v).shape == (0, 1)
+    out = t_rk.rank1_update(j, v, torch.ones((1, 1), device=cuda_device),
+                            gamma=0.9)
+    assert out.shape == (0, 0) and out.dtype == dtype
+    assert t_ops.launch_counts() == {}
 
 
 def _int8_bank(b, d, gen, device):
