@@ -27,9 +27,13 @@ Phases (each prints its own lines; any failure exits non-zero):
      rank1_update (on no path) at d = 1024, 4096 and 1001, beside torch.mv
      and torch.addr, also by device time (the profiler's kernel
      durations) from a cold L2 (after a 128 MB write; and after the write
-     and a 128 MB read) and a warm one, with the share of the bound;
+     and a 128 MB read) and a warm one, with the share of the bound; the
+     plain block route's mid-matrix solve (``solve_mid``, which a CUDA
+     graph can hold) against ``torch.linalg.solve`` and float64 at the
+     bert-large banks;
   4. full-width bert-large (24 layers, random weights from seed 0, batch 8
-     x 128) trained with mkor(lamb) through the kernels on three paths,
+     x 128) trained with mkor(lamb) through the kernels on six paths (and
+     with LAMB alone),
      each with the launch counts set to 0 just before it and read just
      after:
      a. rank 1, staleness 0 (inv_freq 3): step 0 against the plain route
@@ -56,11 +60,29 @@ Phases (each prints its own lines; any failure exits non-zero):
         reconstructed fp32 bank decode(codes) + error feedback, with codes
         at most one step apart; the kernel route decodes no bank (only
         window rows);
+     g. LAMB alone, no MKOR (6 steps), the step MKOR's overhead is
+        measured against;
      each profiled step also lists the host's waits on the device; on
      every path every GEMM of matmul and fused_precond (and of their int8
      variants) must run on the Hopper core (per-core counts);
-  5. one JSON line listing every kernel, the card's name and power limit,
-     and, last, ``{"ok": true, "device": {...}}``.
+  5. each path of phase 4 captured as CUDA graphs (``rank1[graph]`` ...)
+     through the chunk runner (training/loop.py), from its eager run's
+     final state, launch counts set to 0 just before and read just after:
+     3 x inv_freq steps, so each residue's graph replays twice, and before
+     each replay the eager step runs from copies of the same state; the
+     replay's params, whole optimizer state and metrics must be
+     ``torch.equal`` to it, except, on the kernel paths, the parameters,
+     LAMB's moments and the update norm, held to the bound of
+     ``replay_tol`` (fused_precond's atomics: the eager step run twice
+     from one state differs there too, which is printed); the replays'
+     credited launches must cover PATH_KERNELS; then replays alone (step
+     times, peak allocated and reserved memory) and a profiled replay;
+     rank 1 and LAMB also in turns (eager, captured, captured, eager) and
+     as one chunk of 8 replays with one metrics fetch;
+  6. a summary line per path (eager against captured), one JSON line
+     listing every kernel (launches summed over phases 4 and 5), the
+     card's name and power limit, and, last, ``{"ok": true, "device":
+     {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package, and exits
 non-zero without a result when there is no CUDA device or when the port's
@@ -69,6 +91,7 @@ sources are not beside it.
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import math
 import statistics
@@ -135,6 +158,7 @@ PATH_KERNELS = {
                    _NOT_INT8 + ("fused_smw[int8]",)),
     "int8_staleness1": (("fused_block_smw[int8]",) + _INT8_GEMMS,
                         _NOT_INT8 + ("fused_smw[int8]",)),
+    "lamb": ((), tuple(REPLACES)),
 }
 # the paths whose GEMMs all run on the Hopper core: every one (bf16
 # factors, and int8 codes widened to bf16 in shared memory)
@@ -148,6 +172,10 @@ GEMM_KERNELS = ("matmul", "matmul[int8 operand]", "fused_precond",
 TRAIN_STEPS = 6                   # rank 1: two full inv_freq=3 windows
 RANK4_STEPS = 8                   # rank 4, inv_freq 4: two windows a bucket
 STALE_STEPS = 9                   # staleness 1, inv_freq 3: three ticks
+LAMB_STEPS = 6                    # plain LAMB, eager
+TURN_STEPS = 6                    # steps in each turn (the first is dropped)
+# each path's numbers for the closing summary lines
+SUMMARY = collections.defaultdict(dict)
 
 
 class SmokeFailure(RuntimeError):
@@ -696,6 +724,44 @@ UNFUSED = {"matvec": ("torch.mv", "bf16 vector and output"),
 def _device_line(times):
     return (f"{times['cold']:.4f} ms cold ({times['cold, clean']:.4f} "
             f"clean, {times['warm']:.4f} warm)")
+
+
+def check_solve_mid(torch):
+    """The plain block route's mid-matrix solve (``rank1_smw.solve_mid``:
+    on CUDA mid⁻¹ from cuBLAS's batched getrs, then one product, which a
+    CUDA graph can hold) against ``torch.linalg.solve`` (MAGMA's batched
+    getrs, which it cannot) and float64, at the bert-large banks with a
+    full rank-4 window: J near the identity, rows v ~ N(0, 1) weighted as
+    the block update weights them.  Bound: 1e-5 |want| + 1e-6 max|want|
+    against ``solve``, elementwise, on the solve and on the update."""
+    from repro_torch.core.mkor import block_weights
+    from repro_torch.kernels import rank1_smw as rk
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst = 0.0
+    for b, d in ((96, 1024), (24, 1024), (24, 4096)):
+        j = near_identity(torch, b, d, gen, torch.float32)
+        sq, gm = block_weights(4, 4, 0.9, device=j.device)
+        vt = torch.randn((b, 4, d), generator=gen,
+                         device="cuda") * sq[:, None]
+        u = vt @ j.mT
+        mid = gm * gm * torch.eye(4, device="cuda") + gm ** 3 * (vt @ u.mT)
+        got, want = rk.solve_mid(mid, u), torch.linalg.solve(mid, u)
+        exact = torch.linalg.solve(mid.double(), u.double())
+        _, ratio = bf16_close(got, want, 1e-5, 1e-6)
+        upd_g = gm * j + u.mT @ got
+        upd_w = gm * j + u.mT @ want
+        _, upd_ratio = bf16_close(upd_g, upd_w, 1e-5, 1e-6)
+        scale = float(exact.abs().max())
+        e_got = float((got.double() - exact).abs().max()) / scale
+        e_want = float((want.double() - exact).abs().max()) / scale
+        print(f"solve_mid {b}x4x{d}: against torch.linalg.solve worst ratio "
+              f"{ratio:.3f} on the solve, {upd_ratio:.3f} on the update "
+              f"(tol 1); max error / max|x| against float64: solve_mid "
+              f"{e_got:.3e}, torch.linalg.solve {e_want:.3e}")
+        worst = max(worst, ratio, upd_ratio)
+        require(math.isfinite(ratio) and ratio <= 1.0 and upd_ratio <= 1.0,
+                f"solve_mid {b}x4x{d} differs from torch.linalg.solve")
+    return worst
 
 
 def check_matvec_and_rank1_update(torch, rows):
@@ -1358,6 +1424,9 @@ def run_path(torch, dev, name, step_fn, opt, params, ds, steps,
           f"steps {[i for i in range(1, steps) if i not in skip_times]} "
           f"{statistics.median(clean):.3f} ms), peak memory {peak:.3f} GiB "
           f"({after})")
+    SUMMARY[name]["eager_ms"] = statistics.median(clean)
+    SUMMARY[name]["eager_peak"] = (peak if last is None or last == steps - 1
+                                   else peak_after / 2 ** 30)
     print(f"[{name}] launch counts {counts}, GEMM cores {cores}, fallbacks "
           f"{fallbacks}")
     must, must_not = PATH_KERNELS[name]
@@ -1379,11 +1448,12 @@ def run_path(torch, dev, name, step_fn, opt, params, ds, steps,
 
 
 def profile_and_phases(torch, dev, cfg, ds, step_fn, opt, params, state,
-                       step):
+                       step, name):
     from repro_torch.data import pipeline
     from repro_torch.training import loop as train_lib
     batch = train_lib.batch_to_device(pipeline.make_batch(ds, step), dev)
-    profile_step(torch, lambda: step_fn(params, state, batch))
+    SUMMARY[name]["eager_busy"] = profile_step(
+        torch, lambda: step_fn(params, state, batch))
     phase_breakdown(torch, cfg, opt, params, state, batch,
                     torch.cuda.synchronize)
 
@@ -1396,8 +1466,8 @@ def train_rank1(torch, dev, setup):
     params, state, counts = run_path(torch, dev, "rank1", step_k, opt_k,
                                      params, ds, TRAIN_STEPS)
     profile_and_phases(torch, dev, cfg, ds, step_k, opt_k, params, state,
-                       TRAIN_STEPS)
-    return counts
+                       TRAIN_STEPS, "rank1")
+    return counts, (step_k, params, state)
 
 
 def _phases(params, mcfg):
@@ -1427,9 +1497,10 @@ def train_rank4(torch, dev, setup):
     require(tee.compared == first_full,
             f"rank4: compared at {tee.compared}, expected {first_full}")
     # one more step (bucket 0 consumes its second full window), profiled
-    profile_and_phases(torch, dev, cfg, ds, train_lib.make_train_step(
-        cfg, opt_k), opt_k, params, state, RANK4_STEPS)
-    return counts
+    step_k = train_lib.make_train_step(cfg, opt_k)
+    profile_and_phases(torch, dev, cfg, ds, step_k, opt_k, params, state,
+                       RANK4_STEPS, "rank4")
+    return counts, (step_k, params, state)
 
 
 def train_staleness1(torch, dev, setup):
@@ -1477,9 +1548,10 @@ def train_staleness1(torch, dev, setup):
                 "identity")
     # one more step (a tick that launches for the 1024x1024 bucket),
     # profiled; the phase times run the tick inline inside the update
-    profile_and_phases(torch, dev, cfg, ds, train_lib.make_train_step(
-        cfg, opt_k), opt_k, params, state, STALE_STEPS)
-    return counts
+    step_k = train_lib.make_train_step(cfg, opt_k)
+    profile_and_phases(torch, dev, cfg, ds, step_k, opt_k, params, state,
+                       STALE_STEPS, "staleness1")
+    return counts, (step_k, params, state)
 
 
 def _int8_path(torch, dev, setup, name, steps, **kw):
@@ -1554,9 +1626,10 @@ def _int8_path(torch, dev, setup, name, steps, **kw):
         del rec
         require(moved > 0, f"{name}: active bank {bid} is still the "
                 "identity")
-    profile_and_phases(torch, dev, cfg, ds, train_lib.make_train_step(
-        cfg, opt_k), opt_k, params, state, steps)
-    return counts
+    step_k = train_lib.make_train_step(cfg, opt_k)
+    profile_and_phases(torch, dev, cfg, ds, step_k, opt_k, params, state,
+                       steps, name)
+    return counts, (step_k, params, state)
 
 
 def train_int8_rank1(torch, dev, setup):
@@ -1574,6 +1647,331 @@ def train_int8_staleness1(torch, dev, setup):
     """Path f: int8 factor state at staleness 1, rank 1, inv_freq 3."""
     return _int8_path(torch, dev, setup, "int8_staleness1", STALE_STEPS,
                       staleness=1)
+
+
+def train_lamb(torch, dev, setup):
+    """Path g: LAMB alone, no MKOR (the step MKOR's overhead is measured
+    against), LAMB_STEPS steps; a profiled step."""
+    from repro_torch.core import firstorder
+    from repro_torch.data import pipeline
+    from repro_torch.training import loop as train_lib
+    cfg, params, ds, _ = setup
+    opt = firstorder.lamb(1e-3)
+    step = train_lib.make_train_step(cfg, opt)
+    params, state, counts = run_path(torch, dev, "lamb", step, opt, params,
+                                     ds, LAMB_STEPS)
+    batch = train_lib.batch_to_device(pipeline.make_batch(ds, LAMB_STEPS),
+                                      dev)
+    SUMMARY["lamb"]["eager_busy"] = profile_step(
+        torch, lambda: step(params, state, batch))
+    return counts, (step, params, state)
+
+
+# ----------------------------------------------------------------------- #
+# Phase 5: the same paths captured as CUDA graphs (training/loop.py)
+# ----------------------------------------------------------------------- #
+# LAMB's moment decays (firstorder.lamb's defaults, as the paths use them)
+LAMB_B1, LAMB_B2 = 0.9, 0.999
+
+
+def flat_paths(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from flat_paths(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from flat_paths(v, path + (i,))
+    elif tree is not None:
+        yield path, tree
+
+
+def may_differ(path):
+    """The parameters, LAMB's moments and the update norm: the leaves that
+    fused_precond's rescale reaches."""
+    return path[0] == "params" or path == ("metrics", "update_norm") or \
+        path[:3] in (("state", "backend", "m"), ("state", "backend", "v"))
+
+
+def replay_tol(path, want, old):
+    """The bound on a leaf of :func:`may_differ` (PERF.md states it);
+    ``old`` is the leaf before the step.  fused_precond sums ΣΔ² with
+    atomics in another order on every launch (csrc/precond.cu), so its
+    rescale factor may move by an fp32 ulp and an element of its bf16
+    output g' by one bf16 ulp (at most 2^-7 |g'|).  LAMB's m = b1·m_old +
+    (1 - b1)·g' then moves by at most 2^-7 |m - b1·m_old|, and v =
+    b2·v_old + (1 - b2)·g'² by (2^-6 + 2^-14) |v - b2·v_old|; the update
+    u = -lr·trust·m̂/(√v̂ + eps) (+ decay) by 2^-6 |u| in fp32 and one more
+    bf16 ulp when cast, under 2^-5 |u|, so a bf16 parameter p = p_old + u
+    moves by 2^-5 |p - p_old| and one ulp of its own, and the update norm
+    by 2^-5 of itself.  Each adds two fp32 ulps of the leaf (2^-22 |want|)
+    and 1e-6 max|want|."""
+    w = want.float()
+    if path[:3] == ("state", "backend", "m"):
+        step = 2.0 ** -7 * (w - LAMB_B1 * old.float()).abs()
+    elif path[:3] == ("state", "backend", "v"):
+        step = (2.0 ** -6 + 2.0 ** -14) * (w - LAMB_B2 * old.float()).abs()
+    elif path[0] == "params":
+        step = 2.0 ** -6 * w.abs() + 2.0 ** -5 * (w - old.float()).abs()
+    else:
+        step = 2.0 ** -5 * w.abs()
+    return step + 2.0 ** -22 * w.abs() + 1e-6 * w.abs().max()
+
+
+class ReplayCheck:
+    """Stands in for a chunk runner's replay: before each replay the eager
+    step runs from copies of the same state (its launches set aside, like
+    the plain route's), and the replay's params, whole optimizer state
+    (banks, windows, LAMB moments, counts) and metrics must be
+    ``torch.equal`` to it; on a kernel path the leaves of
+    :func:`may_differ` are held to REPLAY_REL instead.  The first time, the
+    eager step also runs twice from the same state, to show whether its
+    own results repeat.  Records the launches credited to the replays."""
+
+    def __init__(self, torch, runner, step_fn, name, bounded):
+        self.torch, self.runner, self.step_fn = torch, runner, step_fn
+        self.name, self.bounded = name, bounded
+        self.replay, runner._replay = runner._replay, self
+        self.n = self.leaves = self.differ = 0
+        self.worst = {}                    # leaf path -> worst ratio
+        self.replay_counts = collections.Counter()
+        self.eager_repeat = None
+
+    def eager(self, p, s, b):
+        """The eager step from copies of the state (the step is functional:
+        they stay as they were), its launches set aside."""
+        from repro_torch.kernels import build
+        mark = build.count_mark()
+        out = self.step_fn(p, s, b)
+        build.rewind_counts(mark)
+        return {"params": out[0], "state": out[1],
+                "metrics": {k: out[2][k].float() for k in self.runner._keys}}
+
+    def __call__(self, graph):
+        from repro_torch.tree import tree_map
+        torch, r = self.torch, self.runner
+        p, s, b = tree_map(torch.clone, (*r._tree_at(r.host), r._batch))
+        self.old = {"params": p, "state": s}
+        want = self.eager(p, s, b)
+        if self.eager_repeat is None:
+            again = dict(flat_paths(self.eager(p, s, b)))
+            self.eager_repeat = [
+                "/".join(map(str, k)) for k, v in flat_paths(want)
+                if not torch.equal(v, again[k])]
+            del again
+        self.replay(graph)
+        self.replay_counts.update(graph.counts[0])
+        params, state = r._tree_at([h + d for h, d in
+                                    zip(r.host, graph.delta)])
+        got = dict(flat_paths({"params": params, "state": state,
+                               "metrics": dict(zip(r._keys, r._metrics))}))
+        want = dict(flat_paths(want))
+        require(sorted(got, key=str) == sorted(want, key=str),
+                f"{self.name}: the replay's tree is not the eager step's")
+        for path, w in want.items():
+            g, tag = got[path], "/".join(map(str, path))
+            self.leaves += 1
+            require(g.dtype == w.dtype and g.shape == w.shape,
+                    f"{self.name}: {tag} has another dtype or shape")
+            if torch.equal(g, w):
+                continue
+            self.differ += 1
+            require(self.bounded and may_differ(path),
+                    f"{self.name}: replay and eager step differ at {tag}, "
+                    "which must be bit for bit")
+            old = self.old if path[0] != "metrics" else None
+            for k in path if old is not None else ():
+                old = old[k]
+            tol = replay_tol(path, w, old)
+            ratio = float(((g.float() - w.float()).abs() / tol).max())
+            self.worst[tag] = max(self.worst.get(tag, 0.0), ratio)
+            require(math.isfinite(ratio) and ratio <= 1.0,
+                    f"{self.name}: {tag} differs from the eager step by "
+                    f"{ratio:.3f} of its bound")
+        self.n += 1
+        del self.old
+
+    def report(self):
+        worst = sorted(self.worst.items(), key=lambda kv: -kv[1])
+        kinds = collections.defaultdict(float)
+        for tag, ratio in worst:
+            kind = tag.split("/")[0] if not tag.startswith("state") else \
+                "LAMB " + tag.split("/")[2]
+            kinds[kind] = max(kinds[kind], ratio)
+        print(f"[{self.name}] {self.n} replays, each against the eager step "
+              f"from the same state: {self.leaves - self.differ} of "
+              f"{self.leaves} leaf comparisons bit for bit (losses, grad "
+              f"norms, banks, windows and counts always); "
+              f"{len(self.worst)} leaves differ somewhere, worst ratio to "
+              f"the bound by kind {dict(kinds) or 'none'} (tol 1)")
+        for tag, ratio in worst[:8]:
+            print(f"  {tag}: worst |replay - eager| / bound {ratio:.3f}")
+        if len(worst) > 8:
+            print(f"  ... {len(worst) - 8} more leaves, each at most "
+                  f"{worst[8][1]:.3f}")
+        print(f"[{self.name}] the eager step twice from the same state: "
+              f"{len(self.eager_repeat)} leaves differ"
+              + (f" ({', '.join(self.eager_repeat[:4])}"
+                 + (", ..." if len(self.eager_repeat) > 4 else "") + ")"
+                 if self.eager_repeat else ""))
+
+
+def _one_step(ds, i):
+    from repro_torch.data import pipeline
+    from repro_torch.training import loop as train_lib
+    return train_lib.stack_batches([pipeline.make_batch(ds, i)])
+
+
+def graph_path(torch, dev, name, step_fn, params, state, ds, start, n_keys):
+    """The captured version of path ``name`` from its eager run's final
+    state (count ``start``), through the chunk runner in chunks of
+    ``n_keys`` (the residues of inv_freq): 3 x n_keys steps, so every
+    residue's first step runs eagerly before its capture and its graph
+    then replays twice, each replay held against the eager step
+    (:class:`ReplayCheck`).  Launch counts set to 0 just before, read just
+    after: warm-up steps plus the replays' credited counts, which alone
+    must also launch every kernel of PATH_KERNELS.  Then replays alone
+    (each a one-step chunk with its metrics fetch): step times, peak
+    memory allocated and reserved (the static buffers, the graph pool),
+    and a profiled replay.  Returns (counts, params, state, runner)."""
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.training import loop as train_lib
+    gname = f"{name}[graph]"
+    steps = 3 * n_keys
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ops.reset_fallback_counts()
+    runner = train_lib.make_chunk_runner(step_fn)
+    check = ReplayCheck(torch, runner, step_fn, gname, name != "lamb")
+    batches = [pipeline.make_batch(ds, start + i) for i in range(steps)]
+    params, state, hist = train_lib.train_epoch(
+        step_fn, params, state, batches, chunk=n_keys, runner=runner)
+    counts = ops.launch_counts()
+    cores = ops.gemm_core_counts()
+    fallbacks = ops.fallback_counts()
+    losses = [h["loss"] for h in hist]
+    print(f"[{gname}] train losses {losses}")
+    require(all(math.isfinite(x) for x in losses),
+            f"{gname}: non-finite loss")
+    require(len(runner.graphs) == n_keys and check.n == steps - n_keys,
+            f"{gname}: {len(runner.graphs)} graphs, {check.n} replays")
+    require(int(state["count"]) == start + steps,
+            f"{gname}: count {int(state['count'])}")
+    check.report()
+    print(f"[{gname}] {len(runner.graphs)} graphs, keys "
+          f"{sorted(map(str, runner.graphs))}; launch counts {counts} "
+          f"(replays alone {dict(check.replay_counts)}), GEMM cores {cores},"
+          f" fallbacks {fallbacks}")
+    must, must_not = PATH_KERNELS[name]
+    for k in must:
+        require(counts.get(k, 0) > 0 and check.replay_counts.get(k, 0) > 0,
+                f"{gname}: {k} was not launched under replay")
+    for k in must_not:
+        require(counts.get(k, 0) == 0, f"{gname}: {k} was launched")
+    require(not fallbacks, f"{gname}: fallbacks on the path: {fallbacks}")
+    gemms = sum(counts.get(k, 0) for k in GEMM_KERNELS)
+    require(cores.get("wmma", 0) == 0 and cores.get("wgmma", 0) == gemms,
+            f"{gname}: GEMM cores {cores}, expected all {gemms} on wgmma")
+    del runner._replay, check              # the runner's own replay again
+    gc.collect()                           # the checks' copies go
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, i = [], start + steps
+    for _ in range(2 * n_keys):
+        batch = _one_step(ds, i)
+        t0 = time.perf_counter()
+        params, state, _ = runner(params, state, batch)   # fetch: a sync
+        times.append((time.perf_counter() - t0) * 1e3)
+        i += 1
+    alloc = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    reserved = torch.cuda.max_memory_reserved(dev) / 2 ** 30
+    median = statistics.median(times)
+    print(f"[{gname}] replays alone, steps {start + steps}-{i - 1}: step ms "
+          f"{[round(t, 3) for t in times]} (median {median:.3f} ms), peak "
+          f"memory {alloc:.3f} GiB allocated, {reserved:.3f} GiB reserved "
+          "(static buffers and the graph pool)")
+    out = {}
+    batch = _one_step(ds, i)
+
+    def one():
+        out["step"] = runner(params, state, batch)
+    busy = profile_step(torch, one)
+    params, state, _ = out.pop("step")
+    SUMMARY[name].update(graph_ms=median, graph_busy=busy,
+                         graph_alloc=alloc, graph_reserved=reserved,
+                         graphs=len(runner.graphs))
+    return counts, params, state, runner
+
+
+def turns(torch, dev, name, step_fn, runner, params, state, ds, start):
+    """Eager and captured steps in turns, in one process: eager, captured,
+    captured, eager, TURN_STEPS steps each (each step synchronized; the
+    captured one is a one-step chunk with its metrics fetch); each turn's
+    median drops its first step.  Then one chunk of 8 replays with one
+    metrics fetch."""
+    from repro_torch.data import pipeline
+    from repro_torch.training import loop as train_lib
+    i, medians = start, {"eager": [], "captured": []}
+    for kind in ("eager", "captured", "captured", "eager"):
+        times = []
+        for _ in range(TURN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "eager":
+                batch = train_lib.batch_to_device(
+                    pipeline.make_batch(ds, i), dev)
+                params, state, _ = step_fn(params, state, batch)
+                torch.cuda.synchronize()
+            else:
+                params, state, _ = runner(params, state, _one_step(ds, i))
+            times.append((time.perf_counter() - t0) * 1e3)
+            i += 1
+        med = statistics.median(times[1:])
+        medians[kind].append(med)
+        print(f"[{name} turns] {kind}: step ms "
+              f"{[round(t, 3) for t in times]}, median of steps 2-"
+              f"{TURN_STEPS} {med:.3f}")
+    # the chunk starts from the eager turn's tensors: bring them into the
+    # static buffers first, outside the timed chunk
+    params, state, _ = runner(params, state, _one_step(ds, i))
+    i += 1
+    stacked = train_lib.stack_batches([pipeline.make_batch(ds, i + k)
+                                       for k in range(8)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, metrics = runner(params, state, stacked)
+    chunk_ms = (time.perf_counter() - t0) * 1e3 / 8
+    require(all(math.isfinite(float(x)) for x in metrics["loss"]),
+            f"{name} turns: non-finite loss")
+    eager = statistics.median(medians["eager"])
+    captured = statistics.median(medians["captured"])
+    print(f"[{name} turns] median over both turns: eager {eager:.3f} ms, "
+          f"captured {captured:.3f} ms; a chunk of 8 replays with one "
+          f"metrics fetch: {chunk_ms:.3f} ms a step")
+    SUMMARY[name].update(turn_eager=eager, turn_captured=captured,
+                         chunk8=chunk_ms)
+
+
+def summary_lines():
+    def busy(b):
+        if b is None or b[1] is None:
+            return "not measured"
+        return f"{b[1]:.3f} of {b[0]:.3f} ms ({100 * b[1] / b[0]:.1f} %)"
+    for name, v in SUMMARY.items():
+        line = (f"summary [{name}]: step median eager "
+                f"{v['eager_ms']:.3f} ms, captured {v['graph_ms']:.3f} ms; "
+                f"device busy in a profiled step eager "
+                f"{busy(v.get('eager_busy'))}, captured "
+                f"{busy(v.get('graph_busy'))}; peak memory eager "
+                f"{v['eager_peak']:.3f} GiB, captured "
+                f"{v['graph_alloc']:.3f} GiB allocated "
+                f"({v['graph_reserved']:.3f} reserved), {v['graphs']} graphs")
+        if "turn_eager" in v:
+            line += (f"; in turns eager {v['turn_eager']:.3f} ms, captured "
+                     f"{v['turn_captured']:.3f} ms, a chunk of 8 "
+                     f"{v['chunk8']:.3f} ms a step")
+        print(line)
 
 
 def phase_breakdown(torch, cfg, opt, params, state, batch, sync, reps=3):
@@ -1625,7 +2023,7 @@ def profile_step(torch, fn):
     if not kernels:
         print(f"profiled step: wall {wall:.3f} ms; the profiler recorded no "
               "device time (not measured)")
-        return
+        return wall, None
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
@@ -1677,6 +2075,42 @@ def profile_step(torch, fn):
     print("host waits in the step: " + (", ".join(
         f"{n} {c}x {t:.3f} ms (first at +{f:.1f} ms)"
         for n, (t, c, f) in sorted(waits.items())) or "none"))
+    return wall, busy
+
+
+def train_paths(torch, dev, setup):
+    """Phases 4 and 5: each path's eager run, then its captured version
+    from the eager run's final state (its count, and the residues of its
+    inv_freq); rank 1 and LAMB alone also in turns.  Returns the launch
+    counts summed over the paths."""
+    paths = {"rank1": (train_rank1, TRAIN_STEPS, 3),
+             "rank4": (train_rank4, RANK4_STEPS, 4),
+             "staleness1": (train_staleness1, STALE_STEPS, 3),
+             "int8_rank1": (train_int8_rank1, TRAIN_STEPS, 3),
+             "int8_rank4": (train_int8_rank4, RANK4_STEPS, 4),
+             "int8_staleness1": (train_int8_staleness1, STALE_STEPS, 3),
+             "lamb": (train_lamb, LAMB_STEPS, 1)}
+    launches = collections.Counter()
+    for name, (fn, start, n_keys) in paths.items():
+        t0 = time.perf_counter()
+        counts, (step_fn, params, state) = fn(torch, dev, setup)
+        torch.cuda.empty_cache()
+        print(f"[{name}] path done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        g_counts, params, state, runner = graph_path(
+            torch, dev, name, step_fn, params, state, setup[2], start,
+            n_keys)
+        if name in ("rank1", "lamb"):
+            turns(torch, dev, name, step_fn, runner, params, state,
+                  setup[2], int(state["count"]))
+        del params, state, runner, step_fn
+        gc.collect()                       # the graphs and their pool go
+        torch.cuda.empty_cache()
+        print(f"[{name}[graph]] path done in {time.perf_counter() - t0:.1f} "
+              "s")
+        for k, c in list(counts.items()) + list(g_counts.items()):
+            launches[k] += c
+    return launches
 
 
 def main() -> int:
@@ -1709,6 +2143,7 @@ def main() -> int:
     check_fused_precond(torch, rows)
     check_matmul(torch, rows)
     check_fused_block_smw(torch, rows)
+    check_solve_mid(torch)
     check_matvec_and_rank1_update(torch, rows)
     check_fused_smw_int8(torch, rows)
     check_fused_block_smw_int8(torch, rows)
@@ -1746,21 +2181,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
 
-    dev = torch.device("cuda")
-    setup = bert_large_setup(dev)
-    paths = {"rank1": train_rank1, "rank4": train_rank4,
-             "staleness1": train_staleness1, "int8_rank1": train_int8_rank1,
-             "int8_rank4": train_int8_rank4,
-             "int8_staleness1": train_int8_staleness1}
-    launches = {name: 0 for name in REPLACES}
-    for name, fn in paths.items():
-        t0 = time.perf_counter()
-        counts = fn(torch, dev, setup)
-        torch.cuda.empty_cache()
-        print(f"[{name}] path done in {time.perf_counter() - t0:.1f} s")
-        for k, c in counts.items():
-            launches[k] += c
-    print(json.dumps({"kernels": [rows[n].as_json(launches[n])
+    launches = train_paths(torch, torch.device("cuda"),
+                           bert_large_setup(torch.device("cuda")))
+    summary_lines()
+    print(json.dumps({"kernels": [rows[n].as_json(launches.get(n, 0))
                                   for n in REPLACES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

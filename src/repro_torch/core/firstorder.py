@@ -12,10 +12,19 @@ corrections, learning rate) are computed from them on the host in
 float32, as the reference computes them in float32 on the device, and
 reading a CPU count costs no host sync.  Everything per element stays on
 the tensors' device.
+
+The per-step scalars reach the arithmetic as 0-d float32 tensors on the
+parameters' device, never as Python floats.  ``plan(state)`` gives them
+(and the host branch key of the next update) on the host; ``update``
+takes them as ``scalars=`` (name → 0-d tensor), or makes them itself from
+the same ``plan`` when none are given.  The chunk runner
+(``training/loop.py``) captures a step as a CUDA graph that reads them
+from buffers it writes before each replay, so a replay and an eager step
+do the same arithmetic.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, Hashable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,15 +34,22 @@ from repro_torch.tree import tree_leaves, tree_map
 Params = Any
 State = Any
 Schedule = Callable[[int], float]
+# what the next update does on the host, read from the state's host counts:
+# (its branch key, its per-step scalars as numpy float32 by name)
+Plan = Tuple[Hashable, Dict[str, np.float32]]
 
 
 class GradientTransformation(NamedTuple):
-    """An optimizer as an ``(init, update[, precompute])`` triple
-    (``precompute`` is the two-phase async hook; the port's backends and
-    the synchronous MKOR leave it ``None``)."""
+    """An optimizer as ``(init, update[, precompute[, plan]])``.
+    ``precompute`` is the two-phase async hook (the port's backends and the
+    synchronous MKOR leave it ``None``).  ``plan(state)`` says what the
+    next ``update`` does that a CUDA graph of it would freeze: the key of
+    its host branches and its per-step scalars (``None``: the optimizer
+    has no plan, and the chunk runner does not capture it)."""
     init: Callable[[Params], State]
     update: Callable[..., Tuple[Params, State]]
     precompute: Optional[Callable[..., State]] = None
+    plan: Optional[Callable[[State], Plan]] = None
 
 
 def _tree_zeros(params):
@@ -59,8 +75,16 @@ def step_count(value: int = 0) -> torch.Tensor:
     return torch.tensor(value, dtype=torch.int32)
 
 
-def _bias_correction(beta: float, step: int) -> float:
-    return float(np.float32(1.0) - np.float32(beta) ** np.float32(step))
+def _bias_correction(beta: float, step: int) -> np.float32:
+    return np.float32(1.0) - np.float32(beta) ** np.float32(step)
+
+
+def _device_scalars(values: Dict[str, np.float32],
+                   device) -> Dict[str, torch.Tensor]:
+    """Per-step scalars as 0-d float32 tensors on ``device`` (a fill each:
+    no host-to-device copy, no sync)."""
+    return {k: torch.full((), float(v), dtype=torch.float32, device=device)
+            for k, v in values.items()}
 
 
 def _adam_moments(grads, state, b1, b2):
@@ -84,14 +108,21 @@ def lamb(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
         return {"count": step_count(), "m": _tree_zeros(params),
                 "v": _tree_zeros(params)}
 
-    def update(grads, state, params=None, **_):
+    def plan(state) -> Plan:
+        step = int(state["count"]) + 1
+        return (), {"lr": np.float32(lr(step - 1)),
+                    "bc1": _bias_correction(b1, step),
+                    "bc2": _bias_correction(b2, step)}
+
+    def update(grads, state, params=None, scalars=None, **_):
         if params is None:
             raise ValueError("lamb needs params (trust ratio)")
         step = int(state["count"]) + 1
+        if scalars is None:
+            scalars = _device_scalars(plan(state)[1],
+                                     tree_leaves(params)[0].device)
         m, v = _adam_moments(grads, state, b1, b2)
-        bc1 = _bias_correction(b1, step)
-        bc2 = _bias_correction(b2, step)
-        lr_t = float(np.float32(lr(step - 1)))
+        bc1, bc2, lr_t = scalars["bc1"], scalars["bc2"], scalars["lr"]
 
         def upd(m, v, p):
             r = (m / bc1) / (torch.sqrt(v / bc2) + eps)
@@ -108,7 +139,7 @@ def lamb(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
         updates = tree_map(upd, m, v, params)
         return updates, {"count": step_count(step), "m": m, "v": v}
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, None, plan)
 
 
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:

@@ -82,8 +82,12 @@ carried unchanged: ``hybrid=True`` is not ported yet) and ``backend``, so
 ``interop.opt_state_from_numpy`` carries a JAX state across whole.
 ``count`` is a 0-d int32 tensor kept on the CPU whatever device the banks
 are on: the inversion schedule is a host branch on it, and a CUDA count
-would add a device-to-host sync to every step of a host-bound loop.  A
-device-side counter belongs with CUDA-graph capture (ROADMAP queue 1).
+would add a device-to-host sync to every step of a host-bound loop.  With
+stagger each bucket's phase is fixed, so which buckets invert on a step
+depends on ``count % inv_freq`` alone: ``plan(state)`` gives that residue
+as the update's branch key (with the backend's per-step scalars), and the
+chunk runner (``training/loop.py``) captures one CUDA graph per residue
+and advances the counts on the host itself.
 """
 from __future__ import annotations
 
@@ -593,8 +597,15 @@ def mkor(backend: GradientTransformation,
                              "manifest is derived from them)")
         return tick(state, params)
 
+    def plan(state):
+        """The next update's host branch key, ``count % inv_freq`` (the
+        phase residue that picks the buckets that invert, at the tick too),
+        with the backend's branch key and per-step scalars."""
+        key, scalars = backend.plan(state["backend"])
+        return (int(state["count"]) % cfg.inv_freq, key), scalars
+
     def update(grads, state, params=None, stats=None, precomputed=False,
-               **_):
+               scalars=None, **_):
         if cfg.staleness:
             if not precomputed:
                 state = tick(state, params if params is not None else grads)
@@ -603,12 +614,13 @@ def mkor(backend: GradientTransformation,
             out, fstate = update_sync(grads, state, params, stats)
         # probes are stat taps: never step them, keep backend moments clean
         out = statlib.zero_probes(out)
-        updates, backend_state = backend.update(out, state["backend"],
-                                                params=params)
+        updates, backend_state = backend.update(
+            out, state["backend"], params=params, scalars=scalars)
         updates = statlib.zero_probes(updates)
         return updates, {"count": step_count(int(state["count"]) + 1),
                          **fstate, "hybrid": state["hybrid"],
                          "backend": backend_state}
 
     return GradientTransformation(init, update,
-                                  precompute if cfg.staleness else None)
+                                  precompute if cfg.staleness else None,
+                                  plan if backend.plan is not None else None)

@@ -20,7 +20,9 @@ stream), allocates nothing and returns ``cudaGetLastError()``;
 :func:`check` raises if that is not 0.  :func:`note_launch` is the launch
 counter: each wrapper calls it exactly where it launches its kernel, and
 :func:`note_gemm` counts the GEMMs of ``matmul`` and ``fused_precond`` by
-the core they ran on.
+the core they ran on.  Both count Python calls: a CUDA graph replay calls
+no wrapper, so the chunk runner credits each replay with the counts its
+capture recorded (:func:`rewind_counts`, :func:`credit_counts`).
 """
 from __future__ import annotations
 
@@ -100,6 +102,31 @@ def gemm_core_counts() -> Dict[str, int]:
     """GEMMs launched on each core since the last reset: ``matmul`` counts
     one, ``fused_precond`` two (its first product through ``matmul``)."""
     return dict(_GEMM_CORES)
+
+
+def count_mark():
+    """A copy of the launch and per-core GEMM counts, for
+    :func:`rewind_counts`."""
+    return Counter(_LAUNCHES), Counter(_GEMM_CORES)
+
+
+def rewind_counts(mark):
+    """Set the counts back to ``mark`` and return what was counted since.
+    A CUDA graph capture runs the wrappers, which count, but launches
+    nothing: the chunk runner rewinds the capture's counts and credits
+    them to each replay (:func:`credit_counts`)."""
+    added = _LAUNCHES - mark[0], _GEMM_CORES - mark[1]
+    for live, kept in zip((_LAUNCHES, _GEMM_CORES), mark):
+        live.clear()
+        live.update(kept)
+    return added
+
+
+def credit_counts(added) -> None:
+    """Count one replay of a captured graph: the launches (and GEMM cores)
+    that its capture recorded."""
+    _LAUNCHES.update(added[0])
+    _GEMM_CORES.update(added[1])
 
 
 def reset_launch_counts() -> None:

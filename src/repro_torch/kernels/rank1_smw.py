@@ -154,15 +154,34 @@ def _launch_block(kernel, j, vt, gm, gm_all, vweight, scale, out, piv, rank,
     build.note_launch(kernel)
 
 
+def solve_mid(mid: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """mid⁻¹ u for the block update's r×r mid matrices (*lead, r, r) and
+    rows u (*lead, r, d), from one LU factorization of ``mid`` with no host
+    check of it (``lu_factor_ex``).  On the CPU the factors solve u
+    directly, which is what ``torch.linalg.solve`` computes, bit for bit.
+    On CUDA, ``lu_solve`` with d ≥ 256 right-hand sides reaches MAGMA's
+    batched getrs, which a CUDA graph cannot hold, and ``solve``'s check
+    of the factorization is a host sync; with r right-hand sides it runs
+    cuBLAS's batched getrs, so the factors give mid⁻¹ and one product
+    applies it (fp32 throughout; this rounds otherwise than the solve)."""
+    lu, piv, _ = torch.linalg.lu_factor_ex(mid)
+    if mid.device.type != "cuda":
+        return torch.linalg.lu_solve(lu, piv, u)
+    eye = torch.eye(mid.shape[-1], dtype=mid.dtype, device=mid.device)
+    return torch.matmul(torch.linalg.lu_solve(lu, piv, eye.expand_as(mid)),
+                        u)
+
+
 def fused_block_smw_plain(j: torch.Tensor, vt: torch.Tensor,
                           gm: torch.Tensor, *, variant: str = "paper",
                           with_pivot: bool = False,
                           scale: Optional[torch.Tensor] = None):
     """Plain version: j (*lead, d, d), vt (*lead, r, d) pre-weighted rows,
     gm broadcastable to ``lead`` → the update in j's dtype, computed in
-    fp32 with ``torch.linalg.solve`` for the mid matrix, as the reference's
-    ``core.mkor.smw_block_update``.  int8 codes j with per-slice ``scale``
-    (``lead``) are decoded first and the update comes back fp32.
+    fp32 with :func:`solve_mid` for the mid matrix (``torch.linalg.solve``
+    on the CPU), as the reference's ``core.mkor.smw_block_update``.
+    int8 codes j with per-slice ``scale`` (``lead``) are decoded first and
+    the update comes back fp32.
     ``with_pivot`` also returns, per slice, the smallest squared Cholesky
     diagonal entry of the mid matrix (NaN where it is not positive
     definite), the reference's pivot."""
@@ -175,12 +194,11 @@ def fused_block_smw_plain(j: torch.Tensor, vt: torch.Tensor,
     eye = torch.eye(r, dtype=torch.float32, device=jf.device)
     if variant == "paper":
         mid = g * g * eye + g * g * g * s
-        new = g * jf + torch.matmul(u.transpose(-1, -2),
-                                    torch.linalg.solve(mid, u))
+        new = g * jf + torch.matmul(u.transpose(-1, -2), solve_mid(mid, u))
     elif variant == "exact_smw":
         mid = g * eye + s
         new = (jf - torch.matmul(u.transpose(-1, -2),
-                                 torch.linalg.solve(mid, u))) / g
+                                 solve_mid(mid, u))) / g
     else:
         raise ValueError(variant)
     if scale is None:

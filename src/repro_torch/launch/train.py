@@ -3,7 +3,7 @@
     python -m repro_torch.launch.train --arch bert-large [--reduced] \\
         --optimizer mkor --steps N --global-batch B --seq-len S \\
         --inv-freq F [--rank R] [--staleness 0|1] \\
-        [--quant none|bf16|int8] [--use-kernels] [--device cpu]
+        [--quant none|bf16|int8] [--use-kernels] [--chunk N] [--device cpu]
 
 Runs on the GPU unless ``--device cpu`` is given (and raises when there is
 no GPU).  ``--rank`` and ``--staleness`` select block rank-r updates and
@@ -12,9 +12,14 @@ reference).  ``--quant`` is the factor storage (``MKORConfig.factor_quant``,
 the reference launcher's flag): ``int8`` keeps codes, per-slice scales and
 fp32 error feedback.  ``--use-kernels`` sends MKOR's banked SMW, block
 update and precondition through the hand-written CUDA kernels (their int8
-variants with ``--quant int8``); it needs a CUDA device.  Prints the
-per-step loss and ``done: final loss``.  Checkpointing, the chunk runner,
-``mkor_h`` and the other launcher flags arrive with their slices.
+variants with ``--quant int8``); it needs a CUDA device.  ``--chunk N``
+(default 8, as in the reference) runs N steps a chunk through the chunk
+runner (``training/loop.py``): on the GPU each step is a replay of a CUDA
+graph of the whole step, with one metrics fetch a chunk, and the log lines
+of a chunk print at its end; ``--chunk 1`` runs the per-step loop.  On the
+CPU the chunked steps run eagerly and print the same lines.  Prints the
+logged steps' loss and ``done: final loss``.  Checkpointing, ``mkor_h``
+and the other launcher flags arrive with their slices.
 """
 from __future__ import annotations
 
@@ -89,6 +94,10 @@ def main(argv: Optional[List[str]] = None) -> float:
                     help="train the smoke-scale variant of the arch")
     ap.add_argument("--use-kernels", action="store_true",
                     help="MKOR through the hand-written CUDA kernels")
+    ap.add_argument("--chunk", type=int, default=8,
+                    help="steps per chunk: CUDA graph replays with one "
+                         "metrics fetch a chunk (1 = per-step dispatch); "
+                         "log cadence aligns to chunk boundaries")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' to run there)")
     ap.add_argument("--seed", type=int, default=0)
@@ -120,15 +129,31 @@ def main(argv: Optional[List[str]] = None) -> float:
     opt_state = opt.init(params)
     t0 = time.time()
     final = float("nan")
-    for step in range(args.steps):
-        batch = train_lib.batch_to_device(pipeline.make_batch(ds, step),
-                                          device)
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
+
+    def log_step(step: int, metrics) -> None:
+        nonlocal final
         if step % args.log_every == 0 or step == args.steps - 1:
             final = float(metrics["loss"])
             print(f"step {step:5d} loss={final:.4f} "
                   f"gnorm={float(metrics['grad_norm']):.3f} "
                   f"({time.time() - t0:.1f}s)")
+
+    if args.chunk <= 1:
+        for step in range(args.steps):
+            batch = train_lib.batch_to_device(pipeline.make_batch(ds, step),
+                                              device)
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            log_step(step, metrics)
+    else:
+        runner = train_lib.make_chunk_runner(step_fn)
+        i = 0
+        for n in train_lib.chunk_schedule(args.steps, args.chunk):
+            stacked = train_lib.stack_batches(
+                [pipeline.make_batch(ds, i + k) for k in range(n)])
+            params, opt_state, metrics = runner(params, opt_state, stacked)
+            for k in range(n):
+                log_step(i + k, {key: v[k] for key, v in metrics.items()})
+            i += n
     print(f"done: final loss {final:.4f}")
     if not np.isfinite(final):
         raise SystemExit("training diverged")

@@ -1,22 +1,35 @@
-"""The train step: loss, gradients, MKOR stat plumbing, optimizer glue
-(port of the per-step path of ``repro/training/loop.py``).
+"""The train step: loss, gradients, MKOR stat plumbing, optimizer glue,
+and the chunk runner (port of ``repro/training/loop.py``'s single-device
+paths).
 
 One step is Algorithm 1 end to end: forward (capturing E[a]) → backward
 (probe gradients = E[g]) → MKOR factor update + preconditioning → backend
-optimizer → parameter update.  PyTorch runs eagerly, so there is no jit;
-the scan-chunked runner of the reference (``make_chunk_runner``) arrives
-in a later slice (ROADMAP queue 1: the chunk runner, with CUDA-graph
-capture of the step).
+optimizer → parameter update.  PyTorch runs eagerly, so there is no jit.
+
+The chunk runner (:func:`make_chunk_runner`, :func:`train_epoch`) takes
+the place of the reference's jitted ``lax.scan`` over a chunk of steps.
+On a CUDA device each step of a chunk is a replay of a CUDA graph of the
+whole step (forward, backward, MKOR and LAMB), with one metrics fetch per
+chunk; on the CPU it runs the same steps eagerly.  What a graph would
+freeze lives on the host: the optimizer's ``plan(state)`` gives the key
+of the step's host branches (MKOR's ``count % inv_freq``) and its
+per-step scalars (LAMB's learning rate and bias corrections).  The runner
+captures one graph per key, the first time the key comes up, writes the
+scalars into device buffers before each replay, and advances the state's
+host counts itself.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+import traceback
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core import firstorder
 from repro_torch.core.firstorder import GradientTransformation
+from repro_torch.kernels import build
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.tree import tree_leaves, tree_map
@@ -37,11 +50,16 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
         torch.clamp(valid.sum(), min=1).float()
 
 
+def _as_tensor(x) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    return t if t.is_floating_point() else t.long()
+
+
 def batch_to_device(batch: Dict[str, np.ndarray],
                     device: torch.device) -> Dict[str, torch.Tensor]:
-    """Host numpy batch → tensors on ``device`` (token ids as int64)."""
-    return {k: torch.from_numpy(np.asarray(v)).to(device).long()
-            for k, v in batch.items()}
+    """Host numpy batch → tensors on ``device`` (integers, the token ids,
+    as int64)."""
+    return {k: _as_tensor(v).to(device) for k, v in batch.items()}
 
 
 def make_loss_fn(cfg: ModelConfig, *, collect_stats: bool = True) -> Callable:
@@ -76,7 +94,10 @@ def make_train_step(cfg: ModelConfig, optimizer: GradientTransformation,
                     *, collect_stats: bool = True) -> Callable:
     loss_fn = make_loss_fn(cfg, collect_stats=collect_stats)
 
-    def train_step(params, opt_state, batch):
+    def train_step(params, opt_state, batch, scalars=None):
+        """One step; ``scalars`` are the optimizer's per-step scalars as
+        0-d device tensors (None: the optimizer makes them from its plan).
+        ``train_step.plan`` is the optimizer's."""
         # two-phase protocol: the precompute tick consumes only carried
         # state, so it runs before the gradients exist (synchronous
         # optimizers have no precompute)
@@ -86,7 +107,7 @@ def make_train_step(cfg: ModelConfig, optimizer: GradientTransformation,
         (loss, aux), grads = value_and_grad(loss_fn, params, batch)
         updates, opt_state = optimizer.update(
             grads, opt_state, params=params, stats=aux["stats"], loss=loss,
-            precomputed=precompute)
+            precomputed=precompute, scalars=scalars)
         params = firstorder.apply_updates(params, updates)
         metrics = {
             "loss": loss,
@@ -97,5 +118,339 @@ def make_train_step(cfg: ModelConfig, optimizer: GradientTransformation,
         }
         return params, opt_state, metrics
 
+    train_step.plan = optimizer.plan
     return train_step
+
+
+# ----------------------------------------------------------------------- #
+# The chunk runner
+# ----------------------------------------------------------------------- #
+def chunk_schedule(n_steps: int, chunk: int) -> List[int]:
+    """Chunk lengths for an ``n_steps`` run at chunk size ``chunk`` (clamped
+    to 1): full chunks and at most one trailing partial one."""
+    chunk = max(chunk, 1)
+    full, rem = divmod(max(n_steps, 0), chunk)
+    return [chunk] * full + ([rem] if rem else [])
+
+
+def stack_batches(batches: Sequence[Dict]) -> Dict:
+    """Stack same-shaped numpy batch dicts along a new leading axis, on the
+    host."""
+    return tree_map(lambda *xs: np.stack(xs), *batches)
+
+
+class GraphCaptureError(RuntimeError):
+    """The train step could not be captured as a CUDA graph."""
+
+
+def _capture_failure(exc: BaseException) -> str:
+    """Where a capture failed: the first exception of the chain (a failed
+    capture also fails the capture's end), at its deepest frame outside
+    torch and the standard library, with that line of source."""
+    while (exc.__cause__ or exc.__context__) is not None:
+        exc = exc.__cause__ or exc.__context__
+    skip = (str(Path(torch.__file__).parent), str(Path(traceback.__file__)
+                                                  .parent))
+    frames = [f for f in traceback.extract_tb(exc.__traceback__)
+              if not f.filename.startswith(skip)]
+    where = f"{frames[-1].filename}:{frames[-1].lineno} `{frames[-1].line}`" \
+        if frames else "an unknown line"
+    first = str(exc).strip().splitlines()
+    return (f"CUDA graph capture of the train step failed at {where}: "
+            f"{type(exc).__name__}: {first[0] if first else ''}")
+
+
+def _host_leaf(t: torch.Tensor) -> bool:
+    """A leaf the chunk runner keeps on the host: a CPU tensor (the state's
+    step counts)."""
+    return t.device.type == "cpu"
+
+
+class _Graph:
+    """One captured step: the graph, the host counts' change per step, and
+    the kernel launches (and GEMM cores) its capture recorded."""
+
+    def __init__(self, graph, delta, counts):
+        self.graph, self.delta, self.counts = graph, delta, counts
+
+
+class ChunkRunner:
+    """``runner(params, opt_state, stacked) -> (params, opt_state,
+    stacked_metrics)``: ``stacked`` is a dict of numpy arrays with the
+    chunk's steps on the leading axis (:func:`stack_batches`), and
+    ``stacked_metrics`` a dict of CPU float tensors of the chunk's length.
+
+    On a CUDA device the runner keeps static buffers: the parameters and
+    the optimizer state's device leaves (the caller's own tensors with
+    ``donate=True``, written in place; copies with ``donate=False``, which
+    leaves the caller's tensors untouched), one batch, the per-step
+    scalars and a metrics row.  The state's CPU leaves (the step counts)
+    stay on the host.  For each step it copies the step's batch into the
+    static batch, writes the scalars of ``step_fn.plan`` and replays the
+    graph of the plan's key.  The first time a key comes up, the step runs
+    eagerly on a side stream (the warm-up a capture needs; its result is
+    the step's) and is then captured, into one memory pool that every
+    key's graph shares: replays run one at a time on one stream, and the
+    graph writes every result into the static buffers, so no pool block
+    outlives a replay.  The buffers that the runner writes or reads
+    outside a graph are allocated outside the pool.  A capture that fails
+    raises :class:`GraphCaptureError`; nothing carries on eagerly.  Each
+    replay is credited with the kernel launches its capture recorded.  The
+    metrics come to the host once per chunk.
+
+    On the CPU (a device the caller asked for) the runner runs the same
+    steps eagerly, one after another."""
+
+    def __init__(self, step_fn: Callable, *, donate: bool = True):
+        self.step_fn, self.donate = step_fn, donate
+        self.graphs: Dict = {}
+        self.pool = None
+        self.host: List[int] = []      # the state's host counts, as it runs
+        self._template = None
+
+    def __call__(self, params, opt_state, stacked):
+        n = len(next(iter(stacked.values())))
+        device = tree_leaves(params)[0].device
+        if device.type != "cuda":
+            return self._eager_chunk(params, opt_state, stacked, n, device)
+        return self._graph_chunk(params, opt_state, stacked, n, device)
+
+    def _eager_chunk(self, params, opt_state, stacked, n, device):
+        rows = []
+        for k in range(n):
+            batch = batch_to_device({key: v[k] for key, v in stacked.items()},
+                                    device)
+            params, opt_state, metrics = self.step_fn(params, opt_state,
+                                                      batch)
+            rows.append(metrics)
+        return params, opt_state, {
+            key: torch.stack([m[key].detach().float().cpu() for m in rows])
+            for key in rows[0]}
+
+    # --- CUDA: static buffers, capture and replay ----------------------- #
+    def _bind(self, params, opt_state, stacked, device):
+        """Point the static buffers at this call's params and state (and
+        read its host counts)."""
+        tree = (params, opt_state)
+        if self._template is not None:      # leaves in the first call's order
+            tree = tree_map(lambda _, t: t, self._template, tree)
+        leaves = tree_leaves(tree)
+        host = [_host_leaf(t) for t in leaves]
+        if self._template is None:
+            # the tree's structure (its leaves' order), not its tensors
+            self._template, self._host_mask = tree_map(lambda _: 0, tree), host
+            seen, static = set(), []
+            for t, on_host in zip(leaves, host):
+                if on_host:
+                    static.append(t)
+                    continue
+                key = t.untyped_storage().data_ptr()
+                adopt = self.donate and key not in seen and t.is_contiguous()
+                seen.add(key)
+                static.append(t if adopt else t.clone())
+            self._static = static
+            self._storages = {t.untyped_storage().data_ptr()
+                              for t, h in zip(static, host) if not h}
+            self._batch = {k: torch.empty(v.shape[1:],
+                                          dtype=_as_tensor(v[:0]).dtype,
+                                          device=device)
+                           for k, v in stacked.items()}
+            self._scalars, self._keys, self._metrics = None, None, None
+        else:
+            if host != self._host_mask or len(leaves) != len(self._static):
+                raise ValueError("the chunk runner's params and state must "
+                                 "keep the tree of its first call")
+            for t, s, on_host in zip(leaves, self._static, host):
+                if on_host or t is s:
+                    continue
+                if t.shape != s.shape or t.dtype != s.dtype:
+                    raise ValueError("the chunk runner's params and state "
+                                     "must keep their shapes and dtypes")
+                s.copy_(t)
+            for k, v in stacked.items():
+                if tuple(v.shape[1:]) != tuple(self._batch[k].shape):
+                    raise ValueError(f"batch {k!r} changed shape")
+        return [int(t) for t, h in zip(leaves, host) if h]
+
+    def _tree_at(self, host_values):
+        """(params, state) on the static buffers, with fresh host leaves
+        holding ``host_values``."""
+        vals = iter(host_values)
+        leaves = [torch.tensor(next(vals), dtype=t.dtype) if h else t
+                  for t, h in zip(self._static, self._host_mask)]
+        it = iter(leaves)
+        return tree_map(lambda _: next(it), self._template)
+
+    def _write_back(self, new_params, new_state, metrics):
+        """Write a step's results into the static buffers and return its
+        host counts.  A result that is another static buffer (the
+        staleness-1 tick promotes the pending bank to active) is copied
+        aside before any buffer is written."""
+        out = tree_leaves(tree_map(lambda _, o: o, self._template,
+                                   (new_params, new_state)))
+        pairs = []
+        for s, o, h in zip(self._static, out, self._host_mask):
+            if h or o is s or (o.data_ptr() == s.data_ptr()
+                               and o.stride() == s.stride()):
+                continue
+            if o.untyped_storage().data_ptr() in self._storages:
+                o = o.clone()
+            pairs.append((s, o))
+        for s, o in pairs:
+            s.copy_(o)
+        self._metrics.copy_(torch.stack(
+            [metrics[k].detach().float().reshape(()) for k in self._keys]))
+        return [int(o) for o, h in zip(out, self._host_mask) if h]
+
+    def _write_scalars(self, values, device):
+        if self._scalars is None:
+            self._scalars = {k: torch.zeros((), dtype=torch.float32,
+                                            device=device) for k in values}
+        if set(values) != set(self._scalars):
+            raise ValueError("the step's plan changed its scalars")
+        for k, t in self._scalars.items():
+            t.fill_(float(values[k]))
+
+    def _first_step(self, key, host_values, device) -> _Graph:
+        """The first step of ``key``: run it eagerly on a side stream (its
+        result is the step's, written into the static buffers), then
+        capture it from the same host state."""
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            out = self.step_fn(*self._tree_at(host_values), self._batch,
+                               scalars=self._scalars)
+            if self._keys is None:
+                self._keys = list(out[2])
+                self._metrics = torch.empty(len(self._keys),
+                                            dtype=torch.float32,
+                                            device=device)
+            delta = [o - h for o, h in zip(self._write_back(*out),
+                                           host_values)]
+        current.wait_stream(side)
+        del out
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        mark = build.count_mark()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                out = self.step_fn(*self._tree_at(host_values), self._batch,
+                                   scalars=self._scalars)
+                captured = [o - h for o, h in zip(self._write_back(*out),
+                                                  host_values)]
+        except Exception as exc:
+            # a failed capture leaves the capture stream current
+            torch.cuda.set_stream(current)
+            build.rewind_counts(mark)
+            raise GraphCaptureError(_capture_failure(exc)) from exc
+        del out
+        counts = build.rewind_counts(mark)
+        if captured != delta:
+            raise GraphCaptureError(
+                f"the captured step moves the host counts by {captured}, "
+                f"the eager step by {delta}")
+        return _Graph(graph, delta, counts)
+
+    def _replay(self, g: _Graph) -> None:
+        g.graph.replay()
+        build.credit_counts(g.counts)
+
+    def _graph_chunk(self, params, opt_state, stacked, n, device):
+        plan = getattr(self.step_fn, "plan", None)
+        if plan is None:
+            raise ValueError("a CUDA chunk runner needs step_fn.plan (the "
+                             "optimizer's plan: make_train_step sets it)")
+        host = self.host = self._bind(params, opt_state, stacked, device)
+        batches = batch_to_device(stacked, device)   # one copy a chunk
+        rows = None
+        for k in range(n):
+            key, values = plan(self._tree_at(host)[1])
+            for name, buf in self._batch.items():
+                buf.copy_(batches[name][k])
+            self._write_scalars(values, device)
+            g = self.graphs.get(key)
+            if g is None:
+                g = self.graphs[key] = self._first_step(key, host, device)
+            else:
+                self._replay(g)
+            host = self.host = [h + d for h, d in zip(host, g.delta)]
+            if rows is None:
+                rows = torch.empty((n, len(self._keys)), dtype=torch.float32,
+                                   device=device)
+            rows[k].copy_(self._metrics)
+        rows = rows.cpu()                                # one fetch a chunk
+        params, opt_state = self._tree_at(host)
+        if not self.donate:
+            params, opt_state = tree_map(
+                lambda t: t if t.device.type == "cpu" else t.clone(),
+                (params, opt_state))
+        return params, opt_state, {k: rows[:, i]
+                                   for i, k in enumerate(self._keys)}
+
+
+def make_chunk_runner(step_fn: Callable, *, donate: bool = True
+                      ) -> ChunkRunner:
+    """A ``(params, opt_state, stacked) -> (params, opt_state,
+    stacked_metrics)`` runner of ``step_fn`` over a chunk of steps: CUDA
+    graph replays on a CUDA device, eager steps on the CPU
+    (:class:`ChunkRunner`)."""
+    return ChunkRunner(step_fn, donate=donate)
+
+
+def train_epoch(step_fn: Callable, params, opt_state, batches, *,
+                chunk: int = 8, donate: bool = True,
+                runner: Optional[Callable] = None,
+                hooks: Optional[Callable[[int, Dict], None]] = None):
+    """Run the numpy ``batches`` through ``step_fn`` in chunks of ``chunk``
+    steps.  Metrics come to the host once per chunk and are split into
+    per-step float dicts, so ``hooks(step_idx, metrics)`` fires in bursts at
+    chunk boundaries.  A trailing partial chunk replays the same graphs.
+    Returns (params, opt_state, history) like :func:`train_loop`.  Build
+    the runner once (:func:`make_chunk_runner`) and pass it as ``runner``
+    when calling this once per epoch: its graphs are captured once."""
+    if runner is None:
+        runner = make_chunk_runner(step_fn, donate=donate)
+    history: List[Dict] = []
+
+    def flush(buf):
+        nonlocal params, opt_state
+        params, opt_state, metrics = runner(params, opt_state,
+                                            stack_batches(buf))
+        for k in range(len(buf)):
+            m = {key: float(v[k]) for key, v in metrics.items()}
+            if hooks is not None:
+                hooks(len(history), m)
+            history.append(m)
+
+    buf = []
+    for batch in batches:
+        buf.append(batch)
+        if len(buf) == chunk:
+            flush(buf)
+            buf = []
+    if buf:
+        flush(buf)
+    return params, opt_state, history
+
+
+def train_loop(cfg: ModelConfig, optimizer: GradientTransformation,
+               params, batches, *, jit: bool = True,
+               hooks: Optional[Callable[[int, Dict], None]] = None):
+    """The per-step loop over numpy ``batches`` on the parameters' device,
+    with ``hooks`` fired every step (the reference's signature; the port
+    has no jit, so ``jit`` changes nothing)."""
+    step_fn = make_train_step(cfg, optimizer)
+    device = tree_leaves(params)[0].device
+    opt_state = optimizer.init(params)
+    history = []
+    for i, batch in enumerate(batches):
+        params, opt_state, metrics = step_fn(
+            params, opt_state, batch_to_device(batch, device))
+        metrics = {k: float(v) for k, v in metrics.items()}
+        history.append(metrics)
+        if hooks is not None:
+            hooks(i, metrics)
+    return params, opt_state, history
 

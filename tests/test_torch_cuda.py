@@ -624,3 +624,216 @@ def test_cuda_block_smw_ticket_order(cuda_device):
         assert resident >= torch.cuda.get_device_properties(
             cuda_device).multi_processor_count
         smw_plan_check.check_plan(lib, b, d, rank, SMW_ITEM[kind], resident)
+
+
+# --------------------------------------------------------------------- #
+# The chunk runner: CUDA graph replays of the whole train step
+# --------------------------------------------------------------------- #
+CAPTURE_CASES = {
+    "kernels-rank1": dict(use_kernels=True),
+    "kernels-rank2-staleness1": dict(use_kernels=True, rank=2, staleness=1),
+    "kernels-int8-rank1": dict(use_kernels=True, factor_quant="int8"),
+    "plain-rank1": dict(),
+    "plain-rank2-staleness1": dict(rank=2, staleness=1),
+    "plain-int8-rank1": dict(factor_quant="int8"),
+    "lamb": None,
+}
+
+
+def _graph_setup(device, kw, steps):
+    """The reduced bert-large on the card, mkor(lamb) at inv_freq 3 (or
+    LAMB alone), a cosine schedule that moves the learning rate and the
+    bias corrections every step, and ``steps`` numpy batches."""
+    from repro_torch.configs import bert_large
+    from repro_torch.core import firstorder, schedule
+    from repro_torch.core.mkor import MKORConfig, mkor
+    from repro_torch.data import pipeline
+    from repro_torch.models import model as model_lib
+    from repro_torch.training import loop as t_loop
+    cfg = bert_large.CONFIG.reduced()
+    lr = schedule.warmup_cosine(1e-2, 2, steps)
+    opt = firstorder.lamb(lr) if kw is None else \
+        mkor(firstorder.lamb(lr), MKORConfig(inv_freq=3, **kw))
+    params = model_lib.init_params(cfg, seed=0, device=device)
+    ds = pipeline.make_dataset(cfg, global_batch=2, seq_len=16, seed=0)
+    batches = [pipeline.make_batch(ds, i) for i in range(steps)]
+    return t_loop.make_train_step(cfg, opt), params, opt.init(params), \
+        batches
+
+
+def _paths(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _paths(v, path + (i,))
+    elif tree is not None:
+        yield path, tree
+
+
+def _may_differ(path):
+    """The leaves downstream of fused_precond's ΣΔ², whose atomics add in
+    another order on every launch (``csrc/precond.cu``): the parameters,
+    LAMB's moments and the update norm."""
+    return path[0] == 0 or path[:3] in ((1, "backend", "m"),
+                                        (1, "backend", "v")) or \
+        path == (2, "update_norm")
+
+
+def _replay_tol(path, want, old):
+    """One bf16 ulp of fused_precond's output g' (2^-7 |g'|) carried into
+    LAMB: m = 0.9·m_old + 0.1·g' moves by 2^-7 |m - 0.9·m_old|, v by
+    (2^-6 + 2^-14) |v - 0.999·v_old|, a parameter by 2^-5 |p - p_old| and
+    2^-6 |p|, the update norm by 2^-5 of itself; plus two fp32 ulps
+    (2^-22 |want|) and 1e-6 max|want| (chip_smoke.replay_tol, PERF.md).
+    ``old``: the step's input (params, state)."""
+    w = want.float()
+    if path[0] == 2:
+        step = 2.0 ** -5 * w.abs()
+    else:
+        for k in path:
+            old = old[k]
+        o = old.float()
+        if path[0] == 0:
+            step = 2.0 ** -6 * w.abs() + 2.0 ** -5 * (w - o).abs()
+        elif path[2] == "m":
+            step = 2.0 ** -7 * (w - 0.9 * o).abs()
+        else:
+            step = (2.0 ** -6 + 2.0 ** -14) * (w - 0.999 * o).abs()
+    return step + 2.0 ** -22 * w.abs() + 1e-6 * w.abs().max()
+
+
+def _replay_vs_eager(got, want, kernels, old):
+    """Every leaf bit for bit; on a kernel path the leaves of
+    :func:`_may_differ` within :func:`_replay_tol` (``old``: the eager
+    step's input (params, state))."""
+    got, want = dict(_paths(got)), dict(_paths(want))
+    assert sorted(got, key=str) == sorted(want, key=str)
+    for path, w in want.items():
+        g = got[path]
+        assert g.dtype == w.dtype and g.device == w.device, path
+        if torch.equal(g, w):
+            continue
+        assert kernels and _may_differ(path), path
+        tol = _replay_tol(path, w, old)
+        assert bool(torch.all((g.float() - w.float()).abs() <= tol)), path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CAPTURE_CASES))
+def test_cuda_chunk_runner_replays_equal_eager(cuda_device, case):
+    """7 steps through ``train_epoch`` in chunks of 3 (a partial trailing
+    chunk).  Before each replay the eager step runs from copies of the same
+    state; the replay's params, whole state (banks, windows, LAMB moments,
+    counts) and metrics must equal it (:func:`_replay_vs_eager`), and the
+    launch counts credited to the replay must be the eager step's.  The
+    first step of each residue (inv_freq 3) runs eagerly before its
+    capture, so each graph replays at least once."""
+    from repro_torch.training import loop as t_loop
+    from repro_torch.tree import tree_map
+    kw = CAPTURE_CASES[case]
+    kernels = kw is not None and kw.get("use_kernels", False)
+    step, params, state, batches = _graph_setup(cuda_device, kw, 7)
+    runner = t_loop.make_chunk_runner(step)
+    replay, replayed = runner._replay, []
+
+    def checked_replay(g):
+        p, s, b = tree_map(torch.clone, (*runner._tree_at(runner.host),
+                                         runner._batch))
+        mark = build.count_mark()
+        ep, es, em = step(p, s, b)
+        eager_counts = build.rewind_counts(mark)
+        replay(g)
+        assert g.counts == eager_counts
+        after = [h + d for h, d in zip(runner.host, g.delta)]
+        metrics = dict(zip(runner._keys, runner._metrics))
+        _replay_vs_eager((*runner._tree_at(after), metrics),
+                         (ep, es, {k: em[k].float() for k in runner._keys}),
+                         kernels, (p, s))
+        replayed.append(g)
+
+    runner._replay = checked_replay
+    t_ops.reset_launch_counts()
+    _, state_out, hist = t_loop.train_epoch(step, params, state, batches,
+                                            chunk=3, runner=runner)
+    n_keys = 1 if kw is None else 3
+    assert len(runner.graphs) == n_keys and len(replayed) == 7 - n_keys
+    assert all(torch.isfinite(torch.tensor(h["loss"])) for h in hist)
+    assert int(state_out["count"]) == 7
+    if kw is not None:
+        assert int(state_out["backend"]["count"]) == 7
+    if kernels:
+        assert t_ops.launch_counts(), "no kernel launched"
+
+
+@pytest.mark.cuda
+def test_cuda_capture_failure_names_the_op(cuda_device):
+    """A step that reads a device value on the host cannot be captured: the
+    runner raises GraphCaptureError naming the line, and the device works
+    on afterwards."""
+    from repro_torch.training import loop as t_loop
+    step, params, state, batches = _graph_setup(cuda_device, None, 2)
+
+    def host_read(params, state, batch, scalars=None):
+        out = step(params, state, batch, scalars=scalars)
+        out[2]["loss"].item()                  # a host read mid-step
+        return out
+
+    host_read.plan = step.plan
+    with pytest.raises(t_loop.GraphCaptureError,
+                       match=r"test_torch_cuda\.py:\d+ .*\.item\(\)"):
+        t_loop.train_epoch(host_read, params, state, batches, chunk=2)
+    assert float(torch.ones(4, device=cuda_device).sum()) == 4.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,r,d", [(24, 4, 1024), (6, 2, 4096), (3, 1, 300)])
+def test_cuda_solve_mid_captures(cuda_device, b, r, d):
+    """The plain block route's mid-matrix solve replays in a CUDA graph
+    with the bits of its eager call, within fp32 rounding of
+    ``torch.linalg.solve``."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    v = torch.randn((b, r, d), generator=gen, device=cuda_device)
+    mid = 0.81 * torch.eye(r, device=cuda_device) + 0.729 * (v @ v.mT) / d
+    u = torch.randn((b, r, d), generator=gen, device=cuda_device)
+    eager = t_rk.solve_mid(mid, u)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        t_rk.solve_mid(mid, u)                  # warm-up
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = t_rk.solve_mid(mid, u)
+    graph.replay()
+    assert torch.equal(out, eager)
+    assert _within(eager, torch.linalg.solve(mid, u), 1e-5, 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("donate", [True, False])
+def test_cuda_runner_between_eager_steps(cuda_device, donate):
+    """Runner chunks with eager steps between them (whose states list
+    their keys in the update's order, not init's) give the per-step loop's
+    bits on the plain staleness-1 route; ``donate=False`` leaves the
+    caller's tensors as they were."""
+    from repro_torch.training import loop as t_loop
+    from repro_torch.tree import tree_map
+    step, params, state, batches = _graph_setup(
+        cuda_device, dict(rank=2, staleness=1), 8)
+    p, s = params, state
+    for b in batches:
+        p, s, _ = step(p, s, t_loop.batch_to_device(b, cuda_device))
+    kept = tree_map(torch.clone, (params, state))
+    runner = t_loop.make_chunk_runner(step, donate=donate)
+    q, t, _ = runner(params, state, t_loop.stack_batches(batches[:3]))
+    for b in batches[3:5]:
+        q, t, _ = step(q, t, t_loop.batch_to_device(b, cuda_device))
+    q, t, _ = runner(q, t, t_loop.stack_batches(batches[5:]))
+    got, want = dict(_paths((q, t))), dict(_paths((p, s)))
+    assert sorted(got, key=str) == sorted(want, key=str)
+    assert all(torch.equal(got[k], w) for k, w in want.items())
+    if not donate:
+        assert all(torch.equal(a, b) for (_, a), (_, b) in
+                   zip(_paths((params, state)), _paths(kept)))
