@@ -33,7 +33,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      bert-large banks;
   4. full-width bert-large (24 layers, random weights from seed 0, batch 8
      x 128) trained with mkor(lamb) through the kernels on six paths (and
-     with LAMB alone),
+     with LAMB alone, and with mkor_h(lamb)),
      each with the launch counts set to 0 just before it and read just
      after:
      a. rank 1, staleness 0 (inv_freq 3): step 0 against the plain route
@@ -62,6 +62,14 @@ Phases (each prints its own lines; any failure exits non-zero):
         window rows);
      g. LAMB alone, no MKOR (6 steps), the step MKOR's overhead is
         measured against;
+     h. MKOR-H (mkor_h(lamb), rank 1, inv_freq 3, min steps 3, threshold
+        1), 12 steps: the switch must turn off at count 4; every step up
+        to it launches fused_smw, fused_precond and matmul, every step
+        after it (the eager step reads the switch) none of REPLACES; the
+        banks bit-frozen over two inv_freq windows; a profiled post-flip
+        step; its final (params, state) saved as a checkpoint into a
+        temporary directory and restored onto the card, every leaf
+        torch.equal (bytes, save and restore seconds);
      each profiled step also lists the host's waits on the device; on
      every path every GEMM of matmul and fused_precond (and of their int8
      variants) must run on the Hopper core (per-core counts);
@@ -78,8 +86,15 @@ Phases (each prints its own lines; any failure exits non-zero):
      credited launches must cover PATH_KERNELS; then replays alone (step
      times, peak allocated and reserved memory) and a profiled replay;
      rank 1 and LAMB also in turns (eager, captured, captured, eager) and
-     as one chunk of 8 replays with one metrics fetch;
-  6. a summary line per path (eager against captured), one JSON line
+     as one chunk of 8 replays with one metrics fetch; MKOR-H from a copy
+     of its step-0 state in chunks of 3 (the flip inside the second; the
+     runner reads the switch once a chunk), every replay held against the
+     eager step, the replays of the chunks after the flip's crediting no
+     launch of REPLACES, then replays alone before and after the flip,
+     and the post-flip captured step in turns with LAMB alone's
+     (post-flip, LAMB, LAMB, post-flip);
+  6. a summary line per path (eager against captured; MKOR-H also before
+     and after the flip, in turns, and its checkpoint), one JSON line
      listing every kernel (launches summed over phases 4 and 5), the
      card's name and power limit, and, last, ``{"ok": true, "device":
      {...}}``.
@@ -159,6 +174,9 @@ PATH_KERNELS = {
     "int8_staleness1": (("fused_block_smw[int8]",) + _INT8_GEMMS,
                         _NOT_INT8 + ("fused_smw[int8]",)),
     "lamb": ((), tuple(REPLACES)),
+    # MKOR-H while its switch is on (after it, nothing of REPLACES)
+    "mkor_h": (("fused_smw", "fused_precond", "matmul"),
+               ("fused_block_smw",)),
 }
 # the paths whose GEMMs all run on the Hopper core: every one (bf16
 # factors, and int8 codes widened to bf16 in shared memory)
@@ -174,6 +192,9 @@ RANK4_STEPS = 8                   # rank 4, inv_freq 4: two windows a bucket
 STALE_STEPS = 9                   # staleness 1, inv_freq 3: three ticks
 LAMB_STEPS = 6                    # plain LAMB, eager
 TURN_STEPS = 6                    # steps in each turn (the first is dropped)
+HYBRID_STEPS = 12                 # MKOR-H, eager and captured
+HYBRID_FLIP = 4                   # min steps 3, threshold 1: off at count 4
+HYBRID_CHUNK = 3                  # captured: the flip inside chunk 2
 # each path's numbers for the closing summary lines
 SUMMARY = collections.defaultdict(dict)
 
@@ -1375,12 +1396,13 @@ class PlainTee:
 
 
 def run_path(torch, dev, name, step_fn, opt, params, ds, steps,
-             skip_times=()):
+             skip_times=(), on_step=None):
     """One counted training path: launch counts and fallbacks set to 0
     just before it, read just after; fresh optimizer state.  The steps in
     ``skip_times`` hold the kernel route against the plain route, so the
     peak memory is also read over the steps after the last of them
-    alone.  Returns (params, state, counts)."""
+    alone.  ``on_step(step, state, ms)`` runs after each timed step.
+    Returns (params, state, counts)."""
     from repro_torch.data import pipeline
     from repro_torch.kernels import ops
     from repro_torch.training import loop as train_lib
@@ -1400,6 +1422,8 @@ def run_path(torch, dev, name, step_fn, opt, params, ds, steps,
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(metrics["loss"]))
+        if on_step is not None:
+            on_step(step, state, times[-1])
         if step == last:
             peak_to_last = torch.cuda.max_memory_allocated(dev)
             torch.cuda.reset_peak_memory_stats()
@@ -1734,6 +1758,7 @@ class ReplayCheck:
         self.n = self.leaves = self.differ = 0
         self.worst = {}                    # leaf path -> worst ratio
         self.replay_counts = collections.Counter()
+        self.per_replay = []               # (count, launches) per replay
         self.eager_repeat = None
 
     def eager(self, p, s, b):
@@ -1760,6 +1785,7 @@ class ReplayCheck:
             del again
         self.replay(graph)
         self.replay_counts.update(graph.counts[0])
+        self.per_replay.append((int(s["count"]), dict(graph.counts[0])))
         params, state = r._tree_at([h + d for h, d in
                                     zip(r.host, graph.delta)])
         got = dict(flat_paths({"params": params, "state": state,
@@ -1971,6 +1997,14 @@ def summary_lines():
             line += (f"; in turns eager {v['turn_eager']:.3f} ms, captured "
                      f"{v['turn_captured']:.3f} ms, a chunk of 8 "
                      f"{v['chunk8']:.3f} ms a step")
+        if "graph_pre_ms" in v:
+            n_bytes, t_save, t_restore = v["ckpt"]
+            line += (f"; before the flip eager {v['eager_pre_ms']:.3f} ms, "
+                     f"captured {v['graph_pre_ms']:.3f} ms (the medians "
+                     f"above: after it); in turns captured after the flip "
+                     f"{v['turn_post']:.3f} ms against LAMB alone "
+                     f"{v['turn_lamb']:.3f} ms; checkpoint {n_bytes:,} "
+                     f"bytes, save {t_save:.3f} s, restore {t_restore:.3f} s")
         print(line)
 
 
@@ -2078,6 +2112,288 @@ def profile_step(torch, fn):
     return wall, busy
 
 
+# ----------------------------------------------------------------------- #
+# MKOR-H: the sticky switch to first order, eager and captured
+# ----------------------------------------------------------------------- #
+def make_mkor_h(setup):
+    """mkor_h(lamb(1e-3)) through the kernels at inv_freq 3 with min steps
+    3 and threshold 1: the rate (slow − fast)/|slow| stays below 1 while
+    the loss is finite, so the switch turns off at count 4."""
+    from repro_torch.core import firstorder
+    from repro_torch.core.mkor import MKORConfig, mkor_h
+    from repro_torch.training import loop as train_lib
+    mcfg = MKORConfig(inv_freq=3, use_kernels=True,
+                      hybrid_min_steps=HYBRID_FLIP - 1, hybrid_threshold=1.0)
+    opt = mkor_h(firstorder.lamb(1e-3), mcfg)
+    return opt, train_lib.make_train_step(setup[0], opt), mcfg
+
+
+def step_launches(before, after):
+    """The kernels of REPLACES launched between two count snapshots."""
+    return {k: after.get(k, 0) - before.get(k, 0) for k in REPLACES
+            if after.get(k, 0) != before.get(k, 0)}
+
+
+def train_mkor_h(torch, dev, setup):
+    """Path h, eager: HYBRID_STEPS steps; the switch must turn off at
+    count HYBRID_FLIP.  The steps up to it launch fused_smw, fused_precond
+    and matmul; the eager step reads the switch once a step, so every step
+    after it launches no kernel of REPLACES.  The banks stay bit-frozen
+    over two inv_freq windows after the flip.  A profiled post-flip step;
+    then the (params, state) checkpoint round trip on the card."""
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_leaves
+    cfg, params, ds, _ = setup
+    opt, step_fn, mcfg = make_mkor_h(setup)
+    # run_path sets the counts to 0 before its first step
+    snaps, on, times, frozen = [{}], [], [], {}
+    window = HYBRID_FLIP + 2 * mcfg.inv_freq
+
+    def on_step(step, state, ms):
+        snaps.append(dict(ops.launch_counts()))
+        on.append(bool(state["hybrid"]["on"]))
+        times.append(ms)
+        if step in (HYBRID_FLIP, window):
+            frozen[step] = [t.clone() for t in
+                            tree_leaves(state["factor_banks"])]
+
+    params_out, state, counts = run_path(torch, dev, "mkor_h", step_fn,
+                                         opt, params, ds, HYBRID_STEPS,
+                                         on_step=on_step)
+    flip = on.index(False) if False in on else None
+    per_step = [step_launches(a, b) for a, b in zip(snaps, snaps[1:])]
+    print(f"[mkor_h] the switch after each step {on}: off from count "
+          f"{flip} (required {HYBRID_FLIP}); launches a step {per_step}")
+    require(flip == HYBRID_FLIP and not any(on[flip:]),
+            f"mkor_h: the switch turned off at count {flip}, not "
+            f"{HYBRID_FLIP}, or turned back on")
+    for i, c in enumerate(per_step):
+        if i <= flip:
+            require(all(c.get(k, 0) > 0 for k in PATH_KERNELS["mkor_h"][0]),
+                    f"mkor_h: step {i}, before the host saw the flip, "
+                    f"launched {c}")
+        else:
+            require(not c, f"mkor_h: step {i}, after the host saw the "
+                    f"flip, launched {c}")
+    same = all(torch.equal(a, b) for a, b in
+               zip(frozen[HYBRID_FLIP], frozen[window]))
+    print(f"[mkor_h] banks after count {HYBRID_FLIP} against count "
+          f"{window} (two inv_freq windows): "
+          f"{'bit-frozen' if same else 'MOVED'}")
+    require(same, "mkor_h: the banks moved after the flip")
+    del frozen
+    pre = statistics.median(times[1:flip + 1])
+    post = statistics.median(times[flip + 1:])
+    print(f"[mkor_h] eager step ms median: steps 1-{flip} (switch on) "
+          f"{pre:.3f}, steps {flip + 1}-{HYBRID_STEPS - 1} (off) "
+          f"{post:.3f}")
+    SUMMARY["mkor_h"].update(eager_pre_ms=pre, eager_ms=post)
+    profile_and_phases_h(torch, dev, ds, step_fn, params_out, state)
+    checkpoint_round_trip(torch, params_out, state)
+    return counts, opt, step_fn
+
+
+def profile_and_phases_h(torch, dev, ds, step_fn, params, state):
+    from repro_torch.data import pipeline
+    from repro_torch.training import loop as train_lib
+    batch = train_lib.batch_to_device(pipeline.make_batch(ds, HYBRID_STEPS),
+                                      dev)
+    SUMMARY["mkor_h"]["eager_busy"] = profile_step(
+        torch, lambda: step_fn(params, state, batch))
+
+
+def checkpoint_round_trip(torch, params, state):
+    """The full-width (params, state) saved into a temporary directory,
+    restored with ``restore_latest_valid`` onto the card, every leaf
+    ``torch.equal``; bytes and seconds printed, the directory removed."""
+    import tempfile
+    from repro_torch import checkpointing
+    from repro_torch.tree import tree_leaves
+    tree = (params, state)
+    with tempfile.TemporaryDirectory(prefix="mkor_ckpt_") as d:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = checkpointing.save(d, HYBRID_STEPS - 1, tree,
+                                 {"step": HYBRID_STEPS - 1})
+        t_save = time.perf_counter() - t0
+        n_bytes = sum(f.stat().st_size for f in Path(out).iterdir())
+        t0 = time.perf_counter()
+        restored = checkpointing.restore_latest_valid(d, tree)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+    require(restored is not None and restored[2] == HYBRID_STEPS - 1,
+            "checkpoint: nothing valid restored")
+    got, want = tree_leaves(restored[0]), tree_leaves(tree)
+    equal = len(got) == len(want) and all(
+        a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(got, want))
+    print(f"[mkor_h] checkpoint of (params, state) at full width: "
+          f"{len(want)} leaves, {n_bytes:,} bytes, save {t_save:.3f} s, "
+          f"restore {t_restore:.3f} s onto {want[0].device}; every leaf "
+          f"torch.equal: {equal}")
+    require(equal, "checkpoint: a restored leaf differs")
+    SUMMARY["mkor_h"]["ckpt"] = (n_bytes, t_save, t_restore)
+
+
+def graph_mkor_h(torch, dev, setup, step_fn, opt):
+    """Path h, captured: from a copy of the step-0 state, HYBRID_STEPS
+    steps in chunks of HYBRID_CHUNK through the chunk runner, so the switch
+    turns off inside the second chunk: every replay held against the eager
+    step from the same state (:class:`ReplayCheck`).  The runner reads the
+    switch once a chunk, so the replays of the chunks after the flip's
+    credit no launch of REPLACES, and the replays before them credit
+    fused_smw, fused_precond and matmul.  Then replays alone, from a fresh
+    copy of the step-0 state: before the flip and after it; a profiled
+    post-flip replay.  Returns (counts, runner, params, state)."""
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.training import loop as train_lib
+    from repro_torch.tree import tree_map
+    cfg, params0, ds, _ = setup
+    gname = "mkor_h[graph]"
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ops.reset_fallback_counts()
+    runner = train_lib.make_chunk_runner(step_fn)
+    check = ReplayCheck(torch, runner, step_fn, gname, True)
+    batches = [pipeline.make_batch(ds, i) for i in range(HYBRID_STEPS)]
+    params, state, hist = train_lib.train_epoch(
+        step_fn, tree_map(torch.clone, params0), opt.init(params0), batches,
+        chunk=HYBRID_CHUNK, runner=runner)
+    counts = ops.launch_counts()
+    cores = ops.gemm_core_counts()
+    fallbacks = ops.fallback_counts()
+    losses = [h["loss"] for h in hist]
+    print(f"[{gname}] train losses {losses}")
+    require(all(math.isfinite(x) for x in losses),
+            f"{gname}: non-finite loss")
+    n_graphs = 3 + 1        # a residue each while on, one once off
+    n_first = 3 + 1         # each graph's first step runs eagerly
+    require(len(runner.graphs) == n_graphs and
+            check.n == HYBRID_STEPS - n_first,
+            f"{gname}: {len(runner.graphs)} graphs, {check.n} replays")
+    require(not bool(state["hybrid"]["on"]) and
+            int(state["count"]) == HYBRID_STEPS,
+            f"{gname}: the switch is on or the count is "
+            f"{int(state['count'])}")
+    check.report()
+    after = 2 * HYBRID_CHUNK        # the first count of the chunk after
+    print(f"[{gname}] {len(runner.graphs)} graphs, keys "
+          f"{sorted(map(str, runner.graphs))}; launch counts {counts}, GEMM "
+          f"cores {cores}, fallbacks {fallbacks}; each replay's credited "
+          f"launches {check.per_replay}")
+    for count, c in check.per_replay:
+        c = {k: v for k, v in c.items() if k in REPLACES and v}
+        if count >= after:
+            require(not c, f"{gname}: the replay at count {count}, after "
+                    f"the flip's chunk, launched {c}")
+        else:
+            require(all(c.get(k, 0) > 0 for k in PATH_KERNELS["mkor_h"][0]),
+                    f"{gname}: the replay at count {count} launched {c}")
+    require(any(k >= after for k, _ in check.per_replay) and
+            any(k < after for k, _ in check.per_replay),
+            f"{gname}: replays on one side of the flip only")
+    must, must_not = PATH_KERNELS["mkor_h"]
+    for k in must:
+        require(check.replay_counts.get(k, 0) > 0,
+                f"{gname}: {k} was not launched under replay")
+    for k in must_not:
+        require(counts.get(k, 0) == 0, f"{gname}: {k} was launched")
+    require(not fallbacks, f"{gname}: fallbacks on the path: {fallbacks}")
+    gemms = sum(counts.get(k, 0) for k in GEMM_KERNELS)
+    require(cores.get("wmma", 0) == 0 and cores.get("wgmma", 0) == gemms,
+            f"{gname}: GEMM cores {cores}, expected all {gemms} on wgmma")
+    del runner._replay, check, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # replays alone from a fresh copy of the step-0 state (the first call
+    # copies it into the static buffers, so its time is dropped)
+    params, state = tree_map(torch.clone, params0), opt.init(params0)
+    times = []
+    for i in range(HYBRID_STEPS - 1):
+        t0 = time.perf_counter()
+        params, state, _ = runner(params, state, _one_step(ds, i))
+        times.append((time.perf_counter() - t0) * 1e3)
+    require(not bool(state["hybrid"]["on"]), f"{gname}: the switch is on")
+    alloc = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    reserved = torch.cuda.max_memory_reserved(dev) / 2 ** 30
+    pre = statistics.median(times[1:HYBRID_FLIP + 1])
+    post = statistics.median(times[HYBRID_FLIP + 1:])
+    print(f"[{gname}] replays alone from the step-0 state: step ms "
+          f"{[round(t, 3) for t in times]}; median counts 1-{HYBRID_FLIP} "
+          f"(switch on, masked) {pre:.3f} ms, counts {HYBRID_FLIP + 1}-"
+          f"{len(times) - 1} (off) {post:.3f} ms; peak memory {alloc:.3f} "
+          f"GiB allocated, {reserved:.3f} GiB reserved")
+    out = {}
+    batch = _one_step(ds, HYBRID_STEPS - 1)
+
+    def one():
+        out["step"] = runner(params, state, batch)
+    busy = profile_step(torch, one)
+    params, state, _ = out.pop("step")
+    SUMMARY["mkor_h"].update(graph_ms=post, graph_pre_ms=pre,
+                             graph_busy=busy, graph_alloc=alloc,
+                             graph_reserved=reserved,
+                             graphs=len(runner.graphs))
+    return counts, runner, params, state
+
+
+def turns_mkor_h(torch, dev, setup, runner, params, state):
+    """The post-flip captured step in turns with LAMB alone's captured
+    step (post-flip, LAMB, LAMB, post-flip), TURN_STEPS one-step chunks
+    each, each turn's median dropping its first step."""
+    from repro_torch.core import firstorder
+    from repro_torch.training import loop as train_lib
+    from repro_torch.tree import tree_map
+    cfg, params0, ds, _ = setup
+    lamb = firstorder.lamb(1e-3)
+    lamb_step = train_lib.make_train_step(cfg, lamb)
+    lamb_runner = train_lib.make_chunk_runner(lamb_step)
+    lp, ls, _ = lamb_runner(tree_map(torch.clone, params0),
+                            lamb.init(params0), _one_step(ds, 0))
+    i, medians = HYBRID_STEPS, {"mkor_h": [], "lamb": []}
+    for kind in ("mkor_h", "lamb", "lamb", "mkor_h"):
+        times = []
+        for _ in range(TURN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "lamb":
+                lp, ls, _ = lamb_runner(lp, ls, _one_step(ds, i))
+            else:
+                params, state, _ = runner(params, state, _one_step(ds, i))
+            times.append((time.perf_counter() - t0) * 1e3)
+            i += 1
+        med = statistics.median(times[1:])
+        medians[kind].append(med)
+        print(f"[mkor_h turns] {'post-flip' if kind == 'mkor_h' else kind}:"
+              f" step ms {[round(t, 3) for t in times]}, median of steps "
+              f"2-{TURN_STEPS} {med:.3f}")
+    post = statistics.median(medians["mkor_h"])
+    lamb_ms = statistics.median(medians["lamb"])
+    print(f"[mkor_h turns] median over both turns: MKOR-H after the flip "
+          f"{post:.3f} ms, LAMB alone {lamb_ms:.3f} ms (captured)")
+    SUMMARY["mkor_h"].update(turn_post=post, turn_lamb=lamb_ms)
+
+
+def mkor_h_path(torch, dev, setup):
+    """Phases 4 and 5 of path h (MKOR-H); returns its launch counts."""
+    t0 = time.perf_counter()
+    counts, opt, step_fn = train_mkor_h(torch, dev, setup)
+    torch.cuda.empty_cache()
+    print(f"[mkor_h] path done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    g_counts, runner, params, state = graph_mkor_h(torch, dev, setup,
+                                                   step_fn, opt)
+    turns_mkor_h(torch, dev, setup, runner, params, state)
+    del runner, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[mkor_h[graph]] path done in {time.perf_counter() - t0:.1f} s")
+    return collections.Counter(counts) + collections.Counter(g_counts)
+
+
 def train_paths(torch, dev, setup):
     """Phases 4 and 5: each path's eager run, then its captured version
     from the eager run's final state (its count, and the residues of its
@@ -2110,6 +2426,7 @@ def train_paths(torch, dev, setup):
               "s")
         for k, c in list(counts.items()) + list(g_counts.items()):
             launches[k] += c
+    launches.update(mkor_h_path(torch, dev, setup))
     return launches
 
 

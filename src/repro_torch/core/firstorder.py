@@ -40,16 +40,22 @@ Plan = Tuple[Hashable, Dict[str, np.float32]]
 
 
 class GradientTransformation(NamedTuple):
-    """An optimizer as ``(init, update[, precompute[, plan]])``.
+    """An optimizer as ``(init, update[, precompute[, plan[, observe]]])``.
     ``precompute`` is the two-phase async hook (the port's backends and the
     synchronous MKOR leave it ``None``).  ``plan(state)`` says what the
     next ``update`` does that a CUDA graph of it would freeze: the key of
     its host branches and its per-step scalars (``None``: the optimizer
-    has no plan, and the chunk runner does not capture it)."""
+    has no plan, and the chunk runner does not capture it).
+    ``observe(state)`` reads the device state the optimizer may branch on
+    (MKOR-H's sticky switch) into a host *view*: a device read, so a
+    caller makes it where the device is idle anyway and passes the view
+    back as ``view=`` to ``plan``, ``precompute`` and ``update``
+    (``None``: the optimizer has no such state)."""
     init: Callable[[Params], State]
     update: Callable[..., Tuple[Params, State]]
     precompute: Optional[Callable[..., State]] = None
-    plan: Optional[Callable[[State], Plan]] = None
+    plan: Optional[Callable[..., Plan]] = None
+    observe: Optional[Callable[[State], Hashable]] = None
 
 
 def _tree_zeros(params):
@@ -79,7 +85,7 @@ def _bias_correction(beta: float, step: int) -> np.float32:
     return np.float32(1.0) - np.float32(beta) ** np.float32(step)
 
 
-def _device_scalars(values: Dict[str, np.float32],
+def device_scalars(values: Dict[str, np.float32],
                    device) -> Dict[str, torch.Tensor]:
     """Per-step scalars as 0-d float32 tensors on ``device`` (a fill each:
     no host-to-device copy, no sync)."""
@@ -95,6 +101,88 @@ def _adam_moments(grads, state, b1, b2):
     return m, v
 
 
+def sgd(lr, momentum: float = 0.0, nesterov: bool = False,
+        weight_decay: float = 0.0) -> GradientTransformation:
+    """SGD with optional (Nesterov) momentum and L2 weight decay added to
+    the gradient.  Without momentum the state's ``mu`` is ``None``, as in
+    the reference."""
+    lr = as_schedule(lr)
+
+    def init(params):
+        return {"count": step_count(),
+                "mu": _tree_zeros(params) if momentum else None}
+
+    def plan(state) -> Plan:
+        return (), {"lr": np.float32(lr(int(state["count"])))}
+
+    def update(grads, state, params=None, scalars=None, **_):
+        step = int(state["count"])
+        if scalars is None:
+            scalars = device_scalars(plan(state)[1],
+                                     tree_leaves(grads)[0].device)
+        if weight_decay and params is not None:
+            grads = tree_map(lambda g, p: g + weight_decay * p.to(g.dtype),
+                             grads, params)
+        if momentum:
+            mu = tree_map(lambda m, g: momentum * m + g.float(),
+                          state["mu"], grads)
+            d = tree_map(lambda m, g: momentum * m + g.float(), mu,
+                         grads) if nesterov else mu
+        else:
+            mu, d = None, grads
+        lr_t = scalars["lr"]
+        updates = tree_map(lambda g, p: (-lr_t * g.float()).to(p.dtype), d,
+                           params if params is not None else d)
+        return updates, {"count": step_count(step + 1), "mu": mu}
+
+    return GradientTransformation(init, update, None, plan)
+
+
+def _adam_plan(lr, b1, b2):
+    """The per-step scalars of Adam and LAMB: the learning rate at
+    ``count`` and the bias corrections at ``count + 1``."""
+    def plan(state) -> Plan:
+        step = int(state["count"]) + 1
+        return (), {"lr": np.float32(lr(step - 1)),
+                    "bc1": _bias_correction(b1, step),
+                    "bc2": _bias_correction(b2, step)}
+    return plan
+
+
+def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+         weight_decay: float = 0.0) -> GradientTransformation:
+    """Adam; with ``weight_decay > 0`` this is AdamW (decoupled)."""
+    lr = as_schedule(lr)
+    plan = _adam_plan(lr, b1, b2)
+
+    def init(params):
+        return {"count": step_count(), "m": _tree_zeros(params),
+                "v": _tree_zeros(params)}
+
+    def update(grads, state, params=None, scalars=None, **_):
+        step = int(state["count"]) + 1
+        if scalars is None:
+            scalars = device_scalars(plan(state)[1],
+                                     tree_leaves(grads)[0].device)
+        m, v = _adam_moments(grads, state, b1, b2)
+        bc1, bc2, lr_t = scalars["bc1"], scalars["bc2"], scalars["lr"]
+
+        def upd(m, v, p):
+            d = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            if weight_decay and p is not None:
+                d = d + weight_decay * p.float()
+            return (-lr_t * d).to(p.dtype)
+
+        updates = tree_map(upd, m, v, params if params is not None else m)
+        return updates, {"count": step_count(step), "m": m, "v": v}
+
+    return GradientTransformation(init, update, None, plan)
+
+
+def adamw(lr, weight_decay: float = 0.01, **kw) -> GradientTransformation:
+    return adam(lr, weight_decay=weight_decay, **kw)
+
+
 def lamb(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
          weight_decay: float = 0.01,
          trust_clip: Optional[float] = 10.0) -> GradientTransformation:
@@ -103,24 +191,19 @@ def lamb(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
     A leaf is one tensor of the tree, so a stacked ``(n_layers, ...)`` leaf
     shares one trust ratio, exactly as in the reference."""
     lr = as_schedule(lr)
+    plan = _adam_plan(lr, b1, b2)
 
     def init(params):
         return {"count": step_count(), "m": _tree_zeros(params),
                 "v": _tree_zeros(params)}
-
-    def plan(state) -> Plan:
-        step = int(state["count"]) + 1
-        return (), {"lr": np.float32(lr(step - 1)),
-                    "bc1": _bias_correction(b1, step),
-                    "bc2": _bias_correction(b2, step)}
 
     def update(grads, state, params=None, scalars=None, **_):
         if params is None:
             raise ValueError("lamb needs params (trust ratio)")
         step = int(state["count"]) + 1
         if scalars is None:
-            scalars = _device_scalars(plan(state)[1],
-                                     tree_leaves(params)[0].device)
+            scalars = device_scalars(plan(state)[1],
+                                    tree_leaves(params)[0].device)
         m, v = _adam_moments(grads, state, b1, b2)
         bc1, bc2, lr_t = scalars["bc1"], scalars["bc2"], scalars["lr"]
 

@@ -65,9 +65,34 @@ functional: the state passed in is not modified (the bf16 and fp32 SMW
 kernels update the freshly stabilized copy of a bank in place, which saves
 a second bank-sized buffer).
 
+MKOR-H (``hybrid=True``, :func:`mkor_h`, paper §3.2): every step updates
+a fast and a slow EMA of the loss; once ``count > hybrid_min_steps`` and
+the relative improvement rate (slow − fast)/|slow| drops below
+``hybrid_threshold``, the switch ``hybrid["on"]`` turns off for good and
+the step falls back to the backend on the raw gradients.  The switch is a
+0-d device bool, so the step cannot branch on it without a device read.
+It takes the host's *view* of the carried switch instead
+(``GradientTransformation.observe`` reads it; the caller passes it back as
+``view=`` to ``plan``, ``precompute`` and ``update``):
+
+* view on, or no view (the switch may be on): the whole second-order step
+  runs and is made exact by masked selects on the device switch, as the
+  reference's ``where(so_on, ...)``: each bank leaf (the int8 triple
+  together) new against old on phase steps, the window count's reset,
+  and the preconditioned gradient against the raw one.  The staleness-1
+  tick is gated by the CARRIED switch (promote, launch and count reset
+  selected), the fallback by the updated one.  The per-step host values
+  the switch reads (``count == 0``, ``count > hybrid_min_steps``) reach
+  it as 0/1 float32 scalars from ``plan`` (``hybrid_first``,
+  ``hybrid_late``), never as Python bools, so a CUDA graph freezes none.
+* view off (the host has seen the switch off; it is sticky): no
+  stabilize, SMW, block update, precondition or tick, so no kernel
+  launch.  The step is the backend on the probe-zeroed gradients, the
+  EMAs and the window pushes, so the state stays the reference's.
+
 Ported so far: bank layout, rank ≥ 1, staleness 0 or 1, stagger on or
 off, ``variant`` ``paper`` and ``exact_smw``, factor storage ``none`` /
-``bf16`` / ``int8``, health and dist off.  Other settings raise
+``bf16`` / ``int8``, MKOR-H, health and dist off.  Other settings raise
 ``NotImplementedError`` naming their ROADMAP item (int8 with the
 per-layer layout raises ``ValueError``, as in the reference).
 ``MKORConfig`` keeps every field of the reference with the same default,
@@ -77,8 +102,9 @@ with ``use_pallas`` renamed ``use_kernels`` and the Pallas-only
 The state is the reference's tree, key for key, with the reference's
 dtypes and shapes: ``count``, ``factor_banks``, ``stat_windows`` (rank > 1
 or staleness 1), ``pending_banks`` (staleness 1), ``hybrid`` (MKOR-H's
-switch, ``{"on": bool, "ema_fast": fp32, "ema_slow": fp32}`` scalars,
-carried unchanged: ``hybrid=True`` is not ported yet) and ``backend``, so
+switch, ``{"on": bool, "ema_fast": fp32, "ema_slow": fp32}`` scalars on
+the parameters' device, carried unchanged with ``hybrid=False``) and
+``backend``, so
 ``interop.opt_state_from_numpy`` carries a JAX state across whole.
 ``count`` is a 0-d int32 tensor kept on the CPU whatever device the banks
 are on: the inversion schedule is a host branch on it, and a CUDA count
@@ -87,17 +113,23 @@ stagger each bucket's phase is fixed, so which buckets invert on a step
 depends on ``count % inv_freq`` alone: ``plan(state)`` gives that residue
 as the update's branch key (with the backend's per-step scalars), and the
 chunk runner (``training/loop.py``) captures one CUDA graph per residue
-and advances the counts on the host itself.
+and advances the counts on the host itself.  With ``hybrid=True`` the
+plan also takes the view: the key is ``(count % inv_freq, backend key)``
+while the switch may be on and ``(None, backend key)`` once the view is
+off (the step then has no phase branch).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import stats as statlib
-from repro_torch.core.firstorder import GradientTransformation, step_count
+from repro_torch.core.firstorder import (GradientTransformation,
+                                        device_scalars, step_count)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.precond import rescale_update  # Alg. 1 line 10
 from repro_torch.kernels.rank1_smw import fused_block_smw_plain
@@ -142,6 +174,40 @@ def _hybrid_init(device) -> Dict[str, torch.Tensor]:
             "ema_slow": torch.zeros((), dtype=torch.float32, device=device)}
 
 
+def _hybrid_scalars(count: int, cfg: "MKORConfig") -> Dict[str, np.float32]:
+    """The switch's per-step host values as 0/1 float32 scalars."""
+    return {"hybrid_first": np.float32(count == 0),
+            "hybrid_late": np.float32(count > cfg.hybrid_min_steps)}
+
+
+def _hybrid_update(h: Dict[str, torch.Tensor], loss: torch.Tensor,
+                   first: torch.Tensor, late: torch.Tensor,
+                   cfg: "MKORConfig") -> Dict[str, torch.Tensor]:
+    """MKOR-H (§3.2): the sticky switch to first order once the relative
+    loss-improvement rate stalls (the reference's ``_hybrid_update``;
+    ``first`` and ``late`` are ``count == 0`` and ``count >
+    hybrid_min_steps`` as 0-d float32 0/1)."""
+    loss = loss.float()
+    first = first > 0
+    fast = torch.where(first, loss,
+                       cfg.hybrid_ema_fast * h["ema_fast"]
+                       + (1 - cfg.hybrid_ema_fast) * loss)
+    slow = torch.where(first, loss,
+                       cfg.hybrid_ema_slow * h["ema_slow"]
+                       + (1 - cfg.hybrid_ema_slow) * loss)
+    rate = (slow - fast) / torch.clamp(torch.abs(slow), min=1e-12)
+    stalled = (late > 0) & (rate < cfg.hybrid_threshold)
+    return {"on": h["on"] & ~stalled, "ema_fast": fast, "ema_slow": slow}
+
+
+def _select(on: Optional[torch.Tensor], new, old):
+    """``where(on, new, old)`` leaf by leaf over two equal tuples of
+    tensors; ``new`` itself when there is no switch (``on`` None)."""
+    if on is None:
+        return new
+    return tuple(torch.where(on, n, o) for n, o in zip(new, old))
+
+
 # the quantized identity's scale: codes 127·I decode to exactly I·(127/127)
 _QUANT_ID_SCALE = 1.0 / statlib.INT8_QMAX
 
@@ -167,8 +233,6 @@ def _check_supported(cfg: MKORConfig) -> None:
          "chaos)"),
         (cfg.dist is not None or cfg.live is not None,
          "dist / live (ROADMAP queue 1: distributed)"),
-        (cfg.hybrid, "hybrid / mkor_h (ROADMAP queue 1: mkor_h, the "
-         "knee-point scheduler and the other first-order optimizers)"),
     ]
     for bad, what in todo:
         if bad:
@@ -487,16 +551,22 @@ def mkor(backend: GradientTransformation,
         return (side_block(l_side, window_rows(win, "g", c_full), c_full),
                 side_block(r_side, window_rows(win, "a", c_full), c_full))
 
-    def precondition_bucket(out, bucket, l_side, r_side, g_ws):
-        """Lines 9-10: one precondition + rescale per bucket."""
-        delta = banked_precond(l_side, r_side, torch.stack(g_ws),
-                               1 + len(bucket.stack))
+    def precondition_bucket(out, bucket, l_side, r_side, g_ws, so_on):
+        """Lines 9-10: one precondition + rescale per bucket; with MKOR-H's
+        switch ``so_on`` off, the raw gradient instead."""
+        gw = torch.stack(g_ws)
+        delta = banked_precond(l_side, r_side, gw, 1 + len(bucket.stack))
+        if so_on is not None:
+            delta = torch.where(so_on, delta, gw)     # MKOR-H fallback
         for i, path in enumerate(bucket.paths):
             out = statlib.tree_set(
                 out, path, {**statlib.tree_get(out, path), "w": delta[i]})
         return out
 
-    def update_sync(grads, state, params, stats):
+    def update_sync(grads, state, params, stats, so_on, off):
+        """The synchronous step.  ``so_on``: MKOR-H's updated switch (None
+        without MKOR-H), which selects each phase step's results; ``off``:
+        the host has seen the switch off, so no second-order work runs."""
         count = int(state["count"])
         manifest = manifest_for(params if params is not None else grads, cfg)
         phases = statlib.bucket_phases(manifest, cfg.inv_freq, cfg.stagger)
@@ -507,7 +577,7 @@ def mkor(backend: GradientTransformation,
             bid = bucket.bucket_id
             l_side, r_side = unpack(state["factor_banks"][bid])
             g_ws, slots, gv, av = bucket_inputs(bucket, grads, stats)
-            do_inv = count % cfg.inv_freq == phases[bid]
+            do_inv = not off and count % cfg.inv_freq == phases[bid]
             # --- lines 5-8.  Slots without stats this step keep their
             # factors (and windows) untouched. ----------------------------- #
             if cfg.rank > 1:
@@ -518,22 +588,31 @@ def mkor(backend: GradientTransformation,
                     # the consume, so the phase step's own stats count)
                     sub, take, put = push_windows(bucket, win, slots, gv, av)
                     if do_inv:
-                        l_new, r_new = block_sides(
-                            tuple(map(take, l_side)),
-                            tuple(map(take, r_side)), sub, sub["n"])
-                        l_side = tuple(map(put, l_side, l_new))
-                        r_side = tuple(map(put, r_side, r_new))
-                        sub["n"] = torch.zeros_like(sub["n"])
+                        l_old = tuple(map(take, l_side))
+                        r_old = tuple(map(take, r_side))
+                        l_new, r_new = block_sides(l_old, r_old, sub,
+                                                   sub["n"])
+                        l_side = tuple(map(put, l_side,
+                                           _select(so_on, l_new, l_old)))
+                        r_side = tuple(map(put, r_side,
+                                           _select(so_on, r_new, r_old)))
+                        zero = torch.zeros_like(sub["n"])
+                        sub["n"] = zero if so_on is None else \
+                            torch.where(so_on, zero, sub["n"])
                     win = {k: put(win[k], sub[k]) for k in win}
                 new_windows[bid] = win
             elif slots and do_inv:
                 take, put = slot_access(bucket, slots, l_side[0].device)
-                l_side = tuple(map(put, l_side, side_rank1(
-                    tuple(map(take, l_side)), gv)))
-                r_side = tuple(map(put, r_side, side_rank1(
-                    tuple(map(take, r_side)), av)))
+                l_old = tuple(map(take, l_side))
+                r_old = tuple(map(take, r_side))
+                l_side = tuple(map(put, l_side, _select(
+                    so_on, side_rank1(l_old, gv), l_old)))
+                r_side = tuple(map(put, r_side, _select(
+                    so_on, side_rank1(r_old, av), r_old)))
             new_banks[bid] = pack(l_side, r_side)
-            out = precondition_bucket(out, bucket, l_side, r_side, g_ws)
+            if not off:
+                out = precondition_bucket(out, bucket, l_side, r_side, g_ws,
+                                          so_on)
         fstate = {"factor_banks": new_banks}
         if cfg.rank > 1:
             fstate["stat_windows"] = new_windows
@@ -542,14 +621,19 @@ def mkor(backend: GradientTransformation,
     # ------------------------------------------------------------------ #
     # staleness=1: the tick (promote-then-launch) and the per-step work
     # ------------------------------------------------------------------ #
-    def tick(state, tree):
+    def tick(state, tree, view=None):
         """On each bucket's phase step: active ← pending, and pending ←
         block update of the just-promoted bank from the window the state
         carries (stats through the previous step); the window's count
         resets.  Its rows persist (the count masks stale rows).  A slot
         whose window was never written carries count 0: its update is an
         exact no-op.  With int8 storage the side triples move together,
-        so the error feedback rides the pending bank."""
+        so the error feedback rides the pending bank.  MKOR-H gates all
+        three on the CARRIED switch (selects on the device), and once the
+        host view is off the tick does nothing."""
+        if cfg.hybrid and view is False:
+            return state
+        c_on = state["hybrid"]["on"] if cfg.hybrid else None
         manifest = manifest_for(tree, cfg)
         phases = statlib.bucket_phases(manifest, cfg.inv_freq, cfg.stagger)
         count = int(state["count"])
@@ -561,15 +645,25 @@ def mkor(backend: GradientTransformation,
             if count % cfg.inv_freq != phases[bid]:
                 continue
             pend, win = pending[bid], windows[bid]
-            active[bid] = pend
-            pending[bid] = pack(*block_sides(*unpack(pend), win, win["n"]))
-            windows[bid] = {**win, "n": torch.zeros_like(win["n"])}
+            launched = pack(*block_sides(*unpack(pend), win, win["n"]))
+            n = torch.zeros_like(win["n"])
+            if c_on is None:
+                active[bid], pending[bid] = pend, launched
+            else:
+                act = active[bid]
+                active[bid] = {k: torch.where(c_on, pend[k], act[k])
+                               for k in pend}
+                pending[bid] = {k: torch.where(c_on, launched[k], pend[k])
+                                for k in pend}
+                n = torch.where(c_on, n, win["n"])
+            windows[bid] = {**win, "n": n}
         return {**state, "factor_banks": active, "pending_banks": pending,
                 "stat_windows": windows}
 
-    def update_async(grads, state, params, stats):
+    def update_async(grads, state, params, stats, so_on, off):
         """Push this step's stats into the windows and precondition with
-        the ACTIVE banks; no inversion (that happened at the tick)."""
+        the ACTIVE banks; no inversion (that happened at the tick).
+        ``so_on`` and ``off`` as in :func:`update_sync`."""
         manifest = manifest_for(params if params is not None else grads, cfg)
         new_windows = {}
         out = grads
@@ -581,46 +675,91 @@ def mkor(backend: GradientTransformation,
                 sub, _, put = push_windows(bucket, win, slots, gv, av)
                 win = {k: put(win[k], sub[k]) for k in win}
             new_windows[bid] = win
-            out = precondition_bucket(out, bucket,
-                                      *unpack(state["factor_banks"][bid]),
-                                      g_ws)
+            if not off:
+                out = precondition_bucket(
+                    out, bucket, *unpack(state["factor_banks"][bid]), g_ws,
+                    so_on)
         return out, {"factor_banks": state["factor_banks"],
                      "pending_banks": state["pending_banks"],
                      "stat_windows": new_windows}
 
-    def precompute(state, params=None, **_):
+    def precompute(state, params=None, view=None, **_):
         """The phase tick of the two-phase protocol: run it at the top of
         the train step, before the gradients exist, then pass
         ``precomputed=True`` to ``update``."""
         if params is None:
             raise ValueError("mkor precompute needs params (the bucket "
                              "manifest is derived from them)")
-        return tick(state, params)
+        return tick(state, params, view)
 
-    def plan(state):
+    def plan(state, view=None):
         """The next update's host branch key, ``count % inv_freq`` (the
-        phase residue that picks the buckets that invert, at the tick too),
-        with the backend's branch key and per-step scalars."""
+        phase residue that picks the buckets that invert, at the tick too;
+        ``None`` once MKOR-H's view is off), with the backend's branch key
+        and per-step scalars (and MKOR-H's)."""
         key, scalars = backend.plan(state["backend"])
-        return (int(state["count"]) % cfg.inv_freq, key), scalars
+        count = int(state["count"])
+        if not cfg.hybrid:
+            return (count % cfg.inv_freq, key), scalars
+        residue = None if view is False else count % cfg.inv_freq
+        return (residue, key), {**scalars, **_hybrid_scalars(count, cfg)}
 
-    def update(grads, state, params=None, stats=None, precomputed=False,
-               scalars=None, **_):
-        if cfg.staleness:
-            if not precomputed:
-                state = tick(state, params if params is not None else grads)
-            out, fstate = update_async(grads, state, params, stats)
-        else:
-            out, fstate = update_sync(grads, state, params, stats)
+    def observe(state) -> bool:
+        """MKOR-H's host view: the carried switch (a device read)."""
+        return bool(state["hybrid"]["on"])
+
+    def update(grads, state, params=None, stats=None, loss=None,
+               precomputed=False, scalars=None, view=None, **_):
+        if cfg.hybrid and loss is None:
+            raise ValueError("MKOR-H needs the loss for switching")
+        off = cfg.hybrid and view is False
+        if cfg.staleness and not precomputed:
+            state = tick(state, params if params is not None else grads,
+                         view)
+        count = int(state["count"])
+        hybrid, so_on = state["hybrid"], None
+        if cfg.hybrid:
+            hs = scalars if scalars is not None else device_scalars(
+                _hybrid_scalars(count, cfg), loss.device)
+            hybrid = _hybrid_update(hybrid, loss, hs["hybrid_first"],
+                                    hs["hybrid_late"], cfg)
+            so_on = hybrid["on"]
+        step = update_async if cfg.staleness else update_sync
+        out, fstate = step(grads, state, params, stats, so_on, off)
         # probes are stat taps: never step them, keep backend moments clean
         out = statlib.zero_probes(out)
         updates, backend_state = backend.update(
             out, state["backend"], params=params, scalars=scalars)
         updates = statlib.zero_probes(updates)
-        return updates, {"count": step_count(int(state["count"]) + 1),
-                         **fstate, "hybrid": state["hybrid"],
-                         "backend": backend_state}
+        return updates, {"count": step_count(count + 1), **fstate,
+                         "hybrid": hybrid, "backend": backend_state}
 
     return GradientTransformation(init, update,
                                   precompute if cfg.staleness else None,
-                                  plan if backend.plan is not None else None)
+                                  plan if backend.plan is not None else None,
+                                  observe if cfg.hybrid else None)
+
+
+def mkor_h(backend: GradientTransformation,
+           cfg: MKORConfig = MKORConfig()) -> GradientTransformation:
+    """Hybrid MKOR (§3.2)."""
+    return mkor(backend, dataclasses.replace(cfg, hybrid=True))
+
+
+def factor_slices(state, tree, cfg: MKORConfig = MKORConfig()):
+    """Per-layer ``{path_str: {"l_inv", "r_inv"}}`` views of the factor
+    banks (int8 banks decoded to fp32), for tests and inspection."""
+    out = {}
+    for bucket in manifest_for(tree, cfg):
+        bank = state["factor_banks"][bucket.bucket_id]
+        for i, key in enumerate(bucket.path_strs):
+            if "l_scale" in bank:                   # int8: fp32 views
+                out[key] = {
+                    "l_inv": statlib.quant_decode(bank["l_inv"][i],
+                                                  bank["l_scale"][i]),
+                    "r_inv": statlib.quant_decode(bank["r_inv"][i],
+                                                  bank["r_scale"][i])}
+            else:
+                out[key] = {"l_inv": bank["l_inv"][i],
+                            "r_inv": bank["r_inv"][i]}
+    return out

@@ -2,13 +2,16 @@
 
 A schedule maps the integer step to a learning rate.  The arithmetic runs
 in numpy float32 on the host, matching the reference's float32 device
-math; the knee-point scheduler needs the loss and arrives with MKOR-H."""
+math.  The knee-point scheduler (paper §8.13) reads the loss, so its state
+is 0-d float32 tensors on the loss's device, updated with the reference's
+order of operations (no host read)."""
 from __future__ import annotations
 
 import math
-from typing import Callable, Sequence
+from typing import Callable, Dict, Sequence
 
 import numpy as np
+import torch
 
 Schedule = Callable[[int], float]
 _f32 = np.float32
@@ -72,3 +75,42 @@ def step_decay(base: float, boundaries: Sequence[int],
         n = sum(step >= b for b in bs)
         return float(_f32(base) * _f32(factor) ** _f32(n))
     return f
+
+
+# ----------------------------------------------------------------------- #
+# Knee-point scheduler (paper §8.13)
+# ----------------------------------------------------------------------- #
+def kneepoint_init(base_lr: float, device=None) -> Dict[str, torch.Tensor]:
+    def full(v):
+        return torch.full((), v, dtype=torch.float32, device=device)
+    return {"lr": full(base_lr),
+            "ema_rate": full(0.0),           # EMA of the per-step drop
+            "loss_prev": full(math.inf),
+            "loss_at_lr": full(math.inf),    # the loss when lr was set
+            "steps_at_lr": full(0.0)}
+
+
+def kneepoint_update(state: Dict[str, torch.Tensor], loss: torch.Tensor, *,
+                     beta: float = 0.1, ema: float = 0.95,
+                     decay_factor: float = 0.5,
+                     min_steps: int = 20) -> Dict[str, torch.Tensor]:
+    """Knee-point: decay when the EMA'd loss-decrease rate falls below
+    ``beta`` x the average decrease since the current LR was set."""
+    loss = loss.float()
+    zero = torch.zeros((), dtype=torch.float32, device=loss.device)
+    first = torch.isinf(state["loss_prev"])
+    drop = torch.where(first, zero, state["loss_prev"] - loss)
+    ema_rate = torch.where(first, zero,
+                           ema * state["ema_rate"] + (1 - ema) * drop)
+    steps = state["steps_at_lr"] + 1.0
+    loss_at = torch.where(torch.isinf(state["loss_at_lr"]), loss,
+                          state["loss_at_lr"])
+    avg_since = (loss_at - loss) / torch.clamp(steps, min=1.0)
+    knee = (steps > min_steps) & (ema_rate
+                                  < beta * torch.clamp(avg_since, min=0.0))
+    return {"lr": torch.where(knee, state["lr"] * decay_factor,
+                              state["lr"]),
+            "ema_rate": torch.where(knee, zero, ema_rate),
+            "loss_prev": loss,
+            "loss_at_lr": torch.where(knee, loss, loss_at),
+            "steps_at_lr": torch.where(knee, zero, steps)}

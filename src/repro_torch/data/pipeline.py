@@ -1,6 +1,6 @@
 """Deterministic synthetic data pipeline — the port's own numpy copy of
 ``repro/data/pipeline.py``, batch for batch identical to it for the same
-seed (the resume cursor and encoder frames arrive with checkpointing and
+seed, with the reference's resume cursor (the encoder frames arrive with
 the encoder-decoder models).
 
 The original corpora (Wikipedia/BookCorpus, GLUE, ImageNet) are unavailable
@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
@@ -93,6 +93,55 @@ def synthetic_batches(cfg: SyntheticLMConfig, n_steps: int,
                       start_step: int = 0) -> Iterator[Dict[str, np.ndarray]]:
     for s in range(start_step, start_step + n_steps):
         yield make_batch(cfg, s)
+
+
+# --------------------------------------------------------------------- #
+# Resume cursor
+# --------------------------------------------------------------------- #
+@dataclass(frozen=True)
+class Cursor:
+    """Data-pipeline position persisted in the checkpoint manifest.
+
+    ``step`` is the NEXT unconsumed global batch index: a checkpoint taken
+    after consuming batches ``[0, k)`` carries ``step == k``, so a resumed
+    run draws batch ``k`` first and never trains a batch twice (nor skips
+    one).  ``epoch``/``index`` are the epoch-relative view for finite
+    datasets (``steps_per_epoch > 0``); the synthetic stream is endless,
+    so there ``epoch == 0`` and ``index == step``."""
+    step: int
+    epoch: int = 0
+    index: int = 0
+
+
+def cursor_for_step(step: int, steps_per_epoch: int = 0) -> Cursor:
+    """Cursor whose next unconsumed batch is global ``step``."""
+    step = int(step)
+    if steps_per_epoch and steps_per_epoch > 0:
+        return Cursor(step=step, epoch=step // steps_per_epoch,
+                      index=step % steps_per_epoch)
+    return Cursor(step=step, epoch=0, index=step)
+
+
+def cursor_metadata(cursor: Cursor) -> Dict[str, int]:
+    """Manifest-serializable form (plain ints)."""
+    return {"step": int(cursor.step), "epoch": int(cursor.epoch),
+            "index": int(cursor.index)}
+
+
+def cursor_from_metadata(meta: Optional[Dict],
+                         fallback_step: Optional[int] = None
+                         ) -> Optional[Cursor]:
+    """Recover the cursor from checkpoint metadata.  Checkpoints without a
+    ``"cursor"`` key fall back to ``fallback_step`` (the launcher passes
+    ``meta["step"] + 1``); ``None`` when neither is available."""
+    cur = (meta or {}).get("cursor")
+    if isinstance(cur, dict) and "step" in cur:
+        return Cursor(step=int(cur["step"]),
+                      epoch=int(cur.get("epoch", 0)),
+                      index=int(cur.get("index", cur["step"])))
+    if fallback_step is not None:
+        return cursor_for_step(fallback_step)
+    return None
 
 
 def make_dataset(model_cfg, *, global_batch: int, seq_len: int, seed: int = 0,

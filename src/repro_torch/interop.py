@@ -80,13 +80,15 @@ def tree_to_numpy(tree: Any) -> Any:
 
 
 def opt_state_from_numpy(host_state: Any, device: DeviceLike = None) -> Any:
-    """A JAX MKOR or LAMB optimizer state (as numpy; a ``chain``'s tuple of
-    states too) → the port's state, every leaf copied with the reference's
-    dtype: factor and pending banks (bf16 or the int8 6-key sides, as
-    :func:`banks_from_numpy`), stat windows (:func:`windows_from_numpy`),
-    ``hybrid`` and the backend's moments on ``device``; each ``count`` (MKOR's
-    and its backend's) a 0-d int32 tensor on the CPU whatever ``device``
-    is, as the port keeps it (its schedule branches on it on the host)."""
+    """A JAX MKOR, LAMB, SGD or Adam optimizer state (as numpy; a
+    ``chain``'s tuple of states too) → the port's state, every leaf copied
+    with the reference's dtype: factor and pending banks (bf16 or the int8
+    6-key sides, as :func:`banks_from_numpy`), stat windows
+    (:func:`windows_from_numpy`), ``hybrid`` and the backend's moments on
+    ``device`` (SGD's ``mu`` stays ``None`` without momentum); each
+    ``count`` (MKOR's and its backend's) a 0-d int32 tensor on the CPU
+    whatever ``device`` is, as the port keeps it (its schedule branches on
+    it on the host)."""
     dev = resolve_device(device)
 
     def walk(tree):

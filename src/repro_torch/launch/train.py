@@ -1,25 +1,32 @@
 """Training launcher of the port (counterpart of ``repro/launch/train.py``):
 
     python -m repro_torch.launch.train --arch bert-large [--reduced] \\
-        --optimizer mkor --steps N --global-batch B --seq-len S \\
-        --inv-freq F [--rank R] [--staleness 0|1] \\
-        [--quant none|bf16|int8] [--use-kernels] [--chunk N] [--device cpu]
+        --optimizer mkor|mkor_h|lamb|sgd|adamw --steps N \\
+        --global-batch B --seq-len S --inv-freq F [--rank R] \\
+        [--staleness 0|1] [--quant none|bf16|int8] [--use-kernels] \\
+        [--chunk N] [--ckpt-dir D [--ckpt-every N]] [--device cpu]
 
 Runs on the GPU unless ``--device cpu`` is given (and raises when there is
 no GPU).  ``--rank`` and ``--staleness`` select block rank-r updates and
 the double-buffered inverse banks (defaults 1 and 0, as in the
-reference).  ``--quant`` is the factor storage (``MKORConfig.factor_quant``,
+reference).  ``--optimizer`` builds what the reference's launcher builds:
+``mkor`` and ``mkor_h`` (MKOR-H, the sticky switch to first order) on a
+LAMB backend, ``lamb``, ``sgd`` (momentum 0.9) and ``adamw``.  ``--quant`` is the factor storage (``MKORConfig.factor_quant``,
 the reference launcher's flag): ``int8`` keeps codes, per-slice scales and
-fp32 error feedback.  ``--use-kernels`` sends MKOR's banked SMW, block
-update and precondition through the hand-written CUDA kernels (their int8
-variants with ``--quant int8``); it needs a CUDA device.  ``--chunk N``
+fp32 error feedback.  ``--use-kernels`` sends MKOR's (and MKOR-H's)
+banked SMW, block update and precondition through the hand-written CUDA
+kernels (their int8 variants with ``--quant int8``); it needs a CUDA
+device.  ``--chunk N``
 (default 8, as in the reference) runs N steps a chunk through the chunk
 runner (``training/loop.py``): on the GPU each step is a replay of a CUDA
 graph of the whole step, with one metrics fetch a chunk, and the log lines
 of a chunk print at its end; ``--chunk 1`` runs the per-step loop.  On the
-CPU the chunked steps run eagerly and print the same lines.  Prints the
-logged steps' loss and ``done: final loss``.  Checkpointing, ``mkor_h``
-and the other launcher flags arrive with their slices.
+CPU the chunked steps run eagerly and print the same lines.
+``--ckpt-dir D`` resumes from the newest valid checkpoint in D (rolling
+back past corrupt ones), with the data cursor from its metadata, and
+saves there every ``--ckpt-every`` steps (at chunk boundaries) and at
+the end, in the reference's format (``checkpointing/``).  Prints the
+logged steps' loss and ``done: final loss``.
 """
 from __future__ import annotations
 
@@ -29,9 +36,10 @@ from typing import List, Optional
 
 import numpy as np
 
+from repro_torch import checkpointing
 from repro_torch.configs import registry
 from repro_torch.core import firstorder, schedule as sched_lib
-from repro_torch.core.mkor import MKORConfig, mkor
+from repro_torch.core.mkor import MKORConfig, mkor, mkor_h
 from repro_torch.data import pipeline
 from repro_torch.device import resolve_device
 from repro_torch.models import model as model_lib
@@ -41,14 +49,22 @@ from repro_torch.training import loop as train_lib
 def build_optimizer(name: str, lr, *, inv_freq: int = 10, rank: int = 1,
                     staleness: int = 0, quant: str = "none",
                     use_kernels: bool = False):
-    """Returns ``(optimizer, mkor_cfg)``; ``mkor_cfg`` is None for LAMB."""
+    """Returns ``(optimizer, mkor_cfg)``; ``mkor_cfg`` is None for the
+    first-order optimizers."""
     backend = firstorder.lamb(lr)
-    if name == "mkor":
+    if name in ("mkor", "mkor_h"):
         mcfg = MKORConfig(inv_freq=inv_freq, rank=rank, staleness=staleness,
                           factor_quant=quant, use_kernels=use_kernels)
-        return mkor(backend, mcfg), mcfg
+        return (mkor if name == "mkor" else mkor_h)(backend, mcfg), mcfg
+    if name == "eva":
+        raise SystemExit("eva is not ported yet (ROADMAP.md queue 1 item 6: "
+                         "layout='per_layer' and the baselines)")
     if name == "lamb":
         return backend, None
+    if name == "sgd":
+        return firstorder.sgd(lr, momentum=0.9), None
+    if name == "adamw":
+        return firstorder.adamw(lr), None
     raise ValueError(name)
 
 
@@ -69,7 +85,8 @@ def main(argv: Optional[List[str]] = None) -> float:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--arch", required=True)
-    ap.add_argument("--optimizer", default="mkor", choices=["mkor", "lamb"])
+    ap.add_argument("--optimizer", default="mkor",
+                    choices=["mkor", "mkor_h", "eva", "lamb", "sgd", "adamw"])
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=128)
@@ -93,7 +110,8 @@ def main(argv: Optional[List[str]] = None) -> float:
     ap.add_argument("--reduced", action="store_true",
                     help="train the smoke-scale variant of the arch")
     ap.add_argument("--use-kernels", action="store_true",
-                    help="MKOR through the hand-written CUDA kernels")
+                    help="MKOR (or MKOR-H) through the hand-written CUDA "
+                         "kernels")
     ap.add_argument("--chunk", type=int, default=8,
                     help="steps per chunk: CUDA graph replays with one "
                          "metrics fetch a chunk (1 = per-step dispatch); "
@@ -101,6 +119,8 @@ def main(argv: Optional[List[str]] = None) -> float:
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' to run there)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
 
@@ -120,13 +140,37 @@ def main(argv: Optional[List[str]] = None) -> float:
           f"optimizer={args.optimizer} steps={args.steps} "
           f"batch={args.global_batch}x{args.seq_len} device={device}"
           + (f" rank={args.rank} staleness={args.staleness} "
-             f"quant={args.quant}" if args.optimizer == "mkor" else "")
+             f"quant={args.quant}" if args.optimizer in ("mkor", "mkor_h")
+             else "")
           + (" kernels=cuda" if args.use_kernels else ""))
 
     ds = pipeline.make_dataset(cfg, global_batch=args.global_batch,
                                seq_len=args.seq_len, seed=args.seed)
     step_fn = train_lib.make_train_step(cfg, opt)
     opt_state = opt.init(params)
+    start = 0
+    if args.ckpt_dir:
+        # the newest VALID checkpoint: a crash mid-save rolls back to the
+        # one before it; each leaf lands on its init leaf's device
+        restored = checkpointing.restore_latest_valid(args.ckpt_dir,
+                                                      (params, opt_state))
+        if restored is not None:
+            (params, opt_state), meta, latest = restored
+            start = pipeline.cursor_from_metadata(
+                meta, fallback_step=int(meta.get("step", latest)) + 1).step
+            print(f"restored checkpoint step {latest} (data cursor "
+                  f"{start})")
+
+    def save_ckpt(next_step: int, extra=None) -> None:
+        # the metadata carries the data cursor (the next unconsumed
+        # batch), so a resumed run never trains a batch twice
+        meta = {"step": next_step - 1, "world": 1,
+                "cursor": pipeline.cursor_metadata(
+                    pipeline.cursor_for_step(next_step))}
+        meta.update(extra or {})
+        checkpointing.save(args.ckpt_dir, next_step - 1, (params, opt_state),
+                           meta)
+
     t0 = time.time()
     final = float("nan")
 
@@ -138,22 +182,31 @@ def main(argv: Optional[List[str]] = None) -> float:
                   f"gnorm={float(metrics['grad_norm']):.3f} "
                   f"({time.time() - t0:.1f}s)")
 
-    if args.chunk <= 1:
-        for step in range(args.steps):
-            batch = train_lib.batch_to_device(pipeline.make_batch(ds, step),
+    # built after the restore, so its static buffers are the restored
+    # tensors
+    runner = train_lib.make_chunk_runner(step_fn) if args.chunk > 1 \
+        else None
+    i = start
+    for n in train_lib.chunk_schedule(args.steps - start, args.chunk):
+        if runner is None:            # --chunk 1: the per-step loop
+            batch = train_lib.batch_to_device(pipeline.make_batch(ds, i),
                                               device)
             params, opt_state, metrics = step_fn(params, opt_state, batch)
-            log_step(step, metrics)
-    else:
-        runner = train_lib.make_chunk_runner(step_fn)
-        i = 0
-        for n in train_lib.chunk_schedule(args.steps, args.chunk):
+            log_step(i, metrics)
+            last = metrics["loss"]
+        else:
             stacked = train_lib.stack_batches(
                 [pipeline.make_batch(ds, i + k) for k in range(n)])
             params, opt_state, metrics = runner(params, opt_state, stacked)
             for k in range(n):
                 log_step(i + k, {key: v[k] for key, v in metrics.items()})
-            i += n
+            last = metrics["loss"][n - 1]
+        prev, i = i, i + n
+        if args.ckpt_dir and args.ckpt_every and i < args.steps \
+                and (i // args.ckpt_every) > (prev // args.ckpt_every):
+            save_ckpt(i, {"loss": float(last)})
+    if args.ckpt_dir:
+        save_ckpt(args.steps)
     print(f"done: final loss {final:.4f}")
     if not np.isfinite(final):
         raise SystemExit("training diverged")

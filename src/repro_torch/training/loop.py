@@ -17,6 +17,17 @@ per-step scalars (LAMB's learning rate and bias corrections).  The runner
 captures one graph per key, the first time the key comes up, writes the
 scalars into device buffers before each replay, and advances the state's
 host counts itself.
+
+An optimizer that branches on device state (MKOR-H's sticky switch) has
+``observe(state)``, a device read of that state into a host *view*.  The
+runner reads it once a chunk, at the chunk's start, right after the
+previous chunk's metrics fetch (the device is idle then), and passes it
+as ``view=`` to ``plan`` (it is part of the key) and to every step of
+the chunk (``train_step(..., view=)``, which hands it to ``precompute``
+and ``update``).  A switch that flips inside a chunk takes effect in the
+next one; the optimizer keeps the steps in between exact on the device.
+The per-step loop (``train_step`` called without a view) reads the view
+once a step.
 """
 from __future__ import annotations
 
@@ -94,20 +105,26 @@ def make_train_step(cfg: ModelConfig, optimizer: GradientTransformation,
                     *, collect_stats: bool = True) -> Callable:
     loss_fn = make_loss_fn(cfg, collect_stats=collect_stats)
 
-    def train_step(params, opt_state, batch, scalars=None):
+    def train_step(params, opt_state, batch, scalars=None, view=None):
         """One step; ``scalars`` are the optimizer's per-step scalars as
-        0-d device tensors (None: the optimizer makes them from its plan).
-        ``train_step.plan`` is the optimizer's."""
+        0-d device tensors (None: the optimizer makes them from its plan)
+        and ``view`` its host view of its device state (None: read here
+        with ``observe``, when the optimizer has one).
+        ``train_step.plan`` and ``train_step.observe`` are the
+        optimizer's."""
+        if view is None and optimizer.observe is not None:
+            view = optimizer.observe(opt_state)
         # two-phase protocol: the precompute tick consumes only carried
         # state, so it runs before the gradients exist (synchronous
         # optimizers have no precompute)
         precompute = optimizer.precompute is not None
         if precompute:
-            opt_state = optimizer.precompute(opt_state, params=params)
+            opt_state = optimizer.precompute(opt_state, params=params,
+                                             view=view)
         (loss, aux), grads = value_and_grad(loss_fn, params, batch)
         updates, opt_state = optimizer.update(
             grads, opt_state, params=params, stats=aux["stats"], loss=loss,
-            precomputed=precompute, scalars=scalars)
+            precomputed=precompute, scalars=scalars, view=view)
         params = firstorder.apply_updates(params, updates)
         metrics = {
             "loss": loss,
@@ -119,6 +136,7 @@ def make_train_step(cfg: ModelConfig, optimizer: GradientTransformation,
         return params, opt_state, metrics
 
     train_step.plan = optimizer.plan
+    train_step.observe = optimizer.observe
     return train_step
 
 
@@ -185,9 +203,10 @@ class ChunkRunner:
     ``donate=True``, written in place; copies with ``donate=False``, which
     leaves the caller's tensors untouched), one batch, the per-step
     scalars and a metrics row.  The state's CPU leaves (the step counts)
-    stay on the host.  For each step it copies the step's batch into the
-    static batch, writes the scalars of ``step_fn.plan`` and replays the
-    graph of the plan's key.  The first time a key comes up, the step runs
+    stay on the host.  With ``step_fn.observe`` it reads the host view
+    once, at the chunk's start (module docstring).  For each step it
+    copies the step's batch into the static batch, writes the scalars of
+    ``step_fn.plan`` and replays the graph of the plan's key.  The first time a key comes up, the step runs
     eagerly on a side stream (the warm-up a capture needs; its result is
     the step's) and is then captured, into one memory pool that every
     key's graph shares: replays run one at a time on one stream, and the
@@ -199,7 +218,7 @@ class ChunkRunner:
     metrics come to the host once per chunk.
 
     On the CPU (a device the caller asked for) the runner runs the same
-    steps eagerly, one after another."""
+    steps eagerly, one after another, with the view read the same way."""
 
     def __init__(self, step_fn: Callable, *, donate: bool = True):
         self.step_fn, self.donate = step_fn, donate
@@ -207,6 +226,7 @@ class ChunkRunner:
         self.pool = None
         self.host: List[int] = []      # the state's host counts, as it runs
         self._template = None
+        self._view: Dict = {}          # ``view=`` of this chunk's steps
 
     def __call__(self, params, opt_state, stacked):
         n = len(next(iter(stacked.values())))
@@ -215,13 +235,20 @@ class ChunkRunner:
             return self._eager_chunk(params, opt_state, stacked, n, device)
         return self._graph_chunk(params, opt_state, stacked, n, device)
 
+    def _observe(self, opt_state) -> None:
+        """Read the optimizer's host view of ``opt_state`` (the chunk's
+        one device read besides its metrics fetch), if it has one."""
+        observe = getattr(self.step_fn, "observe", None)
+        self._view = {} if observe is None else {"view": observe(opt_state)}
+
     def _eager_chunk(self, params, opt_state, stacked, n, device):
         rows = []
+        self._observe(opt_state)
         for k in range(n):
             batch = batch_to_device({key: v[k] for key, v in stacked.items()},
                                     device)
             params, opt_state, metrics = self.step_fn(params, opt_state,
-                                                      batch)
+                                                      batch, **self._view)
             rows.append(metrics)
         return params, opt_state, {
             key: torch.stack([m[key].detach().float().cpu() for m in rows])
@@ -320,7 +347,7 @@ class ChunkRunner:
         side.wait_stream(current)
         with torch.cuda.stream(side):
             out = self.step_fn(*self._tree_at(host_values), self._batch,
-                               scalars=self._scalars)
+                               scalars=self._scalars, **self._view)
             if self._keys is None:
                 self._keys = list(out[2])
                 self._metrics = torch.empty(len(self._keys),
@@ -337,7 +364,7 @@ class ChunkRunner:
         try:
             with torch.cuda.graph(graph, pool=self.pool):
                 out = self.step_fn(*self._tree_at(host_values), self._batch,
-                                   scalars=self._scalars)
+                                   scalars=self._scalars, **self._view)
                 captured = [o - h for o, h in zip(self._write_back(*out),
                                                   host_values)]
         except Exception as exc:
@@ -363,10 +390,11 @@ class ChunkRunner:
             raise ValueError("a CUDA chunk runner needs step_fn.plan (the "
                              "optimizer's plan: make_train_step sets it)")
         host = self.host = self._bind(params, opt_state, stacked, device)
+        self._observe(self._tree_at(host)[1])
         batches = batch_to_device(stacked, device)   # one copy a chunk
         rows = None
         for k in range(n):
-            key, values = plan(self._tree_at(host)[1])
+            key, values = plan(self._tree_at(host)[1], **self._view)
             for name, buf in self._batch.items():
                 buf.copy_(batches[name][k])
             self._write_scalars(values, device)

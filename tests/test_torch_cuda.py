@@ -837,3 +837,139 @@ def test_cuda_runner_between_eager_steps(cuda_device, donate):
     if not donate:
         assert all(torch.equal(a, b) for (_, a), (_, b) in
                    zip(_paths((params, state)), _paths(kept)))
+
+
+# --------------------------------------------------------------------- #
+# MKOR-H captured across its flip, and checkpoints of CUDA tensors
+# --------------------------------------------------------------------- #
+HYBRID_CASES = {"kernels-rank1": dict(use_kernels=True),
+                "plain-staleness1": dict(staleness=1)}
+
+
+def _hybrid_setup(device, kw, steps):
+    """The reduced bert-large on the card under mkor_h(lamb) at inv_freq 3
+    with min steps 3 and threshold 1 (the switch turns off at count 4)."""
+    from repro_torch.configs import bert_large
+    from repro_torch.core import firstorder
+    from repro_torch.core.mkor import MKORConfig, mkor_h
+    from repro_torch.data import pipeline
+    from repro_torch.models import model as model_lib
+    from repro_torch.training import loop as t_loop
+    cfg = bert_large.CONFIG.reduced()
+    opt = mkor_h(firstorder.lamb(1e-3), MKORConfig(
+        inv_freq=3, hybrid_min_steps=3, hybrid_threshold=1.0, **kw))
+    params = model_lib.init_params(cfg, seed=0, device=device)
+    ds = pipeline.make_dataset(cfg, global_batch=2, seq_len=16, seed=0)
+    batches = [pipeline.make_batch(ds, i) for i in range(steps)]
+    return t_loop.make_train_step(cfg, opt), params, opt.init(params), \
+        batches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(HYBRID_CASES))
+def test_cuda_mkor_h_replays_equal_eager_across_the_flip(cuda_device, case):
+    """12 steps in chunks of 3: the switch turns off at count 4, inside
+    the second chunk.  Every replay equals the eager step from the same
+    state (:func:`_replay_vs_eager`; the eager step reads the switch, so
+    after the flip it takes the route with no second-order work while the
+    replays of that chunk take the masked one); the replays of the chunks
+    after it credit no launch of the port's kernels; 4 graphs (a residue
+    each while the switch may be on, one once it is off)."""
+    from repro_torch.training import loop as t_loop
+    from repro_torch.tree import tree_map
+    kw = HYBRID_CASES[case]
+    kernels = kw.get("use_kernels", False)
+    step, params, state, batches = _hybrid_setup(cuda_device, kw, 12)
+    runner = t_loop.make_chunk_runner(step)
+    replay, credited = runner._replay, []
+
+    def checked_replay(g):
+        p, s, b = tree_map(torch.clone, (*runner._tree_at(runner.host),
+                                         runner._batch))
+        mark = build.count_mark()
+        ep, es, em = step(p, s, b)
+        build.rewind_counts(mark)
+        replay(g)
+        after = [h + d for h, d in zip(runner.host, g.delta)]
+        metrics = dict(zip(runner._keys, runner._metrics))
+        _replay_vs_eager((*runner._tree_at(after), metrics),
+                         (ep, es, {k: em[k].float() for k in runner._keys}),
+                         kernels, (p, s))
+        credited.append((int(s["count"]), dict(g.counts[0])))
+
+    runner._replay = checked_replay
+    _, state_out, hist = t_loop.train_epoch(step, params, state, batches,
+                                            chunk=3, runner=runner)
+    assert len(runner.graphs) == 4 and len(credited) == 8
+    assert (None, ()) in runner.graphs
+    assert not bool(state_out["hybrid"]["on"])
+    assert int(state_out["count"]) == 12
+    assert all(torch.isfinite(torch.tensor(h["loss"])) for h in hist)
+    for count, c in credited:
+        if count >= 6:
+            assert not any(c.values()), (count, c)
+        elif kernels:
+            assert c.get("fused_smw", 0) and c.get("fused_precond", 0), \
+                (count, c)
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_restores_on_the_card_and_the_cpu(cuda_device,
+                                                          tmp_path):
+    """A checkpoint of CUDA tensors (an MKOR-H state after 5 steps, its
+    switch off) restores equal onto the card and onto the CPU; the step
+    counts come back as 0-d int32 CPU tensors."""
+    from repro_torch import checkpointing
+    from repro_torch.training import loop as t_loop
+    from repro_torch.tree import tree_leaves, tree_map
+    step, params, state, batches = _hybrid_setup(
+        cuda_device, dict(use_kernels=True), 5)
+    for b in batches:
+        params, state, _ = step(params, state,
+                                t_loop.batch_to_device(b, cuda_device))
+    tree = (params, state)
+    checkpointing.save(str(tmp_path), 4, tree, {"step": 4})
+    on_card, meta, at = checkpointing.restore_latest_valid(str(tmp_path),
+                                                           tree)
+    assert at == 4 and meta == {"step": 4}
+    cpu_like = tree_map(lambda t: t.cpu(), tree)
+    on_cpu, _ = checkpointing.restore(str(tmp_path), 4, cpu_like)
+    for a, b, c in zip(tree_leaves(on_card), tree_leaves(tree),
+                       tree_leaves(on_cpu)):
+        assert a.device == b.device and a.dtype == b.dtype
+        assert torch.equal(a, b) and torch.equal(c, b.cpu())
+    assert on_card[1]["count"].device.type == "cpu"
+    assert on_card[1]["count"].dtype == torch.int32
+    assert not bool(on_card[1]["hybrid"]["on"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sgd", "adamw"])
+def test_cuda_first_order_chunks_equal_the_per_step_loop(cuda_device, name):
+    """``sgd`` without momentum (its state's ``mu`` is ``None``) and
+    ``adamw`` captured through the chunk runner, 5 steps in chunks of 2:
+    the per-step loop's bits, one graph (their branch key is ``()``)."""
+    from repro_torch.configs import bert_large
+    from repro_torch.core import firstorder, schedule
+    from repro_torch.data import pipeline
+    from repro_torch.models import model as model_lib
+    from repro_torch.training import loop as t_loop
+    cfg = bert_large.CONFIG.reduced()
+    lr = schedule.warmup_cosine(1e-2, 2, 5)
+    opt = firstorder.sgd(lr) if name == "sgd" else firstorder.adamw(lr)
+    step = t_loop.make_train_step(cfg, opt)
+    params = model_lib.init_params(cfg, seed=0, device=cuda_device)
+    ds = pipeline.make_dataset(cfg, global_batch=2, seq_len=16, seed=0)
+    batches = [pipeline.make_batch(ds, i) for i in range(5)]
+    p, s = params, opt.init(params)
+    for b in batches:
+        p, s, _ = step(p, s, t_loop.batch_to_device(b, cuda_device))
+    runner = t_loop.make_chunk_runner(step, donate=False)
+    q, t, _ = t_loop.train_epoch(step, params, opt.init(params), batches,
+                                 chunk=2, runner=runner)
+    assert len(runner.graphs) == 1
+    got, want = dict(_paths((q, t))), dict(_paths((p, s)))
+    assert sorted(got, key=str) == sorted(want, key=str)
+    assert all(torch.equal(got[k], w) for k, w in want.items())
+    if name == "sgd":
+        assert t["mu"] is None

@@ -186,8 +186,7 @@ def test_mkor_autoencoder_banks_match(ae_params):
     pytest.param({"health": True}, id="health-True"),
     pytest.param({"factor_quant": "int8", "health": True},
                  id="factor_quant-int8-health-True"),
-    pytest.param({"layout": "per_layer"}, id="layout-per_layer"),
-    pytest.param({"hybrid": True}, id="hybrid-True")])
+    pytest.param({"layout": "per_layer"}, id="layout-per_layer")])
 def test_unported_configs_raise(overrides):
     cfg = t_mkor.MKORConfig(**overrides)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -143,7 +143,7 @@ def test_mkor_state_tree_matches_reference(ae_params, kw):
     _check_tree(js, ts)
     assert int(ts["count"]) == int(js["count"]) == 3
     assert int(ts["backend"]["count"]) == 3
-    # hybrid is carried unchanged while the switch is not ported
+    # with hybrid=False (every config here) the switch is carried unchanged
     for k in ("on", "ema_fast", "ema_slow"):
         assert np.asarray(js["hybrid"][k]) == ts["hybrid"][k].numpy()
 

@@ -1,11 +1,13 @@
-"""The port end to end on the CPU: the train launcher in-process, the
-GPU-by-default rule of the entry points, and the isolation of the port
-from JAX and from the JAX package."""
+"""The port end to end on the CPU: the train launcher in-process (its
+optimizers, and a run split by a checkpoint and resumed, bit-equal to an
+unbroken one), the GPU-by-default rule of the entry points, and the
+isolation of the port from JAX, the JAX package and msgpack."""
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -51,6 +53,64 @@ def test_train_launcher_quant_int8_cpu(capsys, rank, staleness):
     assert final == final and abs(final) < 1e3          # finite
 
 
+@pytest.mark.parametrize("optimizer", ["mkor_h", "sgd", "adamw"])
+def test_train_launcher_optimizers_cpu(capsys, optimizer):
+    final = t_train.main(["--arch", "bert-large", "--reduced", "--optimizer",
+                          optimizer, "--steps", "3", "--global-batch", "2",
+                          "--seq-len", "16", "--inv-freq", "2",
+                          "--log-every", "1", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert f"optimizer={optimizer} " in out and "step     2 loss=" in out
+    assert final == final and abs(final) < 1e3          # finite
+
+
+def test_train_launcher_eva_names_its_roadmap_item():
+    with pytest.raises(SystemExit, match="queue 1 item 6"):
+        t_train.main(["--arch", "bert-large", "--reduced", "--optimizer",
+                      "eva", "--steps", "1", "--device", "cpu"])
+
+
+def _resume_args(chunk, steps, ckpt_dir, every=0):
+    return ["--arch", "bert-large", "--reduced", "--optimizer", "mkor_h",
+            "--rank", "2", "--staleness", "1", "--schedule", "constant",
+            "--steps", str(steps), "--global-batch", "2", "--seq-len", "16",
+            "--inv-freq", "2", "--log-every", "1", "--chunk", str(chunk),
+            "--ckpt-dir", str(ckpt_dir), "--ckpt-every", str(every),
+            "--device", "cpu"]
+
+
+@pytest.mark.parametrize("chunk", [1, 3])
+def test_train_launcher_resume_is_bit_equal(tmp_path, capsys, chunk):
+    """7 steps straight against 4 steps, a checkpoint, and a fresh
+    ``main`` on the same ``--ckpt-dir`` for the other 3: the same final
+    loss, and the final checkpoints (params and the whole MKOR-H state)
+    the same arrays bit for bit.  The straight run saves at the chunk
+    boundaries past every 3 steps and at the end."""
+    straight, split = tmp_path / "straight", tmp_path / "split"
+    final = t_train.main(_resume_args(chunk, 7, straight, every=3))
+    assert sorted(os.listdir(straight)) == [
+        "step_00000002", "step_00000005", "step_00000006"]
+    t_train.main(_resume_args(chunk, 4, split))
+    capsys.readouterr()
+    resumed = t_train.main(_resume_args(chunk, 7, split))
+    out = capsys.readouterr().out
+    assert "restored checkpoint step 3 (data cursor 4)" in out
+    assert [ln.split()[1] for ln in out.splitlines()
+            if ln.startswith("step")] == ["4", "5", "6"]
+    assert resumed == final
+    arrays = []
+    for d in (straight, split):
+        with np.load(d / "step_00000006" / "arrays.npz") as npz:
+            arrays.append({k: npz[k] for k in npz.files})
+    assert sorted(arrays[0]) == sorted(arrays[1]) and len(arrays[0]) > 50
+    for k, a in arrays[0].items():
+        b = arrays[1][k]
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), k
+    manifests = [(d / "step_00000006" / "manifest.msgpack").read_bytes()
+                 for d in (straight, split)]
+    assert manifests[0] == manifests[1]
+
+
 def test_train_launcher_lamb_only_cpu(capsys):
     t_train.main(["--arch", "bert-large", "--reduced", "--optimizer", "lamb",
                   "--steps", "1", "--global-batch", "1", "--seq-len", "8",
@@ -75,7 +135,8 @@ def test_entry_points_ask_for_cuda_by_default():
 
 def test_port_imports_no_jax_and_nothing_of_repro():
     """Every module of the port, and chip_smoke.py, import in a fresh
-    interpreter without pulling in jax or the JAX package."""
+    interpreter without pulling in jax, the JAX package or msgpack (the
+    card's machine has none: the checkpoints use the port's codec)."""
     modules = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
         .removesuffix(".__init__")
@@ -86,7 +147,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro') or m.startswith('jax'))\n"
+        "('jax', 'jaxlib', 'repro', 'msgpack') or m.startswith('jax'))\n"
         "print('BAD', bad)\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"), str(ROOT)])
