@@ -30,7 +30,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      and a 128 MB read) and a warm one, with the share of the bound; the
      plain block route's mid-matrix solve (``solve_mid``, which a CUDA
      graph can hold) against ``torch.linalg.solve`` and float64 at the
-     bert-large banks;
+     bert-large banks; then the SMW kernels and fused_precond on what a
+     quarantined bucket hands them on the step its health gate rejects
+     (an Inf in one slice of J or of a factor, an Inf int8 scale, a NaN
+     window row): each launch returns, the poison stays in its slice;
   4. full-width bert-large (24 layers, random weights from seed 0, batch 8
      x 128) trained with mkor(lamb) through the kernels on six paths (and
      with LAMB alone, and with mkor_h(lamb)),
@@ -70,6 +73,26 @@ Phases (each prints its own lines; any failure exits non-zero):
         step; its final (params, state) saved as a checkpoint into a
         temporary directory and restored onto the card, every leaf
         torch.equal (bytes, save and restore seconds);
+     i. the numerical-health sentinel (health=True) at block rank 4
+        (inv_freq 4), 18 steps through chaos.chaotic: an Inf into the
+        bank of the phase-2 bucket on its phase step 2 (the kernel gets
+        the poisoned bank, the gate discards its result), NaN into a
+        gradient of the phase-0 bucket at count 5 and an Inf into the
+        bank of the phase-1 bucket at count 6 (both off-phase).  Step 0
+        against the same step without the sentinel from the same state
+        (banks and windows torch.equal, params and LAMB's moments within
+        replay_tol); after every step each bucket's (trips, cooldown) as
+        the host expects (each trip on its step and bucket only, the
+        cooldown counting down on phase steps); after each injected step
+        the target's banks the exact identity, its windows and counts
+        zero; each target's first inversion after its cooldown held
+        against the plain route from the same state, its banks leaving
+        the identity; fused_block_smw's pivot of every phase step (min
+        over the clean ones at least health_pivot_tol); every loss and
+        parameter finite;
+     j. the same with int8 factor state at rank 1 (inv_freq 3, 15 steps,
+        NaN into a gradient of the phase-0 bucket at count 4): the reset
+        is codes 127·I, scales 1/127 and error feedback 0, bit for bit;
      each profiled step also lists the host's waits on the device; on
      every path every GEMM of matmul and fused_precond (and of their int8
      variants) must run on the Hopper core (per-core counts);
@@ -92,9 +115,16 @@ Phases (each prints its own lines; any failure exits non-zero):
      eager step, the replays of the chunks after the flip's crediting no
      launch of REPLACES, then replays alone before and after the flip,
      and the post-flip captured step in turns with LAMB alone's
-     (post-flip, LAMB, LAMB, post-flip);
+     (post-flip, LAMB, LAMB, post-flip); paths i and j from the step-0
+     state with their injections in chunks of inv_freq (every replay held
+     against the eager step, the health after each replay the eager
+     run's, one graph a residue), then without injections: replays alone
+     (step times, peak memory with no other runner alive) and a profiled
+     replay, and the captured step in turns with the same config without
+     the sentinel (path b's, path d's): on, off, off, on;
   6. a summary line per path (eager against captured; MKOR-H also before
-     and after the flip, in turns, and its checkpoint), one JSON line
+     and after the flip, in turns, and its checkpoint; paths i and j the
+     sentinel against none, in turns), one JSON line
      listing every kernel (launches summed over phases 4 and 5), the
      card's name and power limit, and, last, ``{"ok": true, "device":
      {...}}``.
@@ -177,6 +207,12 @@ PATH_KERNELS = {
     # MKOR-H while its switch is on (after it, nothing of REPLACES)
     "mkor_h": (("fused_smw", "fused_precond", "matmul"),
                ("fused_block_smw",)),
+    # the health sentinel with injected faults: rank 4 (its pivot consumed)
+    # and int8 rank 1
+    "health": (("fused_block_smw", "fused_precond", "matmul"),
+               ("fused_smw",)),
+    "int8_health": (("fused_smw[int8]",) + _INT8_GEMMS,
+                    _NOT_INT8 + ("fused_block_smw[int8]",)),
 }
 # the paths whose GEMMs all run on the Hopper core: every one (bf16
 # factors, and int8 codes widened to bf16 in shared memory)
@@ -195,6 +231,8 @@ TURN_STEPS = 6                    # steps in each turn (the first is dropped)
 HYBRID_STEPS = 12                 # MKOR-H, eager and captured
 HYBRID_FLIP = 4                   # min steps 3, threshold 1: off at count 4
 HYBRID_CHUNK = 3                  # captured: the flip inside chunk 2
+HEALTH_STEPS = 18                 # path i: every injected bucket re-enters
+INT8_HEALTH_STEPS = 15            # path j: likewise
 # each path's numbers for the closing summary lines
 SUMMARY = collections.defaultdict(dict)
 
@@ -637,6 +675,80 @@ def check_fused_block_smw(torch, rows):
             row.other_ms["r=1"] += ms1
             row.other_ms["r=1 bound"] += bms1
         del j, v, vt
+
+
+def check_poisoned_kernels(torch):
+    """The kernels on what a quarantined bucket hands them on the step its
+    health gate rejects (the port runs the inversion and a select discards
+    it, where the reference skips it): an Inf in one slice of J (fused_smw
+    in bf16 and, through an Inf scale, in int8; fused_block_smw), a NaN
+    row in one slice's window (fused_block_smw, with the pivot), an Inf in
+    one slice of a factor (fused_precond).  At the bert-large 24 x 1024^2
+    bank, each launch must return (a hang stops the script here), write
+    non-finite values into the poisoned slice, and leave every other slice
+    as the clean launch wrote it: bit for bit, and for fused_precond
+    (its ΣΔ² atomics add in another order) within 1e-5 relative."""
+    from repro_torch.core.mkor import block_weights
+    from repro_torch.core.stats import quant_encode
+    from repro_torch.kernels import precond as pc
+    from repro_torch.kernels import rank1_smw as rk
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    b, d, r, bad = 24, 1024, 4, 5
+    j = near_identity(torch, b, d, gen, torch.bfloat16)
+    j_bad = j.clone()
+    j_bad[bad, 0, 0] = float("inf")
+    q, sc = quant_encode(j.float())
+    sc_bad = sc.clone()
+    sc_bad[bad] = float("inf")
+    v = torch.randn((b, r, d), generator=gen, device="cuda")
+    sq, gm = block_weights(torch.full((b,), r, device="cuda"), r, 0.9)
+    vt = (v * sq[..., None]).contiguous()
+    vt_bad = vt.clone()
+    vt_bad[bad, 1] = float("nan")
+    v1 = v[:, 0].contiguous()
+    g = torch.randn((b, d, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    cases = [
+        ("fused_smw, Inf in J", lambda jj: rk.fused_smw(jj, v1, gamma=0.9),
+         j, j_bad),
+        ("fused_smw[int8], Inf scale",
+         lambda ss: rk.fused_smw(q, v1, gamma=0.9, scale=ss), sc, sc_bad),
+        ("fused_block_smw, Inf in J",
+         lambda jj: rk.fused_block_smw(jj, vt, gm), j, j_bad),
+        ("fused_block_smw, NaN window row (pivot)",
+         lambda vv: rk.fused_block_smw(j, vv, gm, with_pivot=True), vt,
+         vt_bad),
+        ("fused_precond, Inf in L",
+         lambda ll: pc.fused_precond(j, g, ll), j, j_bad)]
+    keep = torch.arange(b, device="cuda") != bad
+    for tag, fn, clean, poisoned in cases:
+        want = fn(clean)
+        t0 = time.perf_counter()
+        got = fn(poisoned)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        piv = None
+        if isinstance(got, tuple):
+            (got, piv), want = got, want[0]
+        hit = not bool(torch.isfinite(got[bad]).all())
+        if tag.startswith("fused_precond"):
+            err, ratio = bf16_close(got[keep], want[keep], 1e-5, 1e-6)
+            same = math.isfinite(ratio) and ratio <= 1.0
+            detail = f"the other slices within {ratio:.3f} of the bound"
+        else:
+            same = bool(torch.equal(got[keep], want[keep]))
+            detail = f"the other slices bit for bit: {same}"
+        if piv is not None:
+            p_bad = piv[bad].item()
+            p_ok = bool(torch.isfinite(piv[keep]).all())
+            detail += (f"; pivot of the poisoned slice {p_bad}, the others "
+                       f"finite: {p_ok}")
+            same = same and p_ok and not math.isfinite(p_bad)
+        print(f"poisoned {tag}: returned in {ms:.3f} ms; slice {bad} "
+              f"non-finite: {hit}; {detail}")
+        require(hit and same, f"poisoned {tag}: the poison did not stay in "
+                "its slice")
+        del want, got
 
 
 L2_FLUSH_BYTES = 128 * 2 ** 20    # scratch for a cold L2: 2.5x the 50 MB
@@ -1760,6 +1872,7 @@ class ReplayCheck:
         self.replay_counts = collections.Counter()
         self.per_replay = []               # (count, launches) per replay
         self.eager_repeat = None
+        self.on_replay = None              # (count, params, state) hook
 
     def eager(self, p, s, b):
         """The eager step from copies of the state (the step is functional:
@@ -1815,6 +1928,8 @@ class ReplayCheck:
                     f"{ratio:.3f} of its bound")
         self.n += 1
         del self.old
+        if self.on_replay is not None:
+            self.on_replay(int(s["count"]), params, state)
 
     def report(self):
         worst = sorted(self.worst.items(), key=lambda kv: -kv[1])
@@ -2005,6 +2120,11 @@ def summary_lines():
                      f"{v['turn_post']:.3f} ms against LAMB alone "
                      f"{v['turn_lamb']:.3f} ms; checkpoint {n_bytes:,} "
                      f"bytes, save {t_save:.3f} s, restore {t_restore:.3f} s")
+        if "turn_on" in v:
+            on, off = v["turn_on"], v["turn_off"]
+            line += (f"; in turns captured with the sentinel {on:.3f} ms "
+                     f"against {off:.3f} ms without ({on - off:+.3f} ms, "
+                     f"{100 * (on - off) / off:+.1f} %)")
         print(line)
 
 
@@ -2394,6 +2514,440 @@ def mkor_h_path(torch, dev, setup):
     return collections.Counter(counts) + collections.Counter(g_counts)
 
 
+# ----------------------------------------------------------------------- #
+# The health sentinel and the chaos harness (paths i and j)
+# ----------------------------------------------------------------------- #
+# per path: the MKORConfig fields beside health=True, the steps, the path
+# without the sentinel it is timed against in turns, and its injections as
+# (site, count, the phase of the target bucket): off-phase for the target
+# (the reference's test docstring: on a phase step of staleness 1 the
+# promote would erase the poison), except path i's Inf into the bucket of
+# phase 2 on its phase step 2, which hands the poisoned bank to
+# fused_block_smw on the step the gate rejects
+HEALTH_SPECS = {
+    "health": dict(kw=dict(rank=4, inv_freq=4), steps=HEALTH_STEPS,
+                   off="rank4", inject=(("factor_inf", 2, 2),
+                                        ("grad_nan", 5, 0),
+                                        ("factor_inf", 6, 1))),
+    "int8_health": dict(kw=dict(factor_quant="int8", inv_freq=3),
+                        steps=INT8_HEALTH_STEPS, off="int8_rank1",
+                        inject=(("grad_nan", 4, 0),)),
+}
+
+
+def health_of(state):
+    """{bucket: (trips, cooldown)} (device reads, outside any step)."""
+    return {b: (int(h["trips"]), int(h["cooldown"]))
+            for b, h in sorted(state["health"].items())}
+
+
+def expected_health(phases, inv_freq, cooldown, trips_at, steps):
+    """Each bucket's (trips, cooldown) after each step, on the host: an
+    injection trips its bucket alone and sets the cooldown; each of the
+    bucket's phase steps after it takes one off."""
+    trips = {b: 0 for b in phases}
+    cool = dict(trips)
+    out = []
+    for c in range(steps):
+        for b, ph in phases.items():
+            if (c, b) in trips_at:
+                trips[b], cool[b] = trips[b] + 1, cooldown
+            elif c % inv_freq == ph:
+                cool[b] = max(cool[b] - 1, 0)
+        out.append({b: (trips[b], cool[b]) for b in sorted(phases)})
+    return out
+
+
+def reentry(count, phase, inv_freq, cooldown):
+    """The phase step at which a bucket tripped at ``count`` inverts
+    again: the (cooldown + 1)-th of its phase steps after the trip."""
+    c, left = count, cooldown + 1
+    while left:
+        c += 1
+        left -= c % inv_freq == phase
+    return c
+
+
+def is_reset(torch, bank):
+    """The bucket's bank is the exact quarantine reset: identity bits; for
+    int8, codes 127·I, every scale 1/127 in fp32 and zero error
+    feedback."""
+    for side in ("l", "r"):
+        q = bank[f"{side}_inv"]
+        eye = torch.eye(q.shape[-1], device=q.device)
+        eye = (eye * 127 if q.dtype == torch.int8 else eye).to(q.dtype)
+        if not torch.equal(q, eye.expand(q.shape)):
+            return False
+        if f"{side}_scale" in bank:
+            sc = bank[f"{side}_scale"]
+            if not torch.equal(sc, torch.full_like(sc, 1.0 / 127)) or \
+                    bool(bank[f"{side}_ef"].any()):
+                return False
+    return True
+
+
+def health_plan(setup, name, mcfg):
+    """The path's chaos plan, its injections as (site, count, bucket) and
+    the buckets' phases."""
+    from repro_torch.training import chaos as chaos_lib
+    phases = _phases(setup[1], mcfg)
+    by_phase = {}
+    for b, ph in sorted(phases.items()):
+        by_phase.setdefault(ph, b)
+    inj = []
+    for site, count, ph in HEALTH_SPECS[name]["inject"]:
+        require(ph in by_phase, f"{name}: no bucket of phase {ph} "
+                f"({phases})")
+        inj.append((site, count, by_phase[ph]))
+    plan = chaos_lib.ChaosPlan(tuple(
+        chaos_lib.Injection(site=site, step=c, bucket=b)
+        for site, c, b in inj))
+    print(f"[{name}] buckets and phases {phases}; injections "
+          + ", ".join(f"{site}@{c}:{b} ("
+                      f"{'on' if c % mcfg.inv_freq == phases[b] else 'off'}"
+                      f"-phase)" for site, c, b in inj))
+    return plan, inj, phases
+
+
+def health_step0(torch, dev, setup, name):
+    """Step 0 from the same state with the sentinel on and off (no chaos):
+    banks and windows torch.equal, no trip, the loss equal, params and
+    LAMB's moments within ``replay_tol`` (fused_precond's atomics)."""
+    from repro_torch.data import pipeline
+    from repro_torch.training import loop as train_lib
+    cfg, params, ds, make = setup
+    kw = HEALTH_SPECS[name]["kw"]
+    opt_on, step_on, _ = make(True, health=True, **kw)
+    opt_off, step_off, _ = make(True, **kw)
+    batch0 = train_lib.batch_to_device(pipeline.make_batch(ds, 0), dev)
+    s_off0 = opt_off.init(params)
+    p_on, s_on, m_on = step_on(params, opt_on.init(params), batch0)
+    p_off, s_off, m_off = step_off(params, s_off0, batch0)
+    torch.cuda.synchronize()
+    got = dict(flat_paths({"params": p_on, "state": {
+        k: v for k, v in s_on.items() if k != "health"}}))
+    want = dict(flat_paths({"params": p_off, "state": s_off}))
+    old = {"params": params, "state": s_off0}
+    require(sorted(got, key=str) == sorted(want, key=str),
+            f"{name} step 0: the trees differ")
+    equal = bounded = 0
+    worst = 0.0
+    for path, w in want.items():
+        g = got[path]
+        if torch.equal(g, w):
+            equal += 1
+            continue
+        tag = "/".join(map(str, path))
+        require(may_differ(path), f"{name} step 0: {tag} differs with the "
+                "sentinel on, and must be bit for bit")
+        o = old
+        for k in path:
+            o = o[k]
+        ratio = float(((g.float() - w.float()).abs()
+                       / replay_tol(path, w, o)).max())
+        worst = max(worst, ratio)
+        bounded += 1
+        require(math.isfinite(ratio) and ratio <= 1.0,
+                f"{name} step 0: {tag} at {ratio:.3f} of its bound")
+    trips = health_of(s_on)
+    print(f"[{name}] step 0 with the sentinel against without, from the "
+          f"same state: {equal} of {len(want)} leaves bit for bit (banks, "
+          f"windows, counts), {bounded} within replay_tol (worst "
+          f"{worst:.3f}); loss {float(m_on['loss']):.6f} vs "
+          f"{float(m_off['loss']):.6f}; health {trips}")
+    require(all(t == 0 for t, _ in trips.values()), f"{name} step 0 tripped")
+    require(torch.equal(m_on["loss"], m_off["loss"]),
+            f"{name} step 0: the loss differs")
+
+
+class PivotLog:
+    """Records the pivot of every ``smw_block_update_banked`` call that
+    asks for one (a 0-d device tensor, read after the step)."""
+
+    def __init__(self):
+        self.pending, self.by_step = [], {}
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.kept = ops, ops.smw_block_update_banked
+
+        def logged(*args, **kw):
+            res = self.kept(*args, **kw)
+            if kw.get("with_pivot"):
+                self.pending.append(res[1])
+            return res
+        ops.smw_block_update_banked = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.smw_block_update_banked = self.kept
+
+    def step_done(self, step):
+        if self.pending:
+            self.by_step[step] = min(float(p) for p in self.pending) \
+                if all(math.isfinite(float(p)) for p in self.pending) \
+                else float("nan")
+        self.pending = []
+
+
+def health_eager(torch, dev, setup, name):
+    """Path i / j eager: the chaotic kernel route teed to the plain route
+    at each injected bucket's re-entry.  After every step each bucket's
+    (trips, cooldown) must be the host's expectation (each trip on its
+    step and bucket only, the cooldown counting down on phase steps);
+    after an injected step the target's banks are the exact reset and its
+    windows and counts zero; at a re-entry the inversion is held against
+    the plain route and the banks leave the reset.  Rank 4: the kernel's
+    pivot of every phase step, whose minimum over the clean ones must
+    reach health_pivot_tol.  Returns (counts, history, plan, mcfg)."""
+    from repro_torch.training import chaos as chaos_lib
+    from repro_torch.training import loop as train_lib
+    from repro_torch.tree import tree_leaves
+    cfg, params, ds, make = setup
+    spec = HEALTH_SPECS[name]
+    opt_k, step_k, mcfg = make(True, health=True, **spec["kw"])
+    opt_p, _, _ = make(False, health=True, **spec["kw"])
+    plan, inj, phases = health_plan(setup, name, mcfg)
+    f, k_cool = mcfg.inv_freq, mcfg.health_cooldown
+    trips_at = {(c, b) for _, c, b in inj}
+    want = expected_health(phases, f, k_cool, trips_at, spec["steps"])
+    back = {b: reentry(c, phases[b], f, k_cool) for _, c, b in inj}
+    require(max(back.values()) < spec["steps"],
+            f"{name}: re-entries {back} beyond the run")
+    tee_at = sorted(set(back.values()))
+    quant8 = mcfg.factor_quant == "int8"
+    check = Int8BankCheck(torch) if quant8 else None
+    tee = PlainTee(torch, opt_k, opt_p, phases, f, update_at=tee_at,
+                   compare=check, block=block_update_f64 if quant8 else None)
+    opt = chaos_lib.chaotic(tee.transformation(), plan, mcfg)
+    step_fn = train_lib.make_train_step(cfg, opt)
+    hist = []
+    pivots = PivotLog()
+
+    def on_step(step, state, ms):
+        pivots.step_done(step)
+        got = health_of(state)
+        hist.append(got)
+        require(got == want[step], f"{name}: after step {step} health "
+                f"{got}, expected {want[step]}")
+        for site, c, b in inj:
+            if c == step:
+                wins = state.get("stat_windows", {}).get(b, {})
+                clear = all(not bool(t.any()) for t in wins.values())
+                ok = is_reset(torch, state["factor_banks"][b]) and clear \
+                    and (not mcfg.staleness or is_reset(
+                        torch, state["pending_banks"][b]))
+                print(f"[{name}] step {step} ({site} into {b}): trips "
+                      f"{got[b][0]}, cooldown {got[b][1]}; banks the exact "
+                      f"reset, windows and counts zero: {ok}")
+                require(ok, f"{name}: step {step} left {b} unreset")
+        for b, c in back.items():
+            if c == step:
+                left = not is_reset(torch, state["factor_banks"][b])
+                print(f"[{name}] step {step}: {b} re-entered (cooldown "
+                      f"{got[b][1]}), its banks left the reset: {left}")
+                require(left, f"{name}: {b} did not re-enter at {step}")
+
+    with pivots:
+        params_out, state, counts = run_path(
+            torch, dev, name, step_fn, opt, params, ds, spec["steps"],
+            skip_times=tee_at, on_step=on_step)
+    require(tee.compared == tee_at, f"{name}: compared at {tee.compared}, "
+            f"expected {tee_at}")
+    if check is not None:
+        check.summary(name)
+    require(all(bool(torch.isfinite(t).all())
+                for t in tree_leaves(params_out)),
+            f"{name}: a parameter is not finite")
+    print(f"[{name}] every loss and parameter finite; health after each "
+          f"step as expected ({len(hist)} steps)")
+    if mcfg.rank > 1:
+        poisoned = {c for site, c, b in inj if c % f == phases[b]}
+        clean = {c: p for c, p in pivots.by_step.items()
+                 if c not in poisoned}
+        low = min(clean.values())
+        print(f"[{name}] fused_block_smw pivot, min over both sides a phase "
+              f"step: {pivots.by_step}; min over the clean phase steps "
+              f"{low:.6g} (health_pivot_tol {mcfg.health_pivot_tol:g}); "
+              f"the poisoned steps {sorted(poisoned)} masked by the gate")
+        require(len(clean) >= f and math.isfinite(low) and
+                low >= mcfg.health_pivot_tol,
+                f"{name}: the pivots of the clean phase steps {clean}")
+    profile_and_phases(torch, dev, cfg, ds, step_k, opt_k, params_out,
+                       state, spec["steps"], name)
+    return counts, hist, plan, mcfg
+
+
+def health_graph(torch, dev, setup, name, plan, mcfg, eager_hist):
+    """Path i / j captured with its injections from the step-0 state, in
+    chunks of inv_freq: every replay held against the eager step
+    (:class:`ReplayCheck`), the health after each replay and at the end
+    equal to the eager run's, one graph a residue (the hits ride plan
+    scalars), PATH_KERNELS launched under replay."""
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.training import chaos as chaos_lib
+    from repro_torch.training import loop as train_lib
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg, params0, ds, make = setup
+    spec, gname = HEALTH_SPECS[name], f"{name}[graph]"
+    opt_k, _, _ = make(True, health=True, **spec["kw"])
+    step_fn = train_lib.make_train_step(cfg, chaos_lib.chaotic(opt_k, plan,
+                                                               mcfg))
+    f, steps = mcfg.inv_freq, spec["steps"]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ops.reset_fallback_counts()
+    runner = train_lib.make_chunk_runner(step_fn)
+    check = ReplayCheck(torch, runner, step_fn, gname, True)
+    seen = {}
+    check.on_replay = lambda c, p, s: seen.__setitem__(c, health_of(s))
+    batches = [pipeline.make_batch(ds, i) for i in range(steps)]
+    params, state, hist = train_lib.train_epoch(
+        step_fn, tree_map(torch.clone, params0), opt_k.init(params0),
+        batches, chunk=f, runner=runner)
+    counts = ops.launch_counts()
+    cores = ops.gemm_core_counts()
+    fallbacks = ops.fallback_counts()
+    losses = [h["loss"] for h in hist]
+    print(f"[{gname}] train losses {losses}")
+    require(all(math.isfinite(x) for x in losses),
+            f"{gname}: non-finite loss")
+    require(all(bool(torch.isfinite(t).all()) for t in tree_leaves(params)),
+            f"{gname}: a parameter is not finite")
+    require(len(runner.graphs) == f and check.n == steps - f,
+            f"{gname}: {len(runner.graphs)} graphs, {check.n} replays")
+    check.report()
+    bad = {c: h for c, h in seen.items() if h != eager_hist[c]}
+    print(f"[{gname}] {len(runner.graphs)} graphs (one a residue), keys "
+          f"{sorted(map(str, runner.graphs))}; health after each of "
+          f"{len(seen)} replays as in the eager run: {not bad}; at the end "
+          f"{health_of(state)}; launch counts {counts} (replays alone "
+          f"{dict(check.replay_counts)}), GEMM cores {cores}, fallbacks "
+          f"{fallbacks}")
+    require(not bad and health_of(state) == eager_hist[-1],
+            f"{gname}: health differs from the eager run at {bad}")
+    must, must_not = PATH_KERNELS[name]
+    for k in must:
+        require(check.replay_counts.get(k, 0) > 0,
+                f"{gname}: {k} was not launched under replay")
+    for k in must_not:
+        require(counts.get(k, 0) == 0, f"{gname}: {k} was launched")
+    require(not fallbacks, f"{gname}: fallbacks on the path: {fallbacks}")
+    gemms = sum(counts.get(k, 0) for k in GEMM_KERNELS)
+    require(cores.get("wmma", 0) == 0 and cores.get("wgmma", 0) == gemms,
+            f"{gname}: GEMM cores {cores}, expected all {gemms} on wgmma")
+    del runner._replay, check, runner, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def health_turns(torch, dev, setup, name):
+    """The sentinel's cost, captured, no injection: the step with
+    health=True from the step-0 state through its own chunk runner (its
+    inv_freq first steps capture the graphs), then 2 x inv_freq replays
+    alone (step times, peak allocated and reserved memory with no other
+    runner alive) and a profiled replay; then the same config without the
+    sentinel (the path of HEALTH_SPECS' ``off``), brought to the same
+    count, and the two in turns (on, off, off, on; TURN_STEPS one-step
+    chunks each, each turn's median dropping its first step)."""
+    from repro_torch.data import pipeline
+    from repro_torch.training import loop as train_lib
+    from repro_torch.tree import tree_map
+    cfg, params0, ds, make = setup
+    spec = HEALTH_SPECS[name]
+    f = spec["kw"]["inv_freq"]
+
+    def start(health):
+        opt, step, _ = make(True, health=health, **spec["kw"])
+        runner = train_lib.make_chunk_runner(step)
+        stacked = train_lib.stack_batches([pipeline.make_batch(ds, i)
+                                           for i in range(f)])
+        p, s, _ = runner(tree_map(torch.clone, params0), opt.init(params0),
+                         stacked)
+        return runner, [p, s]
+
+    run_on, on = start(True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, i = [], f
+    for _ in range(2 * f):
+        t0 = time.perf_counter()
+        on[0], on[1], _ = run_on(*on, _one_step(ds, i))
+        times.append((time.perf_counter() - t0) * 1e3)
+        i += 1
+    alloc = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    reserved = torch.cuda.max_memory_reserved(dev) / 2 ** 30
+    median = statistics.median(times)
+    print(f"[{name}[graph]] with the sentinel, no injection, replays alone "
+          f"from the step-0 state, counts {f}-{i - 1}: step ms "
+          f"{[round(t, 3) for t in times]} (median {median:.3f} ms), peak "
+          f"memory {alloc:.3f} GiB allocated, {reserved:.3f} GiB reserved")
+    out = {}
+    batch = _one_step(ds, i)
+
+    def one():
+        out["step"] = run_on(*on, batch)
+    busy = profile_step(torch, one)
+    on[0], on[1], _ = out.pop("step")
+    i += 1
+    SUMMARY[name].update(graph_ms=median, graph_busy=busy,
+                         graph_alloc=alloc, graph_reserved=reserved,
+                         graphs=len(run_on.graphs))
+    run_off, off = start(False)
+    j = f
+    while j < i:                    # to the count the sentinel's run is at
+        off[0], off[1], _ = run_off(*off, _one_step(ds, j))
+        j += 1
+    medians, at = {True: [], False: []}, {True: i, False: i}
+    for health in (True, False, False, True):
+        runner, st = (run_on, on) if health else (run_off, off)
+        times, k = [], at[health]
+        for _ in range(TURN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st[0], st[1], m = runner(*st, _one_step(ds, k))
+            times.append((time.perf_counter() - t0) * 1e3)
+            k += 1
+        require(all(math.isfinite(float(x)) for x in m["loss"]),
+                f"{name} turns: non-finite loss")
+        med = statistics.median(times[1:])
+        medians[health].append(med)
+        print(f"[{name} turns] {'with' if health else 'without'} the "
+              f"sentinel, counts {at[health]}-{k - 1}: step ms "
+              f"{[round(t, 3) for t in times]}, median of steps 2-"
+              f"{TURN_STEPS} {med:.3f}")
+        at[health] = k
+    t_on, t_off = (statistics.median(medians[h]) for h in (True, False))
+    print(f"[{name} turns] median over both turns: with the sentinel "
+          f"{t_on:.3f} ms, without {t_off:.3f} ms ({t_on - t_off:+.3f} ms, "
+          f"{100 * (t_on - t_off) / t_off:+.1f} %), captured")
+    # no injection here: a trip would be the sentinel's own verdict (a
+    # bank grown past health_norm_factor x stabilizer_threshold), printed
+    print(f"[{name} turns] health at count {at[True]}: {health_of(on[1])}")
+    SUMMARY[name].update(turn_on=t_on, turn_off=t_off)
+    del run_on, run_off, on, off
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def health_path(torch, dev, setup, name):
+    """Phases 4 and 5 of path i or j; returns its launch counts."""
+    t0 = time.perf_counter()
+    health_step0(torch, dev, setup, name)
+    counts, hist, plan, mcfg = health_eager(torch, dev, setup, name)
+    torch.cuda.empty_cache()
+    print(f"[{name}] path done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    g_counts = health_graph(torch, dev, setup, name, plan, mcfg, hist)
+    health_turns(torch, dev, setup, name)
+    print(f"[{name}[graph]] path done in {time.perf_counter() - t0:.1f} s")
+    return collections.Counter(counts) + collections.Counter(g_counts)
+
+
 def train_paths(torch, dev, setup):
     """Phases 4 and 5: each path's eager run, then its captured version
     from the eager run's final state (its count, and the residues of its
@@ -2427,6 +2981,8 @@ def train_paths(torch, dev, setup):
         for k, c in list(counts.items()) + list(g_counts.items()):
             launches[k] += c
     launches.update(mkor_h_path(torch, dev, setup))
+    for name in HEALTH_SPECS:
+        launches.update(health_path(torch, dev, setup, name))
     return launches
 
 
@@ -2466,6 +3022,7 @@ def main() -> int:
     check_fused_block_smw_int8(torch, rows)
     check_fused_precond_int8(torch, rows)
     check_matmul_int8(torch, rows)
+    check_poisoned_kernels(torch)
     for name in GEMM_KERNELS:
         r = rows[name]
         b_ms, b_by = r.bound(r.bytes, r.ops)

@@ -88,20 +88,51 @@ It takes the host's *view* of the carried switch instead
 * view off (the host has seen the switch off; it is sticky): no
   stabilize, SMW, block update, precondition or tick, so no kernel
   launch.  The step is the backend on the probe-zeroed gradients, the
-  EMAs and the window pushes, so the state stays the reference's.
+  EMAs and the window pushes, so the state stays the reference's.  With
+  the health sentinel on, the precondition still runs (its ε check feeds
+  the sentinel's state, as in the reference); only the inversions stop.
+
+The numerical-health sentinel (``health=True``, the reference's DESIGN.md
+§14) keeps ``state["health"][bucket] = {"cooldown", "trips"}`` (0-d int32
+on the parameters' device).  Every step, per bucket: *detect* -- any
+non-finite value in the banks (both buffers at staleness 1), the
+bucket's gradients, its stat vectors and its windows, or a bank whose
+max |x| exceeds ``health_norm_factor · stabilizer_threshold`` (one
+NaN-propagating max |x| a tensor gives both, with no tensor-sized
+temporary); the stat vectors are zeroed where not finite before any push
+or inversion.  *Gate* -- the reference folds ``(cooldown == 0) &
+~pre_bad`` into its ``lax.cond``; the port keeps the host phase branch
+(it keys the CUDA graphs), runs the inversion on a phase step, and
+selects new against old with that 0-d device bool (and MKOR-H's switch):
+each bank leaf, the window count's reset, the tick's promote and launch,
+and the block update's pivot, masked to +inf where the gate held the old
+banks (the reference never computes it there).  *Trip* -- the detection
+signals, a bank that is non-finite or hot after the inversion, or a
+pivot below ``health_pivot_tol`` (rank > 1 at staleness 0; the rank-1
+SMW exports none) reset the bucket's banks to the identity (int8: codes
+127·I, scale 1/127 and zero error feedback together) before the
+precondition of the cleaned gradient; a slice whose update vanished
+while its gradient did not, or a non-finite update, trips too and resets
+again; windows and counts are zeroed on a trip (both buffers reset at
+staleness 1).  The cooldown is K = ``health_cooldown`` on a trip and
+counts down on the bucket's phase steps (at staleness 1 the tick neither
+promotes nor launches while it is not 0).  Nothing in the step reads a
+health leaf on the host.
 
 Ported so far: bank layout, rank ≥ 1, staleness 0 or 1, stagger on or
 off, ``variant`` ``paper`` and ``exact_smw``, factor storage ``none`` /
-``bf16`` / ``int8``, MKOR-H, health and dist off.  Other settings raise
-``NotImplementedError`` naming their ROADMAP item (int8 with the
-per-layer layout raises ``ValueError``, as in the reference).
+``bf16`` / ``int8``, MKOR-H, the health sentinel; dist off.  Other
+settings raise ``NotImplementedError`` naming their ROADMAP item (int8 or
+health with the per-layer layout raises ``ValueError``, as in the
+reference).
 ``MKORConfig`` keeps every field of the reference with the same default,
 with ``use_pallas`` renamed ``use_kernels`` and the Pallas-only
 ``interpret`` dropped.
 
 The state is the reference's tree, key for key, with the reference's
 dtypes and shapes: ``count``, ``factor_banks``, ``stat_windows`` (rank > 1
-or staleness 1), ``pending_banks`` (staleness 1), ``hybrid`` (MKOR-H's
+or staleness 1), ``pending_banks`` (staleness 1), ``health`` (with
+``health=True``), ``hybrid`` (MKOR-H's
 switch, ``{"on": bool, "ema_fast": fp32, "ema_slow": fp32}`` scalars on
 the parameters' device, carried unchanged with ``hybrid=False``) and
 ``backend``, so
@@ -212,12 +243,67 @@ def _select(on: Optional[torch.Tensor], new, old):
 _QUANT_ID_SCALE = 1.0 / statlib.INT8_QMAX
 
 
+# ----------------------------------------------------------------------- #
+# Health sentinel primitives (the reference's ``_any_nonfinite`` ...
+# ``_quant_side_maxabs``).  Each signal is a 0-d device bool from
+# reductions that keep no tensor-sized temporary: max|x| is NaN when x
+# holds a NaN and inf when it holds an inf, so it alone says whether every
+# element is finite, and with the hot threshold whether the bank is hot.
+# ----------------------------------------------------------------------- #
+def _absmax(x: torch.Tensor) -> torch.Tensor:
+    """max|x| as a 0-d fp32 tensor, NaN-propagating (0 for an empty x)."""
+    if x.numel() == 0:
+        return torch.zeros((), dtype=torch.float32, device=x.device)
+    return torch.linalg.vector_norm(x, float("inf")).float()
+
+
+def _any_nonfinite(tensors) -> torch.Tensor:
+    """0-d bool: any non-finite element anywhere in ``tensors``."""
+    return ~torch.isfinite(torch.stack([_absmax(t) for t in tensors])).all()
+
+
+def _finite_or_zero(x: torch.Tensor) -> torch.Tensor:
+    """Non-finite elements replaced by 0 (the identity on clean data)."""
+    return torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
+
+
+def _slice_norm(x: torch.Tensor) -> torch.Tensor:
+    """Per-slice ‖x‖ over the trailing matrix dims, from fp32 squares: 0
+    exactly where the reference's fp32 Σx² is 0 (every square rounds to
+    0), positive where it is positive."""
+    return torch.linalg.vector_norm(x, 2, dim=(-2, -1), dtype=torch.float32)
+
+
+def _identity_like(bank: torch.Tensor) -> torch.Tensor:
+    """Identity factors broadcast to a bank's shape (bf16 / fp32), or the
+    int8 identity codes 127·I for an int8 bank: the quarantine reset."""
+    eye = torch.eye(bank.shape[-1], dtype=bank.dtype, device=bank.device)
+    if bank.dtype == torch.int8:
+        eye.mul_(int(statlib.INT8_QMAX))
+    return eye.expand(bank.shape)
+
+
+def _quant_side_maxabs(side) -> torch.Tensor:
+    """max |decode| of an int8 bank side, scale · max|codes| per slice,
+    with no decoded bank made."""
+    q, sc = side[0], side[1]
+    lo, hi = torch.aminmax(q.reshape(tuple(q.shape[:-2]) + (-1,)), dim=-1)
+    return torch.amax(sc * torch.maximum(hi.float(), lo.float().abs()))
+
+
 def _check_supported(cfg: MKORConfig) -> None:
     if cfg.rank < 1:
         raise ValueError(f"rank must be >= 1, got {cfg.rank}")
     if cfg.staleness not in (0, 1):
         raise ValueError(f"staleness must be 0 (synchronous) or 1 "
                          f"(double-buffered), got {cfg.staleness}")
+    if cfg.health and cfg.layout != "bank":
+        raise ValueError(
+            "health=True requires layout='bank': the sentinel state "
+            "machine is per bucket")
+    if cfg.health and cfg.health_cooldown < 1:
+        raise ValueError(
+            f"health_cooldown must be >= 1, got {cfg.health_cooldown}")
     if cfg.factor_quant not in statlib.FACTOR_QUANT_MODES:
         raise ValueError(
             f"factor_quant must be one of {statlib.FACTOR_QUANT_MODES}, "
@@ -229,8 +315,6 @@ def _check_supported(cfg: MKORConfig) -> None:
     todo = [
         (cfg.layout != "bank", "layout='per_layer' (ROADMAP queue 1: "
          "layout='per_layer' and the baselines)"),
-        (cfg.health, "health=True (ROADMAP queue 1: health sentinel and "
-         "chaos)"),
         (cfg.dist is not None or cfg.live is not None,
          "dist / live (ROADMAP queue 1: distributed)"),
     ]
@@ -407,27 +491,36 @@ def mkor(backend: GradientTransformation,
                 jb, v, gamma=cfg.gamma, variant=cfg.variant, out=jb),)
         return (smw_rank1_update(jb, v, cfg.gamma, cfg.variant),)
 
-    def side_block(side, v_ord, cnt):
+    def block_update(j, v_ord, cnt, with_pivot, **kw):
+        """The block update of bank (or codes) ``j``, through the kernel
+        or the plain route; with ``with_pivot`` also the smallest pivot
+        over the bank (a 0-d fp32 tensor)."""
+        if cfg.use_kernels:
+            return kops.smw_block_update_banked(
+                j, v_ord, cnt, gamma=cfg.gamma, variant=cfg.variant,
+                with_pivot=with_pivot, **kw)
+        if "scale" in kw:
+            j = statlib.quant_decode(j, kw["scale"])
+        res = smw_block_update(j, v_ord, cfg.gamma, cfg.variant,
+                               n_valid=cnt, with_pivot=with_pivot)
+        return (res[0], torch.amin(res[1])) if with_pivot else res
+
+    def side_block(side, v_ord, cnt, with_pivot=False):
         """One block update of a bank side (*lead, d, d) from the ordered
         window rows ``v_ord`` (*lead, r, d) with fill counts ``cnt``
-        (``lead``), in the order of :func:`side_rank1`."""
+        (``lead``), in the order of :func:`side_rank1`.  Returns the new
+        side and, with ``with_pivot``, the bank's smallest pivot (else
+        None)."""
         if quant8:
             q, sc, ef = side
-            if cfg.use_kernels:
-                f = kops.smw_block_update_banked(
-                    q, v_ord, cnt, gamma=cfg.gamma, variant=cfg.variant,
-                    scale=sc)
-            else:
-                f = smw_block_update(decode(side), v_ord, cfg.gamma,
-                                     cfg.variant, n_valid=cnt)
-            return statlib.quant_requantize(stab(f), ef)
+            res = block_update(q, v_ord, cnt, with_pivot, scale=sc)
+            f, piv = res if with_pivot else (res, None)
+            return statlib.quant_requantize(stab(f), ef), piv
         jb = stab(side[0])
-        if cfg.use_kernels:
-            return (kops.smw_block_update_banked(
-                jb, v_ord, cnt, gamma=cfg.gamma, variant=cfg.variant,
-                out=jb),)
-        return (smw_block_update(jb, v_ord, cfg.gamma, cfg.variant,
-                                 n_valid=cnt),)
+        res = block_update(jb, v_ord, cnt, with_pivot,
+                           **({"out": jb} if cfg.use_kernels else {}))
+        f, piv = res if with_pivot else (res, None)
+        return (f,), piv
 
     def window_rows(win, name, cnt):
         """The fp32 (or stored-dtype) rows of window ``name`` ("a" or
@@ -492,13 +585,22 @@ def mkor(backend: GradientTransformation,
             state["pending_banks"] = {
                 bid: {k: t.clone() for k, t in bank.items()}
                 for bid, bank in banks.items()}
-        state["hybrid"] = _hybrid_init(tree_leaves(params)[0].device)
+        dev = tree_leaves(params)[0].device
+        if cfg.health:
+            # per bucket: phase steps of quarantine left, and trips so far
+            state["health"] = {
+                b.bucket_id: {k: torch.zeros((), dtype=torch.int32,
+                                             device=dev)
+                              for k in ("cooldown", "trips")}
+                for b in manifest_for(params, cfg)}
+        state["hybrid"] = _hybrid_init(dev)
         state["backend"] = backend.init(params)
         return state
 
     def bucket_inputs(bucket, grads, stats):
         """Gradients of the bucket's slots, the slots that have stats this
-        step, and their stacked ḡ and ā (fp32)."""
+        step, their stacked ḡ and ā (fp32), and the stat vectors of the
+        other slots (which the sentinel scans too)."""
         g_ws, g_vecs, a_vecs = [], [], []
         for path in bucket.paths:
             g_ws.append(statlib.tree_get(grads, path)["w"])
@@ -507,11 +609,13 @@ def mkor(backend: GradientTransformation,
                           if stats is not None else None)
         slots = [i for i, (av, gv) in enumerate(zip(a_vecs, g_vecs))
                  if av is not None and gv is not None]
+        extra = [v for i, pair in enumerate(zip(g_vecs, a_vecs))
+                 if i not in slots for v in pair if v is not None]
         if not slots:
-            return g_ws, slots, None, None
+            return g_ws, slots, None, None, extra
         gv = torch.stack([g_vecs[i] for i in slots]).float()
         av = torch.stack([a_vecs[i] for i in slots]).float()
-        return g_ws, slots, gv, av
+        return g_ws, slots, gv, av, extra
 
     def slot_access(bucket, slots, device):
         """(take, put) over the bank dim for ``slots``: the identity when
@@ -544,24 +648,110 @@ def mkor(backend: GradientTransformation,
         return cnt.reshape(cnt.shape + (1,) * ns).expand(
             bank.shape[:ns + 1])
 
-    def block_sides(l_side, r_side, win, cnt):
+    def block_sides(l_side, r_side, win, cnt, with_pivot=False):
         """Both sides' block updates from window ``win`` (ḡ rows update L,
-        ā rows R) with per-slot fill counts ``cnt``."""
+        ā rows R) with per-slot fill counts ``cnt``; with ``with_pivot``
+        also the smallest pivot of the two (else None)."""
         c_full = lead_counts(cnt, l_side[0])
-        return (side_block(l_side, window_rows(win, "g", c_full), c_full),
-                side_block(r_side, window_rows(win, "a", c_full), c_full))
+        l_new, pl = side_block(l_side, window_rows(win, "g", c_full),
+                               c_full, with_pivot)
+        r_new, pr = side_block(r_side, window_rows(win, "a", c_full),
+                               c_full, with_pivot)
+        return l_new, r_new, (torch.minimum(pl, pr) if with_pivot else None)
 
-    def precondition_bucket(out, bucket, l_side, r_side, g_ws, so_on):
-        """Lines 9-10: one precondition + rescale per bucket; with MKOR-H's
-        switch ``so_on`` off, the raw gradient instead."""
-        gw = torch.stack(g_ws)
-        delta = banked_precond(l_side, r_side, gw, 1 + len(bucket.stack))
+    def write_delta(out, bucket, delta, gw, so_on):
+        """The bucket's update into ``out``: ``delta``, or with MKOR-H's
+        switch ``so_on`` off, the gradient ``gw``."""
         if so_on is not None:
             delta = torch.where(so_on, delta, gw)     # MKOR-H fallback
         for i, path in enumerate(bucket.paths):
             out = statlib.tree_set(
                 out, path, {**statlib.tree_get(out, path), "w": delta[i]})
         return out
+
+    # ------------------------------------------------------------------ #
+    # The health sentinel (health=True): detect, gate, trip, reset
+    # ------------------------------------------------------------------ #
+    hot_norm = cfg.health_norm_factor * cfg.stabilizer_threshold
+
+    def side_bad(side):
+        """0-d bool: a bank side holds a non-finite value or is hot (its
+        max |decode| above health_norm_factor · stabilizer_threshold).
+        int8: the codes are always finite, so the scale and the error
+        feedback are scanned, and the norm is scale · max|codes|."""
+        if quant8:
+            return _any_nonfinite(side[1:]) | \
+                (_quant_side_maxabs(side) > hot_norm)
+        return ~(_absmax(side[0]) <= hot_norm)
+
+    def sides_bad(*sides):
+        bad = side_bad(sides[0])
+        for side in sides[1:]:
+            bad = bad | side_bad(side)
+        return bad
+
+    def window_srcs(win):
+        # int8 window codes are always finite: their scales are scanned
+        return [win["a_scale"], win["g_scale"]] if quant8 else \
+            [win["a"], win["g"]]
+
+    def input_srcs(gw, gv, av, extra):
+        """The step's gradients and stat vectors, for the non-finite scan
+        (the stacked ones, and the vectors of slots left out of them)."""
+        return [gw] + ([gv, av] if gv is not None else []) + extra
+
+    def reset_side(side, trip):
+        """The quarantine reset: identity factors; int8: codes 127·I,
+        scale 1/127 and the error feedback zeroed together, so a residual
+        from before the trip never re-enters."""
+        new = (torch.where(trip, _identity_like(side[0]), side[0]),)
+        if quant8:
+            new += (torch.where(trip, _QUANT_ID_SCALE, side[1]),
+                    torch.where(trip, 0.0, side[2]))
+        return new
+
+    def reset_windows(win, trip):
+        """Zero the window rows (and int8 row scales) and counts on a trip:
+        0-weighted NaN rows would still poison the next block update."""
+        return {k: torch.where(trip, torch.zeros((), dtype=t.dtype,
+                                                 device=t.device), t)
+                for k, t in win.items()}
+
+    def next_health(hst, trip, phase_hit):
+        """Cooldown: K on a trip, one less on each phase step, else kept;
+        trips counted.  ``phase_hit`` is a host bool, or a 0-d device bool
+        when MKOR-H's switch gates it."""
+        cool = hst["cooldown"]
+        dec = torch.clamp(cool - 1, min=0)
+        if isinstance(phase_hit, bool):
+            dec = dec if phase_hit else cool
+        else:
+            dec = torch.where(phase_hit, dec, cool)
+        k = torch.full_like(cool, cfg.health_cooldown)
+        return {"cooldown": torch.where(trip, k, dec),
+                "trips": hst["trips"] + trip.to(torch.int32)}
+
+    def precondition_bucket(out, bucket, l_side, r_side, gw, so_on):
+        """Lines 9-10: one precondition + rescale per bucket; with MKOR-H's
+        switch ``so_on`` off, the raw gradient instead."""
+        delta = banked_precond(l_side, r_side, gw, 1 + len(bucket.stack))
+        return write_delta(out, bucket, delta, gw, so_on)
+
+    def precondition_guarded(out, bucket, l_side, r_side, gw, so_on, trip):
+        """Lines 9-10 under the sentinel: a trip resets the banks before
+        they precondition the cleaned gradient; a slice whose update
+        vanished while its gradient did not (the rescale's ε guard fired)
+        or a non-finite update trips too, and resets them again.  Returns
+        (out, l_side, r_side, trip)."""
+        l_side, r_side = reset_side(l_side, trip), reset_side(r_side, trip)
+        gw = _finite_or_zero(gw)
+        delta = banked_precond(l_side, r_side, gw, 1 + len(bucket.stack))
+        eps_hit = torch.any((_slice_norm(delta) == 0.0)
+                            & (_slice_norm(gw) > 0.0))
+        trip = trip | eps_hit | _any_nonfinite([delta])
+        out = write_delta(out, bucket, _finite_or_zero(delta), gw, so_on)
+        return (out, reset_side(l_side, trip), reset_side(r_side, trip),
+                trip)
 
     def update_sync(grads, state, params, stats, so_on, off):
         """The synchronous step.  ``so_on``: MKOR-H's updated switch (None
@@ -571,17 +761,34 @@ def mkor(backend: GradientTransformation,
         manifest = manifest_for(params if params is not None else grads, cfg)
         phases = statlib.bucket_phases(manifest, cfg.inv_freq, cfg.stagger)
         new_banks: Dict[str, Dict[str, torch.Tensor]] = {}
-        new_windows = {}
+        new_windows, new_health = {}, {}
         out = grads
         for bucket in manifest:
             bid = bucket.bucket_id
             l_side, r_side = unpack(state["factor_banks"][bid])
-            g_ws, slots, gv, av = bucket_inputs(bucket, grads, stats)
+            g_ws, slots, gv, av, extra = bucket_inputs(bucket, grads, stats)
+            # the stacked gradients, unless no precondition runs
+            gw = torch.stack(g_ws) if cfg.health or not off else None
             do_inv = not off and count % cfg.inv_freq == phases[bid]
+            win = state["stat_windows"][bid] if cfg.rank > 1 else None
+            # the switch that selects the phase step's results: MKOR-H's,
+            # and the sentinel's gate (the reference's do_inv on the
+            # device), which also masks the pivot
+            sel, piv = so_on, None
+            if cfg.health:
+                hst = state["health"][bid]
+                pre_bad = sides_bad(l_side, r_side) | _any_nonfinite(
+                    input_srcs(gw, gv, av, extra)
+                    + (window_srcs(win) if win is not None else []))
+                sel = (hst["cooldown"] == 0) & ~pre_bad
+                if so_on is not None:
+                    sel = sel & so_on
+                if slots:
+                    # poisoned stat vectors never enter windows or banks
+                    gv, av = _finite_or_zero(gv), _finite_or_zero(av)
             # --- lines 5-8.  Slots without stats this step keep their
             # factors (and windows) untouched. ----------------------------- #
             if cfg.rank > 1:
-                win = state["stat_windows"][bid]
                 if slots:
                     # push, then on the phase step consume each slot's
                     # whole window and reset its count (the push precedes
@@ -590,32 +797,54 @@ def mkor(backend: GradientTransformation,
                     if do_inv:
                         l_old = tuple(map(take, l_side))
                         r_old = tuple(map(take, r_side))
-                        l_new, r_new = block_sides(l_old, r_old, sub,
-                                                   sub["n"])
+                        l_new, r_new, piv = block_sides(
+                            l_old, r_old, sub, sub["n"], cfg.health)
                         l_side = tuple(map(put, l_side,
-                                           _select(so_on, l_new, l_old)))
+                                           _select(sel, l_new, l_old)))
                         r_side = tuple(map(put, r_side,
-                                           _select(so_on, r_new, r_old)))
+                                           _select(sel, r_new, r_old)))
                         zero = torch.zeros_like(sub["n"])
-                        sub["n"] = zero if so_on is None else \
-                            torch.where(so_on, zero, sub["n"])
+                        sub["n"] = zero if sel is None else \
+                            torch.where(sel, zero, sub["n"])
                     win = {k: put(win[k], sub[k]) for k in win}
-                new_windows[bid] = win
             elif slots and do_inv:
                 take, put = slot_access(bucket, slots, l_side[0].device)
                 l_old = tuple(map(take, l_side))
                 r_old = tuple(map(take, r_side))
                 l_side = tuple(map(put, l_side, _select(
-                    so_on, side_rank1(l_old, gv), l_old)))
+                    sel, side_rank1(l_old, gv), l_old)))
                 r_side = tuple(map(put, r_side, _select(
-                    so_on, side_rank1(r_old, av), r_old)))
+                    sel, side_rank1(r_old, av), r_old)))
+            if not cfg.health:
+                new_banks[bid] = pack(l_side, r_side)
+                if win is not None:
+                    new_windows[bid] = win
+                if not off:
+                    out = precondition_bucket(out, bucket, l_side, r_side,
+                                              gw, so_on)
+                continue
+            # --- the sentinel's trip: the banks after the inversion (a
+            # phase step's only: otherwise they are the banks pre_bad
+            # scanned), and the pivot, masked to +inf where the gate held
+            # the old banks (the reference never computes it there) ----- #
+            trip = pre_bad
+            if slots and do_inv:
+                trip = trip | sides_bad(l_side, r_side)
+                if piv is not None:
+                    piv = torch.where(sel, piv, float("inf"))
+                    trip = trip | ~(piv >= cfg.health_pivot_tol)
+            out, l_side, r_side, trip = precondition_guarded(
+                out, bucket, l_side, r_side, gw, so_on, trip)
             new_banks[bid] = pack(l_side, r_side)
-            if not off:
-                out = precondition_bucket(out, bucket, l_side, r_side, g_ws,
-                                          so_on)
+            if win is not None:
+                new_windows[bid] = reset_windows(win, trip)
+            phase_hit = do_inv if so_on is None or not do_inv else so_on
+            new_health[bid] = next_health(hst, trip, phase_hit)
         fstate = {"factor_banks": new_banks}
         if cfg.rank > 1:
             fstate["stat_windows"] = new_windows
+        if cfg.health:
+            fstate["health"] = new_health
         return out, fstate
 
     # ------------------------------------------------------------------ #
@@ -629,8 +858,10 @@ def mkor(backend: GradientTransformation,
         whose window was never written carries count 0: its update is an
         exact no-op.  With int8 storage the side triples move together,
         so the error feedback rides the pending bank.  MKOR-H gates all
-        three on the CARRIED switch (selects on the device), and once the
-        host view is off the tick does nothing."""
+        three on the CARRIED switch, and the sentinel on the carried
+        cooldown (a quarantined bucket neither promotes nor launches),
+        by selects on the device; once the host view is off the tick does
+        nothing."""
         if cfg.hybrid and view is False:
             return state
         c_on = state["hybrid"]["on"] if cfg.hybrid else None
@@ -644,18 +875,23 @@ def mkor(backend: GradientTransformation,
             bid = bucket.bucket_id
             if count % cfg.inv_freq != phases[bid]:
                 continue
+            gate = c_on
+            if cfg.health:
+                cool_ok = state["health"][bid]["cooldown"] == 0
+                gate = cool_ok if gate is None else gate & cool_ok
             pend, win = pending[bid], windows[bid]
-            launched = pack(*block_sides(*unpack(pend), win, win["n"]))
+            l_new, r_new, _ = block_sides(*unpack(pend), win, win["n"])
+            launched = pack(l_new, r_new)
             n = torch.zeros_like(win["n"])
-            if c_on is None:
+            if gate is None:
                 active[bid], pending[bid] = pend, launched
             else:
                 act = active[bid]
-                active[bid] = {k: torch.where(c_on, pend[k], act[k])
+                active[bid] = {k: torch.where(gate, pend[k], act[k])
                                for k in pend}
-                pending[bid] = {k: torch.where(c_on, launched[k], pend[k])
+                pending[bid] = {k: torch.where(gate, launched[k], pend[k])
                                 for k in pend}
-                n = torch.where(c_on, n, win["n"])
+                n = torch.where(gate, n, win["n"])
             windows[bid] = {**win, "n": n}
         return {**state, "factor_banks": active, "pending_banks": pending,
                 "stat_windows": windows}
@@ -663,25 +899,51 @@ def mkor(backend: GradientTransformation,
     def update_async(grads, state, params, stats, so_on, off):
         """Push this step's stats into the windows and precondition with
         the ACTIVE banks; no inversion (that happened at the tick).
-        ``so_on`` and ``off`` as in :func:`update_sync`."""
+        ``so_on`` and ``off`` as in :func:`update_sync`.  The sentinel
+        scans both buffers, and a trip resets both, with the window."""
+        count = int(state["count"])
         manifest = manifest_for(params if params is not None else grads, cfg)
-        new_windows = {}
+        phases = statlib.bucket_phases(manifest, cfg.inv_freq, cfg.stagger)
+        new_windows, new_banks, new_pending, new_health = {}, {}, {}, {}
         out = grads
         for bucket in manifest:
             bid = bucket.bucket_id
-            g_ws, slots, gv, av = bucket_inputs(bucket, grads, stats)
+            g_ws, slots, gv, av, extra = bucket_inputs(bucket, grads, stats)
             win = state["stat_windows"][bid]
+            l_act, r_act = unpack(state["factor_banks"][bid])
+            gw = torch.stack(g_ws) if cfg.health or not off else None
+            if cfg.health:
+                l_pen, r_pen = unpack(state["pending_banks"][bid])
+                trip = sides_bad(l_act, r_act, l_pen, r_pen) | \
+                    _any_nonfinite(window_srcs(win)
+                                   + input_srcs(gw, gv, av, extra))
+                if slots:
+                    gv, av = _finite_or_zero(gv), _finite_or_zero(av)
             if slots:
                 sub, _, put = push_windows(bucket, win, slots, gv, av)
                 win = {k: put(win[k], sub[k]) for k in win}
-            new_windows[bid] = win
-            if not off:
-                out = precondition_bucket(
-                    out, bucket, *unpack(state["factor_banks"][bid]), g_ws,
-                    so_on)
-        return out, {"factor_banks": state["factor_banks"],
-                     "pending_banks": state["pending_banks"],
-                     "stat_windows": new_windows}
+            if not cfg.health:
+                new_windows[bid] = win
+                if not off:
+                    out = precondition_bucket(out, bucket, l_act, r_act, gw,
+                                              so_on)
+                continue
+            out, l_act, r_act, trip = precondition_guarded(
+                out, bucket, l_act, r_act, gw, so_on, trip)
+            new_banks[bid] = pack(l_act, r_act)
+            new_pending[bid] = pack(reset_side(l_pen, trip),
+                                    reset_side(r_pen, trip))
+            new_windows[bid] = reset_windows(win, trip)
+            phase = count % cfg.inv_freq == phases[bid]
+            phase_hit = phase if so_on is None or not phase else so_on
+            new_health[bid] = next_health(state["health"][bid], trip,
+                                          phase_hit)
+        if not cfg.health:
+            return out, {"factor_banks": state["factor_banks"],
+                         "pending_banks": state["pending_banks"],
+                         "stat_windows": new_windows}
+        return out, {"factor_banks": new_banks, "pending_banks": new_pending,
+                     "stat_windows": new_windows, "health": new_health}
 
     def precompute(state, params=None, view=None, **_):
         """The phase tick of the two-phase protocol: run it at the top of

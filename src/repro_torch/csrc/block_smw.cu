@@ -65,7 +65,8 @@
 //     definite by the block form of the paper's Lemma 3.1, as in the
 //     reference; rows are eliminated in the reference's order), stores M
 //     already multiplied by w, the sign and 1/gm of the variant, and, when
-//     asked, the smallest |pivot| over the real (unpadded) rows, then
+//     asked, the smallest pivot over the real (unpadded) rows (NaN when
+//     one is not positive or not finite, as the reference's Cholesky), then
 //     releases the slice's ready flag.  A block acquires that flag at its
 //     first write run of the slice, before it reads U or M.
 //
@@ -338,9 +339,11 @@ __device__ void form_mid(const Args& a, int b, Smem<R>& sm) {
   for (int kk = 0; kk < R; ++kk) {
     const float piv = sm.a[kk][kk];
     // NaN-propagating min over the real rows, only when it is asked for:
-    // a non-finite pivot surfaces
+    // a pivot that is not positive (the mid matrix is not positive
+    // definite, where the reference's Cholesky fails) or not finite
+    // surfaces as NaN
     if (a.piv != nullptr && kk < a.r_real) {
-      const float ap = fabsf(piv);
+      const float ap = piv > 0.0f ? piv : NAN;
       if (isnan(ap) || ap < pmin) pmin = isnan(pmin) ? pmin : ap;
     }
     if (tid < R) sm.col[tid] = tid == kk ? 0.0f : sm.a[tid][kk];

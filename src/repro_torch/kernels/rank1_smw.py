@@ -222,14 +222,17 @@ def fused_block_smw(j: torch.Tensor, vt: torch.Tensor, gm: torch.Tensor, *,
     in place).
 
     ``with_pivot=True`` returns ``(new, pivot)`` with pivot (B,) fp32: the
-    smallest |pivot| of the kernel's unpivoted Gauss–Jordan elimination of
+    smallest pivot of the kernel's unpivoted Gauss–Jordan elimination of
     the r×r mid matrix over the r real rows, which for a positive definite
     mid matrix equals the smallest squared Cholesky diagonal entry that
     ``repro.core.mkor.smw_block_update(with_pivot=True)`` returns for each
-    slice.  (The reference's fused entry pads r to a multiple of 8 and its
-    zero rows add pivots of gm² or gm to its min; the kernel's padding
-    rows are left out.)  Without it nothing is computed or written for the
-    pivot."""
+    slice; NaN where a pivot is not positive or not finite (where that
+    Cholesky fails).  The reference's fused entry pads r to a multiple of
+    8, and its zero rows add pivots of gm² or gm (the paper and exact
+    variants) to its min; the kernel's padding rows are left out.  The
+    sentinel's trip, ``pivot >= health_pivot_tol`` false, comes out the
+    same at the default tolerance 1e-12, since γ^m and γ^2m stay far above
+    it.  Without it nothing is computed or written for the pivot."""
     if j.ndim != 3 or j.shape[-1] != j.shape[-2] or vt.ndim != 3 or \
             vt.shape[0] != j.shape[0] or vt.shape[-1] != j.shape[-1] or \
             tuple(gm.shape) != (j.shape[0],):

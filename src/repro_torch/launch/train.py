@@ -4,7 +4,8 @@
         --optimizer mkor|mkor_h|lamb|sgd|adamw --steps N \\
         --global-batch B --seq-len S --inv-freq F [--rank R] \\
         [--staleness 0|1] [--quant none|bf16|int8] [--use-kernels] \\
-        [--chunk N] [--ckpt-dir D [--ckpt-every N]] [--device cpu]
+        [--chunk N] [--ckpt-dir D [--ckpt-every N]] [--health] \\
+        [--chaos SPEC] [--device cpu]
 
 Runs on the GPU unless ``--device cpu`` is given (and raises when there is
 no GPU).  ``--rank`` and ``--staleness`` select block rank-r updates and
@@ -25,8 +26,14 @@ CPU the chunked steps run eagerly and print the same lines.
 ``--ckpt-dir D`` resumes from the newest valid checkpoint in D (rolling
 back past corrupt ones), with the data cursor from its metadata, and
 saves there every ``--ckpt-every`` steps (at chunk boundaries) and at
-the end, in the reference's format (``checkpointing/``).  Prints the
-logged steps' loss and ``done: final loss``.
+the end, in the reference's format (``checkpointing/``).  ``--health``
+turns on MKOR's numerical-health sentinel (per-bucket quarantine and
+recovery, ``MKORConfig.health``) and ``--chaos SPEC`` injects faults at
+exact steps (``training/chaos.py``: ``grad_nan``, ``factor_inf``,
+``window_flip``, ``payload_corrupt``), both for the MKOR optimizers only;
+the host sites (``kill_shard``, ``delay_shard``, ``drop_collective``)
+need ``--elastic``, which is not ported yet.  Prints the logged steps'
+loss and ``done: final loss``.
 """
 from __future__ import annotations
 
@@ -43,18 +50,20 @@ from repro_torch.core.mkor import MKORConfig, mkor, mkor_h
 from repro_torch.data import pipeline
 from repro_torch.device import resolve_device
 from repro_torch.models import model as model_lib
+from repro_torch.training import chaos as chaos_lib
 from repro_torch.training import loop as train_lib
 
 
 def build_optimizer(name: str, lr, *, inv_freq: int = 10, rank: int = 1,
                     staleness: int = 0, quant: str = "none",
-                    use_kernels: bool = False):
+                    use_kernels: bool = False, health: bool = False):
     """Returns ``(optimizer, mkor_cfg)``; ``mkor_cfg`` is None for the
     first-order optimizers."""
     backend = firstorder.lamb(lr)
     if name in ("mkor", "mkor_h"):
         mcfg = MKORConfig(inv_freq=inv_freq, rank=rank, staleness=staleness,
-                          factor_quant=quant, use_kernels=use_kernels)
+                          factor_quant=quant, use_kernels=use_kernels,
+                          health=health)
         return (mkor if name == "mkor" else mkor_h)(backend, mcfg), mcfg
     if name == "eva":
         raise SystemExit("eva is not ported yet (ROADMAP.md queue 1 item 6: "
@@ -112,6 +121,19 @@ def main(argv: Optional[List[str]] = None) -> float:
     ap.add_argument("--use-kernels", action="store_true",
                     help="MKOR (or MKOR-H) through the hand-written CUDA "
                          "kernels")
+    ap.add_argument("--health", action="store_true",
+                    help="numerical-health sentinel: per-bucket "
+                         "quarantine/recovery of corrupted factor state "
+                         "(MKOR optimizers only)")
+    ap.add_argument("--chaos", default="",
+                    help="deterministic fault injections, e.g. "
+                         "'grad_nan@5,factor_inf@15[:bucket]' "
+                         "(training/chaos.py; sites: "
+                         "grad_nan, factor_inf, window_flip, "
+                         "payload_corrupt); MKOR optimizers only. "
+                         "Host sites (kill_shard, delay_shard, "
+                         "drop_collective; site@step[:shard]) need "
+                         "--elastic")
     ap.add_argument("--chunk", type=int, default=8,
                     help="steps per chunk: CUDA graph replays with one "
                          "metrics fetch a chunk (1 = per-step dispatch); "
@@ -132,9 +154,26 @@ def main(argv: Optional[List[str]] = None) -> float:
         cfg = cfg.reduced()
 
     lr = build_schedule(args.schedule, args.lr, args.steps)
-    opt, _ = build_optimizer(args.optimizer, lr, inv_freq=args.inv_freq,
-                             rank=args.rank, staleness=args.staleness,
-                             quant=args.quant, use_kernels=args.use_kernels)
+    plan = None
+    if args.chaos:
+        plan = chaos_lib.parse_chaos_spec(args.chaos)
+        if plan.host_faults:
+            raise SystemExit("host chaos sites (kill_shard/delay_shard/"
+                             "drop_collective) need --elastic, which is not "
+                             "ported yet (ROADMAP.md queue 1 item 8: "
+                             "elastic)")
+    opt, mcfg = build_optimizer(args.optimizer, lr, inv_freq=args.inv_freq,
+                                rank=args.rank, staleness=args.staleness,
+                                quant=args.quant,
+                                use_kernels=args.use_kernels,
+                                health=args.health)
+    if plan is not None and plan.injections:
+        if mcfg is None:
+            raise SystemExit("--chaos needs an MKOR optimizer (the "
+                             "injection sites live in MKOR state)")
+        opt = chaos_lib.chaotic(opt, plan, mcfg)
+    if args.health and mcfg is None:
+        raise SystemExit("--health needs an MKOR optimizer")
     params = model_lib.init_params(cfg, seed=args.seed, device=device)
     print(f"arch={cfg.name} params={model_lib.param_count(params):,} "
           f"optimizer={args.optimizer} steps={args.steps} "
@@ -142,6 +181,8 @@ def main(argv: Optional[List[str]] = None) -> float:
           + (f" rank={args.rank} staleness={args.staleness} "
              f"quant={args.quant}" if args.optimizer in ("mkor", "mkor_h")
              else "")
+          + (" health" if args.health else "")
+          + (f" chaos={args.chaos}" if args.chaos else "")
           + (" kernels=cuda" if args.use_kernels else ""))
 
     ds = pipeline.make_dataset(cfg, global_batch=args.global_batch,

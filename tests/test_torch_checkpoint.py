@@ -90,6 +90,9 @@ STATES = {
     "mkor-bf16-rank2": dict(rank=2),
     "mkor_h-int8-staleness1": dict(factor_quant="int8", staleness=1,
                                    hybrid=True),
+    # the health subtree, with trips: at a pivot tolerance of 1e30 every
+    # inversion trips
+    "mkor-health-rank2": dict(rank=2, health=True, health_pivot_tol=1e30),
     "sgd": None,
 }
 
@@ -266,6 +269,32 @@ def test_corrupt_manifest(tmp_path):
     chaos.corrupt_checkpoint(str(tmp_path), 4, mode="manifest")
     with pytest.raises(t_ckpt.CheckpointCorruptError, match="manifest"):
         t_ckpt.restore(str(tmp_path), 4, _tree())
+
+
+@pytest.mark.parametrize("damage", ["truncate", "arrays", "manifest",
+                                    "marker"])
+def test_port_damage_matches_the_reference_bytes(tmp_path, damage):
+    """The port's checkpoint-damage functions (``training/chaos.py``) on a
+    copy of one checkpoint leave the same files, byte for byte, as the
+    reference's on another copy, and return the same file name."""
+    import shutil
+    from repro_torch.training import chaos as t_chaos
+    src = tmp_path / "src"
+    t_ckpt.save(str(src), 4, _tree(), {"step": 4})
+    outs = []
+    for name, lib in (("jax", chaos), ("port", t_chaos)):
+        d = tmp_path / name
+        shutil.copytree(src, d)
+        path = lib.truncate_checkpoint(str(d), 4, nbytes=40) \
+            if damage == "truncate" else \
+            lib.corrupt_checkpoint(str(d), 4, mode=damage)
+        step_dir = d / "step_00000004"
+        outs.append((os.path.relpath(path, d),
+                     {f: (step_dir / f).read_bytes()
+                      for f in sorted(os.listdir(step_dir))}))
+    assert outs[0] == outs[1]
+    with pytest.raises(ValueError, match="unknown corrupt mode"):
+        t_chaos.corrupt_checkpoint(str(tmp_path / "port"), 4, mode="other")
 
 
 def test_restore_latest_valid_rolls_back_past_corruption(tmp_path):

@@ -973,3 +973,151 @@ def test_cuda_first_order_chunks_equal_the_per_step_loop(cuda_device, name):
     assert all(torch.equal(got[k], w) for k, w in want.items())
     if name == "sgd":
         assert t["mu"] is None
+
+
+# --------------------------------------------------------------------- #
+# The health sentinel and the chaos harness on the card
+# --------------------------------------------------------------------- #
+HEALTH_CASES = {"kernels-rank2": dict(use_kernels=True, rank=2),
+                "kernels-int8-rank1": dict(use_kernels=True,
+                                           factor_quant="int8")}
+
+
+def _health_setup(device, kw, steps, health=True, chaos=None):
+    """The reduced bert-large on the card, mkor(lamb) at inv_freq 3 with
+    ``health``, wrapped by ``chaotic`` with the injections ``chaos``
+    ((site, step), ...) when given; ``steps`` numpy batches."""
+    from repro_torch.configs import bert_large
+    from repro_torch.core import firstorder
+    from repro_torch.core.mkor import MKORConfig, mkor
+    from repro_torch.data import pipeline
+    from repro_torch.models import model as model_lib
+    from repro_torch.training import chaos as t_chaos
+    from repro_torch.training import loop as t_loop
+    cfg = bert_large.CONFIG.reduced()
+    mcfg = MKORConfig(inv_freq=3, health=health, **kw)
+    opt = mkor(firstorder.lamb(1e-3), mcfg)
+    if chaos:
+        plan = t_chaos.ChaosPlan(tuple(t_chaos.Injection(site=s, step=i)
+                                       for s, i in chaos))
+        opt = t_chaos.chaotic(opt, plan, mcfg)
+    params = model_lib.init_params(cfg, seed=0, device=device)
+    ds = pipeline.make_dataset(cfg, global_batch=2, seq_len=16, seed=0)
+    batches = [pipeline.make_batch(ds, i) for i in range(steps)]
+    return t_loop.make_train_step(cfg, opt), params, opt.init(params), \
+        batches
+
+
+def _is_reset(bank):
+    for side in ("l", "r"):
+        q = bank[f"{side}_inv"]
+        eye = torch.eye(q.shape[-1], device=q.device)
+        eye = (eye * 127 if q.dtype == torch.int8 else eye).to(q.dtype)
+        if not torch.equal(q, eye.expand(q.shape)):
+            return False
+        if f"{side}_scale" in bank:
+            sc = bank[f"{side}_scale"]
+            if not torch.equal(sc, torch.full_like(sc, 1.0 / 127)) or \
+                    bank[f"{side}_ef"].any():
+                return False
+    return True
+
+
+@pytest.mark.cuda
+def test_cuda_health_signals_propagate_nan(cuda_device):
+    """The sentinel's max|x| (``vector_norm(inf)``) is NaN with a NaN and
+    inf with an inf on the card, in fp32 and bf16, at a size that takes a
+    multi-block reduction, so it alone says whether every element is
+    finite."""
+    from repro_torch.core import mkor as t_mkor
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((3, 1024, 1024), device=cuda_device).to(dtype)
+        assert torch.isfinite(t_mkor._absmax(x))
+        for val in (float("nan"), float("inf"), float("-inf")):
+            y = x.clone()
+            y[2, 1000, 77] = val
+            m = t_mkor._absmax(y)
+            assert not torch.isfinite(m) and \
+                bool(t_mkor._any_nonfinite([x, y]))
+            assert bool(~(m <= 200.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(HEALTH_CASES))
+def test_cuda_health_clean_step_and_injected_trip(cuda_device, case):
+    """A clean step with health on equals the step with it off from the
+    same state (banks and windows bit for bit; params and LAMB's moments
+    within the replay bound, fused_precond's atomics); then grad_nan at
+    count 1 (off-phase for the first bucket) trips that bucket alone,
+    resets its banks to the exact identity (int8: codes 127·I, scale
+    1/127, error feedback 0) and arms its cooldown."""
+    kw = HEALTH_CASES[case]
+    from repro_torch.training import loop as t_loop
+    step_on, params, s_on, batches = _health_setup(cuda_device, kw, 3)
+    step_off, _, s_init, _ = _health_setup(cuda_device, kw, 3, health=False)
+    b0 = t_loop.batch_to_device(batches[0], cuda_device)
+    p_on, s_on, _ = step_on(params, s_on, b0)
+    p_off, s_off, _ = step_off(params, s_init, b0)
+    for key in ("factor_banks", "stat_windows"):
+        if key in s_off:
+            got, want = dict(_paths(s_on[key])), dict(_paths(s_off[key]))
+            assert all(torch.equal(got[k], w) for k, w in want.items()), key
+    assert all(int(h["trips"]) == 0 for h in s_on["health"].values())
+    _replay_vs_eager((p_on, {k: v for k, v in s_on.items()
+                             if k != "health"}, {}),
+                     (p_off, s_off, {}), True, (params, s_init))
+    step, params, state, batches = _health_setup(
+        cuda_device, kw, 3, chaos=(("grad_nan", 1),))
+    for i, b in enumerate(batches[:2]):
+        params, state, m = step(params, state,
+                                t_loop.batch_to_device(b, cuda_device))
+        assert torch.isfinite(m["loss"]), i
+    target = sorted(state["health"])[0]
+    for bid, h in state["health"].items():
+        assert int(h["trips"]) == (bid == target), bid
+    assert int(state["health"][target]["cooldown"]) == 2
+    assert _is_reset(state["factor_banks"][target])
+    if "stat_windows" in state:
+        for k, t in state["stat_windows"][target].items():
+            assert not t.any(), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(HEALTH_CASES))
+def test_cuda_health_replays_through_a_trip_equal_eager(cuda_device, case):
+    """grad_nan at count 4 and factor_inf at count 5 (int8: grad_nan
+    twice), 9 steps in chunks of 3 through the chunk runner: every replay
+    equals the eager step from the same state, the trips land on their
+    steps, and one graph a residue (the hits ride plan scalars)."""
+    from repro_torch.training import loop as t_loop
+    from repro_torch.tree import tree_map
+    kw = HEALTH_CASES[case]
+    second = "grad_nan" if kw.get("factor_quant") == "int8" else \
+        "factor_inf"
+    step, params, state, batches = _health_setup(
+        cuda_device, kw, 9, chaos=(("grad_nan", 4), (second, 5)))
+    runner = t_loop.make_chunk_runner(step)
+    replay, trips = runner._replay, {}
+
+    def checked_replay(g):
+        p, s, b = tree_map(torch.clone, (*runner._tree_at(runner.host),
+                                         runner._batch))
+        mark = build.count_mark()
+        ep, es, em = step(p, s, b)
+        build.rewind_counts(mark)
+        replay(g)
+        after = [h + d for h, d in zip(runner.host, g.delta)]
+        got_p, got_s = runner._tree_at(after)
+        metrics = dict(zip(runner._keys, runner._metrics))
+        _replay_vs_eager((got_p, got_s, metrics),
+                         (ep, es, {k: em[k].float() for k in runner._keys}),
+                         True, (p, s))
+        trips[int(s["count"])] = sum(int(h["trips"])
+                                     for h in got_s["health"].values())
+
+    runner._replay = checked_replay
+    _, state_out, hist = t_loop.train_epoch(step, params, state, batches,
+                                            chunk=3, runner=runner)
+    assert len(runner.graphs) == 3 and len(trips) == 6
+    assert all(torch.isfinite(torch.tensor(h["loss"])) for h in hist)
+    assert trips[4] == 1 and trips[5] == 2 and trips[8] == 2, trips

@@ -178,14 +178,11 @@ def test_mkor_autoencoder_banks_match(ae_params):
 
 
 # the ids are the ones pytest gave these cases when each was one (field,
-# value) pair; int8 factor state is ported, so its case now pairs it with
-# the health sentinel, which is not
+# value) pair; the health sentinel is ported, and its cases went with the
+# check they tested (tests/test_torch_health.py holds its config checks)
 @pytest.mark.parametrize("overrides", [
     pytest.param({"dist": (("data", 2),)}, id="dist-value0"),
     pytest.param({"live": (True, False)}, id="live-value1"),
-    pytest.param({"health": True}, id="health-True"),
-    pytest.param({"factor_quant": "int8", "health": True},
-                 id="factor_quant-int8-health-True"),
     pytest.param({"layout": "per_layer"}, id="layout-per_layer")])
 def test_unported_configs_raise(overrides):
     cfg = t_mkor.MKORConfig(**overrides)

@@ -33,8 +33,14 @@ torch.set_num_threads(2)
 CPU = torch.device("cpu")
 
 CONFIGS = [dict(rank=1), dict(rank=2), dict(rank=1, staleness=1),
-           dict(rank=1, factor_quant="int8")]
-IDS = ["bf16-rank1", "bf16-rank2", "bf16-staleness1", "int8-rank1"]
+           dict(rank=1, factor_quant="int8"),
+           # the health sentinel's subtree; at a pivot tolerance of 1e30
+           # every inversion trips, so the carried health leaves are not 0
+           dict(rank=2, staleness=1, health=True),
+           dict(rank=2, factor_quant="int8", health=True,
+                health_pivot_tol=1e30)]
+IDS = ["bf16-rank1", "bf16-rank2", "bf16-staleness1", "int8-rank1",
+       "bf16-rank2-staleness1-health", "int8-rank2-health-pivot"]
 
 
 def _host(tree):
@@ -222,6 +228,11 @@ def test_two_steps_from_a_carried_state_match(ae_params, kw):
         tp = t_fo.apply_updates(tp, tu)
         assert _max_err(jp, tp) < 1e-5
     assert int(ts["count"]) == int(js["count"]) == 5
+    if "health" in js:
+        for bid, h in js["health"].items():
+            for k, leaf in h.items():
+                assert ts["health"][bid][k].dtype == torch.int32
+                assert int(ts["health"][bid][k]) == int(leaf), (bid, k)
     for key in ("factor_banks", "pending_banks"):
         if key not in js:
             continue

@@ -3,6 +3,7 @@ optimizers, and a run split by a checkpoint and resumed, bit-equal to an
 unbroken one), the GPU-by-default rule of the entry points, and the
 isolation of the port from JAX, the JAX package and msgpack."""
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -68,6 +69,45 @@ def test_train_launcher_eva_names_its_roadmap_item():
     with pytest.raises(SystemExit, match="queue 1 item 6"):
         t_train.main(["--arch", "bert-large", "--reduced", "--optimizer",
                       "eva", "--steps", "1", "--device", "cpu"])
+
+
+def _health_lines(capsys, chunk):
+    final = t_train.main(["--arch", "bert-large", "--reduced", "--steps",
+                          "6", "--global-batch", "2", "--seq-len", "16",
+                          "--inv-freq", "2", "--rank", "2", "--health",
+                          "--chaos", "grad_nan@2", "--log-every", "1",
+                          "--chunk", str(chunk), "--device", "cpu"])
+    out = capsys.readouterr().out
+    # the wall-clock column is all that may differ
+    return final, [re.sub(r" \([0-9.]+s\)$", "", line)
+                   for line in out.splitlines()]
+
+
+def test_train_launcher_health_and_chaos_cpu(capsys):
+    """``--health --chaos grad_nan@2``: finite losses, the same lines at
+    ``--chunk 1`` and ``--chunk 4`` (the chunk crossing the injection)."""
+    final, per_step = _health_lines(capsys, 1)
+    final4, chunked = _health_lines(capsys, 4)
+    assert "health chaos=grad_nan@2" in per_step[0]
+    assert chunked == per_step and final4 == final
+    losses = [float(ln.split("loss=")[1].split()[0]) for ln in per_step
+              if ln.startswith("step")]
+    assert len(losses) == 6 and np.isfinite(losses).all()
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--chaos", "kill_shard@2"], "queue 1 item 8"),
+    (["--chaos", "grad_nan@2:0,drop_collective@3"], "queue 1 item 8"),
+    (["--optimizer", "lamb", "--chaos", "grad_nan@1"],
+     "--chaos needs an MKOR optimizer"),
+    (["--optimizer", "sgd", "--health"], "--health needs an MKOR optimizer"),
+    (["--chaos", "gamma_ray@1"], "unknown chaos site")],
+    ids=["host-site", "host-site-mixed", "chaos-lamb", "health-sgd",
+         "unknown-site"])
+def test_train_launcher_health_and_chaos_exits(argv, match):
+    with pytest.raises((SystemExit, ValueError), match=match):
+        t_train.main(["--arch", "bert-large", "--reduced", "--steps", "1",
+                      "--device", "cpu"] + argv)
 
 
 def _resume_args(chunk, steps, ckpt_dir, every=0):
