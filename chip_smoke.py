@@ -34,9 +34,14 @@ Phases (each prints its own lines; any failure exits non-zero):
      quarantined bucket hands them on the step its health gate rejects
      (an Inf in one slice of J or of a factor, an Inf int8 scale, a NaN
      window row): each launch returns, the poison stays in its slice;
+     and fused_block_smw on a finite J that is not positive definite
+     (−10·I) with a full window of equal unit rows: the pivot of that
+     slice NaN (the plain route's and the reference's Cholesky fail
+     there), the others and the update as the plain route's;
   4. full-width bert-large (24 layers, random weights from seed 0, batch 8
      x 128) trained with mkor(lamb) through the kernels on six paths (and
-     with LAMB alone, and with mkor_h(lamb)),
+     with LAMB alone, with mkor_h(lamb), with the health sentinel, in the
+     per-layer layout and with Eva; KFAC and SNGD on an autoencoder),
      each with the launch counts set to 0 just before it and read just
      after:
      a. rank 1, staleness 0 (inv_freq 3): step 0 against the plain route
@@ -93,6 +98,27 @@ Phases (each prints its own lines; any failure exits non-zero):
      j. the same with int8 factor state at rank 1 (inv_freq 3, 15 steps,
         NaN into a gradient of the phase-0 bucket at count 4): the reset
         is codes 127·I, scales 1/127 and error feedback 0, bit for bit;
+     k. the per-layer layout (layout="per_layer", the reference's oracle
+        for the banks) at rank 1 (inv_freq 3) through the per-layer
+        kernel entries, 6 steps: after each step the bank path's step
+        from the same state (the factors carried across), its factors
+        torch.equal where they match, else within the bf16 bound (which
+        held is printed), params and LAMB's moments within replay_tol;
+        fused_precond launched twice as often as on path a (6 layer paths
+        in 3 buckets); then captured like the paths of phase 5;
+     l. the per-layer layout at block rank 4 with staleness 1 (inv_freq
+        4), 8 steps: precompute before each forward pass, every tick's
+        launched factors against the plain route from the same state;
+     m. Eva (eva(lamb)) through launch/train.py --optimizer eva, 4 steps
+        eagerly and in two chunks of 2 (graph replays): finite losses, no
+        kernel of REPLACES; the first step's seen flags (false, then
+        true) and two layers' preconditioned gradients against the
+        float64 dense (vvᵀ + μI)⁻¹ product; Eva's step eager and captured;
+     n. KFAC (inv_freq 3) and SNGD (μ 0.3) on the baseline_net
+        autoencoder (d_in 768, hidden 256/64/256, N = 1024 rows), 6 steps
+        each: every KFAC inversion against float64 torch.linalg.inv,
+        SNGD's first step against the dense float64 (F + NμI)⁻¹ at the
+        layers of width 256 x 64, no kernel of REPLACES;
      each profiled step also lists the host's waits on the device; on
      every path every GEMM of matmul and fused_precond (and of their int8
      variants) must run on the Hopper core (per-core counts);
@@ -213,6 +239,15 @@ PATH_KERNELS = {
                ("fused_smw",)),
     "int8_health": (("fused_smw[int8]",) + _INT8_GEMMS,
                     _NOT_INT8 + ("fused_block_smw[int8]",)),
+    # the per-layer layout through the per-layer entries: rank 1, and
+    # rank 4 at staleness 1
+    "per_layer_rank1": (("fused_smw", "fused_precond", "matmul"),
+                        ("fused_block_smw",)),
+    "per_layer_rank4_stale1": (("fused_block_smw", "fused_precond",
+                                "matmul"), ("fused_smw",)),
+    # the baselines reach no Pallas kernel in the reference
+    "eva": ((), tuple(REPLACES)),
+    "baselines": ((), tuple(REPLACES)),
 }
 # the paths whose GEMMs all run on the Hopper core: every one (bf16
 # factors, and int8 codes widened to bf16 in shared memory)
@@ -233,6 +268,10 @@ HYBRID_FLIP = 4                   # min steps 3, threshold 1: off at count 4
 HYBRID_CHUNK = 3                  # captured: the flip inside chunk 2
 HEALTH_STEPS = 18                 # path i: every injected bucket re-enters
 INT8_HEALTH_STEPS = 15            # path j: likewise
+PER_LAYER_STEPS = 6               # path k: two full inv_freq=3 windows
+PER_LAYER4_STEPS = 8              # path l: rank 4, staleness 1, inv_freq 4
+EVA_STEPS = 4                     # path m: eager, and two chunks of 2
+BASELINE_STEPS = 6                # path n: KFAC and SNGD, each
 # each path's numbers for the closing summary lines
 SUMMARY = collections.defaultdict(dict)
 
@@ -749,6 +788,49 @@ def check_poisoned_kernels(torch):
         require(hit and same, f"poisoned {tag}: the poison did not stay in "
                 "its slice")
         del want, got
+
+
+def check_non_pd_pivot(torch):
+    """fused_block_smw's pivot where the mid matrix is not positive
+    definite: at the bert-large 24 x 1024^2 bank (bf16), slice 5 a finite
+    J that is not positive definite (−10·I), the others near the
+    identity, every slice with a full window of r = 4 equal unit rows.
+    The mid matrix of slice 5 then has a negative eigenvalue: its pivot
+    must be NaN, as the plain route's Cholesky (and the reference's
+    ``smw_block_update(with_pivot=True)``) gives; every other pivot finite
+    and within 1e-3 of the plain one; the update finite and within the
+    elementwise bf16 bound of the plain route in every slice."""
+    from repro_torch.core.mkor import block_weights
+    from repro_torch.kernels import rank1_smw as rk
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    b, d, r, bad = 24, 1024, 4, 5
+    j = near_identity(torch, b, d, gen, torch.bfloat16)
+    j[bad] = (-10.0 * torch.eye(d, device="cuda")).to(torch.bfloat16)
+    v = torch.ones((b, r, d), device="cuda") / math.sqrt(d)
+    sq, gm = block_weights(torch.full((b,), r, device="cuda"), r, 0.9)
+    vt = (v * sq[..., None]).contiguous()
+    keep = torch.arange(b, device="cuda") != bad
+    for variant in ("paper", "exact_smw"):
+        got, piv = rk.fused_block_smw(j, vt, gm, variant=variant,
+                                      with_pivot=True)
+        want, want_piv = rk.fused_block_smw_plain(j, vt, gm,
+                                                  variant=variant,
+                                                  with_pivot=True)
+        torch.cuda.synchronize()
+        err, ratio = bf16_close(got, want)
+        p_rel = float(((piv[keep] - want_piv[keep]).abs()
+                       / want_piv[keep].abs()).max())
+        print(f"non-PD mid matrix ({variant}): pivot of slice {bad} kernel "
+              f"{piv[bad].item()}, plain {want_piv[bad].item()}; the other "
+              f"pivots within {p_rel:.3e} of the plain ones (tol 1e-3); "
+              f"update max_abs_err {err:.3e}, worst ratio {ratio:.3f} "
+              "(tol 1)")
+        require(math.isnan(piv[bad].item()) and
+                math.isnan(want_piv[bad].item()),
+                f"non-PD mid matrix ({variant}): the pivot is not NaN")
+        require(p_rel <= 1e-3 and bool(torch.isfinite(got).all()) and
+                math.isfinite(ratio) and ratio <= 1.0,
+                f"non-PD mid matrix ({variant}): pivots or update differ")
 
 
 L2_FLUSH_BYTES = 128 * 2 ** 20    # scratch for a cold L2: 2.5x the 50 MB
@@ -1445,15 +1527,19 @@ class PlainTee:
     (``core.mkor.fused_block_smw_plain``) while it runs.  The plain route
     launches no kernel, so the launch counts stay those of the main path;
     ``in_plain`` is True while it runs.  ``events`` records the call order
-    of precompute and update."""
+    of precompute and update.  ``keys`` name the state's active and pending
+    factors: the banks, or the per-layer layout's ``factors`` and
+    ``pending_factors`` (``phases`` then keyed by layer)."""
 
     def __init__(self, torch, opt_k, opt_p, phases, inv_freq,
-                 update_at=(), tick_at=(), compare=None, block=None):
+                 update_at=(), tick_at=(), compare=None, block=None,
+                 keys=("factor_banks", "pending_banks")):
         self.torch, self.opt_k, self.opt_p = torch, opt_k, opt_p
         self.phases, self.inv_freq = phases, inv_freq
         self.update_at, self.tick_at = set(update_at), set(tick_at)
         self.compare = compare or compare_banks
         self.block = block
+        self.keys = keys
         self.events, self.compared = [], []
         self.in_plain = False
 
@@ -1487,8 +1573,8 @@ class PlainTee:
             plain = self.plain(self.opt_p.precompute, state, params=params,
                                **kw)
             self.torch.cuda.synchronize()
-            self.compare(f"tick {count} pending", new["pending_banks"],
-                         plain["pending_banks"], self.due(count))
+            self.compare(f"tick {count} pending", new[self.keys[1]],
+                         plain[self.keys[1]], self.due(count))
             self.compared.append(count)
         return new
 
@@ -1501,8 +1587,8 @@ class PlainTee:
             plain = self.plain(self.opt_p.update, grads, state,
                                params=params, stats=stats, **kw)
             self.torch.cuda.synchronize()
-            self.compare(f"step {count}", out[1]["factor_banks"],
-                         plain[1]["factor_banks"], self.due(count))
+            self.compare(f"step {count}", out[1][self.keys[0]],
+                         plain[1][self.keys[0]], self.due(count))
             self.compared.append(count)
         return out
 
@@ -1563,6 +1649,13 @@ def run_path(torch, dev, name, step_fn, opt, params, ds, steps,
     SUMMARY[name]["eager_ms"] = statistics.median(clean)
     SUMMARY[name]["eager_peak"] = (peak if last is None or last == steps - 1
                                    else peak_after / 2 ** 30)
+    require_path_kernels(name, counts, cores, fallbacks)
+    return params, state, counts
+
+
+def require_path_kernels(name, counts, cores, fallbacks):
+    """Print a path's launch and core counts and hold them to
+    PATH_KERNELS, with no fallback and every GEMM on the Hopper core."""
     print(f"[{name}] launch counts {counts}, GEMM cores {cores}, fallbacks "
           f"{fallbacks}")
     must, must_not = PATH_KERNELS[name]
@@ -1580,7 +1673,6 @@ def run_path(torch, dev, name, step_fn, opt, params, ds, steps,
         require(cores.get("wmma", 0) == 0 and
                 cores.get("wgmma", 0) == gemms,
                 f"{name}: GEMM cores {cores}, expected all {gemms} on wgmma")
-    return params, state, counts
 
 
 def profile_and_phases(torch, dev, cfg, ds, step_fn, opt, params, state,
@@ -2100,6 +2192,11 @@ def summary_lines():
             return "not measured"
         return f"{b[1]:.3f} of {b[0]:.3f} ms ({100 * b[1] / b[0]:.1f} %)"
     for name, v in SUMMARY.items():
+        if "graph_ms" not in v:             # paths l and n run eagerly
+            print(f"summary [{name}]: step median eager "
+                  f"{v['eager_ms']:.3f} ms (not captured); peak memory "
+                  f"eager {v['eager_peak']:.3f} GiB")
+            continue
         line = (f"summary [{name}]: step median eager "
                 f"{v['eager_ms']:.3f} ms, captured {v['graph_ms']:.3f} ms; "
                 f"device busy in a profiled step eager "
@@ -2948,6 +3045,449 @@ def health_path(torch, dev, setup, name):
     return collections.Counter(counts) + collections.Counter(g_counts)
 
 
+# ----------------------------------------------------------------------- #
+# The per-layer layout (paths k, l) and the baselines (paths m, n)
+# ----------------------------------------------------------------------- #
+def bank_state_of(torch, state, params, mcfg):
+    """The bank layout's state carrying a per-layer state's factors (each
+    bucket's slots stacked in the manifest's order), its count, switch and
+    backend (rank 1 at staleness 0: no windows)."""
+    from repro_torch.core.mkor import manifest_for
+    banks = {b.bucket_id: {side: torch.stack([state["factors"][ps][side]
+                                              for ps in b.path_strs])
+                           for side in ("l_inv", "r_inv")}
+             for b in manifest_for(params, mcfg)}
+    return {"count": state["count"], "factor_banks": banks,
+            "hybrid": state["hybrid"], "backend": state["backend"]}
+
+
+def _moments(tree, state):
+    return {"params": tree, "state": {"backend": {
+        k: state["backend"][k] for k in ("m", "v")}}}
+
+
+def train_per_layer_rank1(torch, dev, setup, rank1_counts):
+    """Path k: the per-layer layout at rank 1 (inv_freq 3, stagger)
+    through the per-layer kernel entries, PER_LAYER_STEPS steps.  After
+    each per-layer step, the bank path's step (path a's optimizer) runs
+    from the same state, the factors carried across (per-layer → bank
+    slices), its launches set aside: the factors after the SMW must be
+    ``torch.equal`` (else within the elementwise bf16 bound; which held is
+    printed), params and LAMB's moments within ``replay_tol``
+    (fused_precond's ΣΔ² atomics).  Launches, losses, step time and peak
+    memory are the per-layer steps' alone; fused_precond must launch twice
+    as often as on path a (6 layer paths in 3 buckets).  Returns (counts,
+    (step_fn, params, state))."""
+    from repro_torch.core.mkor import factor_slices
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import build, ops
+    from repro_torch.training import loop as train_lib
+    name = "per_layer_rank1"
+    cfg, params, ds, make = setup
+    opt_l, step_l, _ = make(True, layout="per_layer")
+    _, step_b, mcfg_b = make(True)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ops.reset_fallback_counts()
+    state = opt_l.init(params)
+    losses, times, peaks = [], [], []
+    total = collections.Counter()
+    worst = collections.defaultdict(float)
+    for step in range(PER_LAYER_STEPS):
+        batch = train_lib.batch_to_device(pipeline.make_batch(ds, step), dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        new_p, new_s, metrics = step_l(params, state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+        losses.append(float(metrics["loss"]))
+        mark = build.count_mark()
+        pb, sb, mb = step_b(params, bank_state_of(torch, state, params,
+                                                  mcfg_b), batch)
+        torch.cuda.synchronize()
+        build.rewind_counts(mark)
+        tally = collections.Counter()
+        bank = factor_slices(sb, params, mcfg_b)
+        for key, fac in sorted(new_s["factors"].items()):
+            for side in ("l_inv", "r_inv"):
+                if torch.equal(fac[side], bank[key][side]):
+                    tally["sides equal"] += 1
+                    continue
+                _, ratio = bf16_close(fac[side], bank[key][side])
+                tally["sides within the bf16 bound"] += 1
+                worst["factors"] = max(worst["factors"], ratio)
+                require(math.isfinite(ratio) and ratio <= 1.0,
+                        f"{name}: step {step} {key}/{side} differs from "
+                        "the bank path's")
+        got = dict(flat_paths(_moments(new_p, new_s)))
+        old = dict(flat_paths(_moments(params, state)))
+        for path, w in flat_paths(_moments(pb, sb)):
+            if torch.equal(got[path], w):
+                tally["leaves equal"] += 1
+                continue
+            tally["leaves within replay_tol"] += 1
+            tol = replay_tol(path, w, old[path])
+            ratio = float(((got[path].float() - w.float()).abs()
+                           / tol).max())
+            kind = "params" if path[0] == "params" else f"LAMB {path[2]}"
+            worst[kind] = max(worst[kind], ratio)
+            require(math.isfinite(ratio) and ratio <= 1.0,
+                    f"{name}: step {step} {'/'.join(map(str, path))} "
+                    f"differs from the bank path's by {ratio:.3f} of "
+                    "replay_tol")
+        print(f"[{name}] step {step}: loss {losses[-1]:.6f} (bank path "
+              f"{float(mb['loss']):.6f}); against the bank path's step from "
+              f"the same state: {dict(tally)}")
+        total.update(tally)
+        params, state = new_p, new_s
+        del pb, sb, mb, bank, got, old, new_p, new_s
+    counts = ops.launch_counts()
+    print(f"[{name}] train losses {losses}")
+    require(all(math.isfinite(x) for x in losses), f"{name}: non-finite loss")
+    median = statistics.median(times[1:])
+    print(f"[{name}] step ms {[round(t, 3) for t in times]} (median of steps "
+          f"1-{PER_LAYER_STEPS - 1} {median:.3f} ms; the bank path's steps "
+          f"beside them untimed), peak memory "
+          f"{max(peaks) / 2 ** 30:.3f} GiB (the per-layer steps')")
+    print(f"[{name}] against the bank path over {PER_LAYER_STEPS} steps: "
+          f"{dict(total)}; worst ratio to the bound by kind "
+          f"{dict(worst) or 'none'} (tol 1)")
+    SUMMARY[name]["eager_ms"] = median
+    SUMMARY[name]["eager_peak"] = max(peaks) / 2 ** 30
+    require_path_kernels(name, counts, ops.gemm_core_counts(),
+                         ops.fallback_counts())
+    for k in ("fused_precond", "fused_smw"):
+        print(f"[{name}] {k} launches {counts.get(k, 0)}, path a's "
+              f"{rank1_counts.get(k, 0)} over the same steps "
+              f"({counts.get(k, 0) / max(rank1_counts.get(k, 0), 1):.2f}x)")
+    require(counts.get("fused_precond", 0) ==
+            2 * rank1_counts.get("fused_precond", 0),
+            f"{name}: fused_precond launched {counts.get('fused_precond')} "
+            f"times, not twice path a's {rank1_counts.get('fused_precond')}")
+    profile_and_phases(torch, dev, cfg, ds, step_l, opt_l, params, state,
+                       PER_LAYER_STEPS, name)
+    return counts, (step_l, params, state)
+
+
+def train_per_layer_rank4_stale1(torch, dev, setup):
+    """Path l: the per-layer layout at block rank 4 with staleness 1
+    (inv_freq 4, stagger), PER_LAYER4_STEPS steps: precompute runs before
+    each forward pass, and every tick's launched factors (the pending
+    factors of the layers that tick) are held against the plain route
+    from the same state, as on path c; each layer's second tick consumes
+    a full window, so its pending factors leave the identity.  Returns
+    the launch counts."""
+    from repro_torch.core import stats as statlib
+    from repro_torch.core.mkor import manifest_for
+    from repro_torch.models import model as model_lib
+    from repro_torch.training import loop as train_lib
+    name = "per_layer_rank4_stale1"
+    cfg, params, ds, make = setup
+    kw = dict(layout="per_layer", rank=4, staleness=1, inv_freq=4)
+    opt_k, _, mcfg = make(True, **kw)
+    opt_p, _, _ = make(False, **kw)
+    phases = statlib.layer_phases(manifest_for(params, mcfg), mcfg.inv_freq,
+                                  mcfg.stagger)
+    ticks = [c for c in range(PER_LAYER4_STEPS)
+             if c % mcfg.inv_freq in set(phases.values())]
+    tee = PlainTee(torch, opt_k, opt_p, phases, mcfg.inv_freq, tick_at=ticks,
+                   keys=("factors", "pending_factors"))
+    opt = tee.transformation()
+    step_fn = train_lib.make_train_step(cfg, opt)
+    forward = model_lib.forward
+
+    def traced_forward(*args, **kwargs):
+        tee.events.append("forward")
+        return forward(*args, **kwargs)
+
+    model_lib.forward = traced_forward
+    try:
+        params, state, counts = run_path(torch, dev, name, step_fn, opt,
+                                         params, ds, PER_LAYER4_STEPS,
+                                         skip_times=ticks)
+    finally:
+        model_lib.forward = forward
+    require(tee.events == ["precompute", "forward", "update"]
+            * PER_LAYER4_STEPS, f"{name}: call order {tee.events[:6]}...")
+    require(tee.compared == ticks, f"{name}: compared at {tee.compared}")
+    print(f"[{name}] every step ran precompute, then the forward, then "
+          f"update; ticks compared with the plain route {tee.compared}")
+    for key, fac in sorted(state["pending_factors"].items()):
+        d = fac["l_inv"].shape[-1]
+        eye = torch.eye(d, dtype=fac["l_inv"].dtype, device=dev)
+        moved = (fac["l_inv"] - eye).abs().max().item()
+        print(f"[{name}] pending {key}/l_inv: max |F - I| {moved:.3e}")
+        require(moved > 0, f"{name}: pending {key} is still the identity")
+    return counts
+
+
+def _run_launcher(torch, argv, tag):
+    """``launch/train.py``'s main in this process, its lines printed with
+    ``tag``; returns the logged losses."""
+    import contextlib
+    import io
+    from repro_torch.launch import train as train_cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        train_cli.main(argv)
+    torch.cuda.synchronize()
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"[{tag}] {line}")
+    print(f"[{tag}] {time.perf_counter() - t0:.1f} s in all")
+    return [float(ln.split("loss=")[1].split()[0]) for ln in lines
+            if ln.startswith("step")]
+
+
+def eva_path(torch, dev, setup):
+    """Path m: Eva (``eva(lamb)``, EvaConfig()) at full width.  Through
+    ``launch/train.py --optimizer eva``: EVA_STEPS steps eagerly
+    (``--chunk 1``) and the same in two chunks of 2 (CUDA graph replays);
+    every loss finite, no kernel of REPLACES launched.  The first step by
+    hand: every ``seen`` false before it and true after; for two layers
+    (q and the FFN's output, each all 24 slices) the preconditioned
+    gradient handed to LAMB against the float64 dense (aaᵀ + μI)⁻¹ G
+    (ggᵀ + μI)⁻¹, rescaled to ‖G‖, within the elementwise bf16 bound.
+    Then Eva's step time and memory eager (run_path) and captured
+    (graph_path).  Returns the launch counts."""
+    from repro_torch.core import stats as statlib
+    from repro_torch.core.eva import EvaConfig, eva
+    from repro_torch.core.firstorder import GradientTransformation, lamb
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.training import loop as train_lib
+    name = "eva"
+    cfg, params, ds, _ = setup
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ops.reset_fallback_counts()
+    for chunk in (1, 2):
+        tag = f"{name} launcher --chunk {chunk}"
+        losses = _run_launcher(torch, [
+            "--arch", "bert-large", "--optimizer", "eva", "--steps",
+            str(EVA_STEPS), "--chunk", str(chunk), "--log-every", "1"], tag)
+        require(len(losses) == EVA_STEPS and
+                all(math.isfinite(x) for x in losses),
+                f"{tag}: losses {losses}")
+        torch.cuda.empty_cache()
+    require_path_kernels(name, ops.launch_counts(), ops.gemm_core_counts(),
+                         ops.fallback_counts())
+
+    backend = lamb(1e-3)
+    handed = {}
+
+    def spy_update(grads, state, **kw):
+        handed.setdefault("grads", grads)
+        return backend.update(grads, state, **kw)
+    ecfg = EvaConfig()
+    opt = eva(GradientTransformation(backend.init, spy_update, None,
+                                      backend.plan), ecfg)
+    state = opt.init(params)
+    require(not any(bool(v["seen"]) for v in state["vecs"].values()),
+            f"{name}: seen set before the first step")
+    batch = train_lib.batch_to_device(pipeline.make_batch(ds, 0), dev)
+    (loss, aux), grads = train_lib.value_and_grad(
+        train_lib.make_loss_fn(cfg), params, batch)
+    _, state = opt.update(grads, state, params=params, stats=aux["stats"],
+                          loss=loss)
+    seen = [bool(v["seen"]) for v in state["vecs"].values()]
+    print(f"[{name}] seen after the first step: {sum(seen)} of {len(seen)} "
+          "layers (none before it)")
+    require(all(seen), f"{name}: seen not set after the first step")
+    paths = {statlib.path_str(p): p for p in statlib.iter_dense_layers(params)}
+    for key in ("blocks/0/mixer/q", "blocks/0/mlp/out"):
+        a = state["vecs"][key]["a"].double()
+        g = state["vecs"][key]["g"].double()
+        gw = statlib.tree_get(grads, paths[key])["w"].double()
+
+        def dense_solve(v, x):
+            """(vvᵀ + μI)⁻¹ x by a Cholesky factorization of the dense
+            matrix (symmetric positive definite), in float64."""
+            eye = torch.eye(v.shape[-1], dtype=torch.float64, device=dev)
+            chol = torch.linalg.cholesky(v[..., :, None] * v[..., None, :]
+                                         + ecfg.damping * eye)
+            return torch.cholesky_solve(x, chol)
+        want = dense_solve(g, dense_solve(a, gw).transpose(-1, -2)) \
+            .transpose(-1, -2)
+        want = want * (torch.linalg.vector_norm(gw, dim=(-2, -1),
+                                                keepdim=True)
+                       / torch.linalg.vector_norm(want, dim=(-2, -1),
+                                                  keepdim=True))
+        got = statlib.tree_get(handed["grads"], paths[key])["w"]
+        err, ratio = bf16_close(got, want)
+        print(f"[{name}] first step {key} {tuple(got.shape)} "
+              f"{str(got.dtype).removeprefix('torch.')}: against the "
+              f"float64 dense (vvᵀ + μI)⁻¹ G (ggᵀ + μI)⁻¹ (Cholesky "
+              f"solves), max_abs_err {err:.3e}, "
+              f"worst |got-want| / (2^-7|want| + 1e-5 max|want|) "
+              f"{ratio:.3f} (tol 1)")
+        require(math.isfinite(ratio) and ratio <= 1.0,
+                f"{name}: {key}'s preconditioned gradient differs")
+        del a, g, gw, want, got
+    del handed, grads, aux, state
+    torch.cuda.empty_cache()
+
+    opt = eva(lamb(1e-3), ecfg)
+    step_fn = train_lib.make_train_step(cfg, opt)
+    params, state, counts = run_path(torch, dev, name, step_fn, opt,
+                                     params, ds, EVA_STEPS)
+    batch = train_lib.batch_to_device(pipeline.make_batch(ds, EVA_STEPS),
+                                      dev)
+    SUMMARY[name]["eager_busy"] = profile_step(
+        torch, lambda: step_fn(params, state, batch))
+    g_counts, params, state, runner = graph_path(
+        torch, dev, name, step_fn, params, state, ds, EVA_STEPS, 1)
+    del params, state, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return collections.Counter(counts) + collections.Counter(g_counts)
+
+
+def _kfac_inverses(torch, tag, state, kcfg):
+    """Each layer's KFAC inverses against ``torch.linalg.inv`` of the
+    damped covariance in float64: relative Frobenius error within
+    d·κ·2^-24 (fp32 eigh of a matrix of condition κ)."""
+    worst = 0.0
+    for key, fac in sorted(state["factors"].items()):
+        for side in ("l", "r"):
+            cov = fac[f"{side}_cov"].double()
+            d = cov.shape[-1]
+            damped = cov + kcfg.damping * torch.eye(
+                d, dtype=torch.float64, device=cov.device)
+            want = torch.linalg.inv(damped)
+            ev = torch.linalg.eigvalsh(damped)
+            kappa = float(ev[-1] / ev[0])
+            rel = float(torch.linalg.norm(fac[f"{side}_inv"].double() - want)
+                        / torch.linalg.norm(want))
+            tol = d * kappa * 2.0 ** -24
+            worst = max(worst, rel / tol)
+            print(f"[baselines] {tag} {key}/{side}_inv ({d}x{d}, κ "
+                  f"{kappa:.3f}): relative error {rel:.3e} against float64 "
+                  f"inv (tol d·κ·2^-24 = {tol:.3e})")
+            require(rel <= tol, f"baselines: {tag} {key}/{side}_inv")
+    return worst
+
+
+def _sngd_dense(torch, stats, grads, scfg):
+    """SNGD's first preconditioned gradient at the layers whose dense
+    Fisher block is affordable (d_in·d_out ≤ 16384: the 256 x 64 and
+    64 x 256 layers), against the dense (F + NμI)⁻¹·N ∇w of
+    tests/test_baselines.py in float64 (F = UUᵀ, u_i = vec(a_i g̃_iᵀ)):
+    the port's formula run in float64 within width·κ·2^-53 (κ = 1 +
+    λmax(UᵀU)/(Nμ), the condition of F + NμI); its fp32 result, which the
+    optimizer uses, within c·N·2^-24 of it, c = ‖∇w‖/‖∇w − UZ‖ the
+    cancellation in (∇w − UZ)/μ."""
+    import importlib
+    sngd_lib = importlib.import_module("repro_torch.core.sngd")
+    mu = scfg.damping
+    for i, layer in enumerate(stats["layers"]):
+        gw = grads["layers"][i]["w"]
+        width = gw.shape[0] * gw.shape[1]
+        if width > 16384:
+            continue
+        a64, g64, w64 = (x.double() for x in (layer["A"], layer["G"], gw))
+        n = a64.shape[0]
+        u = (a64[:, :, None] * (g64 * n)[:, None, :]).reshape(n, width)
+        fisher = u.T @ u
+        fisher.diagonal().add_(n * mu)
+        want = (torch.linalg.solve(fisher, w64.reshape(-1)) * n).reshape(
+            gw.shape)
+        del fisher
+        lam = float(torch.linalg.eigvalsh(u @ u.T)[-1])
+        kappa = 1.0 + lam / (n * mu)
+        f64 = sngd_lib.sngd_precondition(layer["A"].double(),
+                                         layer["G"].double(), w64, mu)
+        f32 = sngd_lib.sngd_precondition(layer["A"], layer["G"], gw, mu)
+
+        def rel(x):
+            return float(torch.linalg.norm(x.double() - want)
+                         / torch.linalg.norm(want))
+        cancel = float(torch.linalg.norm(w64)
+                       / torch.linalg.norm(mu * want))
+        tol64 = width * kappa * 2.0 ** -53
+        tol32 = cancel * n * 2.0 ** -24
+        print(f"[baselines] sngd step 0 layers/{i} ({gw.shape[0]}x"
+              f"{gw.shape[1]}, dense width {width}, N {n}, μ {mu}): the "
+              f"formula in float64 {rel(f64):.3e} from the dense "
+              f"(F + NμI)⁻¹ (tol width·κ·2^-53 = {tol64:.3e}, κ "
+              f"{kappa:.3e}); fp32 {rel(f32):.3e} (tol c·N·2^-24 = "
+              f"{tol32:.3e}, cancellation c {cancel:.3e})")
+        require(rel(f64) <= tol64 and rel(f32) <= tol32,
+                f"baselines: sngd layers/{i} differs from the dense form")
+
+
+def baselines_path(torch, dev):
+    """Path n: KFAC (``kfac(sgd(1e-2, momentum 0.9))``, inv_freq 3) and
+    SNGD (μ 0.3, as tests/test_baselines.py trains it) on the
+    ``baseline_net`` autoencoder (d_in 768, hidden 256/64/256, random
+    weights from seed 0, N = 1024 rows of rank-16 data a step),
+    BASELINE_STEPS steps each, full statistics from
+    ``grads_and_full_stats``: every KFAC inversion held against float64
+    ``torch.linalg.inv`` (:func:`_kfac_inverses`), SNGD's first step
+    against the dense float64 form (:func:`_sngd_dense`), every loss
+    finite, no kernel of REPLACES launched.  Returns the launch counts."""
+    import importlib
+    from repro_torch.core import baseline_net
+    from repro_torch.core.firstorder import apply_updates, sgd
+    from repro_torch.kernels import ops
+    kfac_lib = importlib.import_module("repro_torch.core.kfac")
+    sngd_lib = importlib.import_module("repro_torch.core.sngd")
+    name = "baselines"
+    d_in, hidden, n_rows = 768, (256, 64, 256), 1024
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params0 = baseline_net.init_autoencoder(gen, d_in, hidden, device=dev)
+    basis = torch.randn((16, d_in), generator=gen, device=dev) / 4
+
+    def batch(step):
+        g = torch.Generator(device=dev).manual_seed(100 + step)
+        x = torch.randn((n_rows, 16), generator=g, device=dev) @ basis
+        return {"x": x, "y": x}
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ops.reset_fallback_counts()
+    kcfg = kfac_lib.KFACConfig(inv_freq=3, exclude=())
+    scfg = sngd_lib.SNGDConfig(damping=0.3, exclude=())
+    for tag, opt in (("kfac", kfac_lib.kfac(sgd(1e-2, momentum=0.9), kcfg)),
+                     ("sngd", sngd_lib.sngd(sgd(1e-2, momentum=0.9), scfg))):
+        params, state = params0, opt.init(params0)
+        losses, times = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for step in range(BASELINE_STEPS):
+            b = batch(step)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads, stats = baseline_net.grads_and_full_stats(params, b)
+            upd, new_state = opt.update(grads, state, params=params,
+                                        stats=stats)
+            new_params = apply_updates(params, upd)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+            if tag == "kfac" and step % kcfg.inv_freq == 0:
+                _kfac_inverses(torch, f"kfac count {step}", new_state, kcfg)
+            if tag == "sngd" and step == 0:
+                _sngd_dense(torch, stats, grads, scfg)
+            params, state = new_params, new_state
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        median = statistics.median(times[1:])
+        print(f"[{name}] {tag} losses {losses}; step ms "
+              f"{[round(t, 3) for t in times]} (median of steps 1-"
+              f"{BASELINE_STEPS - 1} {median:.3f} ms, checks untimed), "
+              f"peak memory {peak:.3f} GiB (with the checks)")
+        require(all(math.isfinite(x) for x in losses),
+                f"{name}: {tag} non-finite loss")
+        SUMMARY[f"{tag} (autoencoder)"].update(eager_ms=median,
+                                                eager_peak=peak)
+    counts = ops.launch_counts()
+    require_path_kernels(name, counts, ops.gemm_core_counts(),
+                         ops.fallback_counts())
+    return counts
+
+
 def train_paths(torch, dev, setup):
     """Phases 4 and 5: each path's eager run, then its captured version
     from the eager run's final state (its count, and the residues of its
@@ -2961,9 +3501,11 @@ def train_paths(torch, dev, setup):
              "int8_staleness1": (train_int8_staleness1, STALE_STEPS, 3),
              "lamb": (train_lamb, LAMB_STEPS, 1)}
     launches = collections.Counter()
+    eager = {}
     for name, (fn, start, n_keys) in paths.items():
         t0 = time.perf_counter()
         counts, (step_fn, params, state) = fn(torch, dev, setup)
+        eager[name] = counts
         torch.cuda.empty_cache()
         print(f"[{name}] path done in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
@@ -2983,6 +3525,28 @@ def train_paths(torch, dev, setup):
     launches.update(mkor_h_path(torch, dev, setup))
     for name in HEALTH_SPECS:
         launches.update(health_path(torch, dev, setup, name))
+    t0 = time.perf_counter()
+    counts, (step_fn, params, state) = train_per_layer_rank1(
+        torch, dev, setup, eager["rank1"])
+    g_counts, params, state, runner = graph_path(
+        torch, dev, "per_layer_rank1", step_fn, params, state, setup[2],
+        PER_LAYER_STEPS, 3)
+    launches.update(counts)
+    launches.update(g_counts)
+    del params, state, runner, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[per_layer_rank1] path done in {time.perf_counter() - t0:.1f} s")
+    for name, fn in (("per_layer_rank4_stale1", train_per_layer_rank4_stale1),
+                     ("eva", eva_path)):
+        t0 = time.perf_counter()
+        launches.update(fn(torch, dev, setup))
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[{name}] path done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches.update(baselines_path(torch, dev))
+    print(f"[baselines] path done in {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -3023,6 +3587,7 @@ def main() -> int:
     check_fused_precond_int8(torch, rows)
     check_matmul_int8(torch, rows)
     check_poisoned_kernels(torch)
+    check_non_pd_pivot(torch)
     for name in GEMM_KERNELS:
         r = rows[name]
         b_ms, b_by = r.bound(r.bytes, r.ops)

@@ -1,5 +1,6 @@
 """MKOR: Momentum-Enabled Kronecker-Factor-Based Optimizer Using Rank-1
-Updates — the port of the bank-layout paths of ``repro/core/mkor.py``.
+Updates — the port of the single-process paths of ``repro/core/mkor.py``
+(both factor layouts).
 
 Per eligible 2-D layer with weight W (d_in, d_out), gradient G, rank-1
 statistics ā = E[a] (d_in,) and ḡ = E[g] (d_out,):
@@ -119,19 +120,30 @@ counts down on the bucket's phase steps (at staleness 1 the tick neither
 promotes nor launches while it is not 0).  Nothing in the step reads a
 health leaf on the host.
 
-Ported so far: bank layout, rank ≥ 1, staleness 0 or 1, stagger on or
+The per-layer layout (``layout="per_layer"``, the reference's numerical
+oracle for the banks) keeps ``state["factors"][path_str] = {"l_inv",
+"r_inv"}`` of shape ``(*stack, d, d)`` a layer, windows a layer with a
+0-d count ``n``, and ``pending_factors`` at staleness 1.  It runs the
+bank path's schedule (each layer takes its bucket's phase), stabilizer,
+updates and MKOR-H selects one layer at a time; with ``use_kernels`` it
+goes through the per-layer entries of ``kernels/ops.py``, one launch a
+layer side over its stack.  It takes rank ≥ 1, staleness 0 or 1, stagger
+on or off, both variants, MKOR-H and factor storage ``none`` / ``bf16``.
+
+Ported so far: both layouts, rank ≥ 1, staleness 0 or 1, stagger on or
 off, ``variant`` ``paper`` and ``exact_smw``, factor storage ``none`` /
-``bf16`` / ``int8``, MKOR-H, the health sentinel; dist off.  Other
-settings raise ``NotImplementedError`` naming their ROADMAP item (int8 or
-health with the per-layer layout raises ``ValueError``, as in the
-reference).
+``bf16`` / ``int8`` (int8 in the bank layout), MKOR-H, the health
+sentinel (bank layout); dist off.  dist / live raise
+``NotImplementedError`` naming their ROADMAP item; int8 or health with the
+per-layer layout raises ``ValueError``, as in the reference.
 ``MKORConfig`` keeps every field of the reference with the same default,
 with ``use_pallas`` renamed ``use_kernels`` and the Pallas-only
 ``interpret`` dropped.
 
 The state is the reference's tree, key for key, with the reference's
-dtypes and shapes: ``count``, ``factor_banks``, ``stat_windows`` (rank > 1
-or staleness 1), ``pending_banks`` (staleness 1), ``health`` (with
+dtypes and shapes: ``count``, ``factor_banks`` (per-layer: ``factors``),
+``stat_windows`` (rank > 1 or staleness 1), ``pending_banks`` (per-layer:
+``pending_factors``; staleness 1), ``health`` (with
 ``health=True``), ``hybrid`` (MKOR-H's
 switch, ``{"on": bool, "ema_fast": fp32, "ema_slow": fp32}`` scalars on
 the parameters' device, carried unchanged with ``hybrid=False``) and
@@ -292,6 +304,8 @@ def _quant_side_maxabs(side) -> torch.Tensor:
 
 
 def _check_supported(cfg: MKORConfig) -> None:
+    if cfg.layout not in ("bank", "per_layer"):
+        raise ValueError(f"unknown layout {cfg.layout!r}")
     if cfg.rank < 1:
         raise ValueError(f"rank must be >= 1, got {cfg.rank}")
     if cfg.staleness not in (0, 1):
@@ -312,15 +326,9 @@ def _check_supported(cfg: MKORConfig) -> None:
         raise ValueError(
             "factor_quant='int8' requires layout='bank': the scale / "
             "error-feedback state is per bucket")
-    todo = [
-        (cfg.layout != "bank", "layout='per_layer' (ROADMAP queue 1: "
-         "layout='per_layer' and the baselines)"),
-        (cfg.dist is not None or cfg.live is not None,
-         "dist / live (ROADMAP queue 1: distributed)"),
-    ]
-    for bad, what in todo:
-        if bad:
-            raise NotImplementedError(f"MKOR port: {what} is not ported yet")
+    if cfg.dist is not None or cfg.live is not None:
+        raise NotImplementedError("MKOR port: dist / live (ROADMAP queue 1: "
+                                  "distributed) is not ported yet")
     if cfg.variant not in ("paper", "exact_smw"):
         raise ValueError(f"unknown variant {cfg.variant!r}")
 
@@ -439,6 +447,19 @@ def _eligible(path, dense, cfg: MKORConfig) -> bool:
     return lo <= d_in <= hi and lo <= d_out <= hi
 
 
+def _init_factors(dense, cfg: MKORConfig) -> Dict[str, torch.Tensor]:
+    """One layer's identity factors ``(*stack, d, d)`` at the storage
+    dtype, on the layer's device (the per-layer layout)."""
+    stack, _, d_in, d_out = statlib.layer_dims(dense)
+    fd = statlib.factor_storage_dtype(cfg.factor_dtype, cfg.factor_quant)
+    dev = dense["w"].device
+
+    def eye(d):
+        return torch.eye(d, dtype=fd, device=dev).expand(
+            stack + (d, d)).contiguous()
+    return {"l_inv": eye(d_out), "r_inv": eye(d_in)}
+
+
 def manifest_for(tree, cfg: MKORConfig) -> statlib.BucketManifest:
     return statlib.build_bucket_manifest(
         tree, lambda path, dense: _eligible(path, dense, cfg))
@@ -448,6 +469,7 @@ def mkor(backend: GradientTransformation,
          cfg: MKORConfig = MKORConfig()) -> GradientTransformation:
     """MKOR wrapping a first-order ``backend`` (Alg. 1)."""
     _check_supported(cfg)
+    per_layer = cfg.layout == "per_layer"
     quant8 = cfg.factor_quant == "int8"
     store_dtype = statlib.factor_storage_dtype(cfg.factor_dtype,
                                                cfg.factor_quant)
@@ -543,7 +565,36 @@ def mkor(backend: GradientTransformation,
                 delta = rescale_update(delta, gw, n_lead)
         return delta.to(gw.dtype)
 
-    def init(params):
+    def init_per_layer(params):
+        """The per-layer layout's factor state: ``factors`` keyed by path
+        string, each layer's windows with a 0-d count ``n`` (rank > 1 or
+        staleness 1), and distinct ``pending_factors`` at staleness 1."""
+        factors, windows = {}, {}
+        for path in statlib.iter_dense_layers(params):
+            dense = statlib.tree_get(params, path)
+            if not _eligible(path, dense, cfg):
+                continue
+            key = statlib.path_str(path)
+            factors[key] = _init_factors(dense, cfg)
+            if needs_window:
+                stack, _, d_in, d_out = statlib.layer_dims(dense)
+                dev = dense["w"].device
+                windows[key] = {
+                    k: torch.zeros(stack + (cfg.rank, d), dtype=win_dtype,
+                                   device=dev)
+                    for k, d in (("a", d_in), ("g", d_out))}
+                windows[key]["n"] = torch.zeros((), dtype=torch.int32,
+                                                device=dev)
+        state = {"count": step_count(), "factors": factors}
+        if needs_window:
+            state["stat_windows"] = windows
+        if cfg.staleness:
+            state["pending_factors"] = {
+                key: {k: t.clone() for k, t in fac.items()}
+                for key, fac in factors.items()}
+        return state
+
+    def init_banks(params):
         banks, windows = {}, {}
         for b in manifest_for(params, cfg):
             shape = (b.n_slots,) + b.stack
@@ -593,7 +644,11 @@ def mkor(backend: GradientTransformation,
                                              device=dev)
                               for k in ("cooldown", "trips")}
                 for b in manifest_for(params, cfg)}
-        state["hybrid"] = _hybrid_init(dev)
+        return state
+
+    def init(params):
+        state = init_per_layer(params) if per_layer else init_banks(params)
+        state["hybrid"] = _hybrid_init(tree_leaves(params)[0].device)
         state["backend"] = backend.init(params)
         return state
 
@@ -850,7 +905,7 @@ def mkor(backend: GradientTransformation,
     # ------------------------------------------------------------------ #
     # staleness=1: the tick (promote-then-launch) and the per-step work
     # ------------------------------------------------------------------ #
-    def tick(state, tree, view=None):
+    def tick_banked(state, tree, view=None):
         """On each bucket's phase step: active ← pending, and pending ←
         block update of the just-promoted bank from the window the state
         carries (stats through the previous step); the window's count
@@ -945,6 +1000,160 @@ def mkor(backend: GradientTransformation,
         return out, {"factor_banks": new_banks, "pending_banks": new_pending,
                      "stat_windows": new_windows, "health": new_health}
 
+    # ------------------------------------------------------------------ #
+    # layout="per_layer": the reference's per-layer path, the bank path's
+    # numerical oracle.  One factor pair a layer, each stacked layer's
+    # (*stack, d, d) updated whole (one launch a side with kernels); the
+    # same schedule, stabilizer, updates and selects as the bank path.
+    # ------------------------------------------------------------------ #
+    def layer_smw(j, v):
+        """Stabilize, then the rank-1 SMW of one layer's factor with its
+        stats ``v`` (*stack, d)."""
+        jb = stab(j)
+        if cfg.use_kernels:
+            return kops.smw_rank1_update(jb, v, gamma=cfg.gamma,
+                                         variant=cfg.variant, out=jb)
+        return smw_rank1_update(jb, v, cfg.gamma, cfg.variant)
+
+    def layer_block(j, win, name):
+        """Stabilize, then the block update of one layer's factor from its
+        window's ``name`` rows ("a" or "g"), filled ``win["n"]`` times."""
+        jb, cnt = stab(j), win["n"]
+        rows = statlib.window_ordered(win[name], cnt)
+        if cfg.use_kernels:
+            return kops.smw_block_update(jb, rows, gamma=cfg.gamma,
+                                         variant=cfg.variant, n_valid=cnt,
+                                         out=jb)
+        return smw_block_update(jb, rows, cfg.gamma, cfg.variant,
+                                n_valid=cnt)
+
+    def layer_inputs(grads, stats, path):
+        """A layer's gradient and its ā, ḡ (None where the step has none)."""
+        a_vec = statlib.get_a_vec(stats, path) if stats is not None else None
+        return (statlib.tree_get(grads, path)["w"], a_vec,
+                statlib.get_g_vec(grads, path))
+
+    def push_layer(win, a_vec, g_vec):
+        return {"a": statlib.window_push(win["a"], win["n"], a_vec),
+                "g": statlib.window_push(win["g"], win["n"], g_vec),
+                "n": win["n"] + 1}
+
+    def precondition_layer(out, path, l_inv, r_inv, gw, so_on):
+        """Lines 9-10 for one layer (each stack slice rescaled alone); with
+        MKOR-H's switch ``so_on`` off, the raw gradient instead."""
+        if cfg.use_kernels:
+            delta = kops.fused_precondition(l_inv, r_inv, gw,
+                                            rescale=cfg.rescale)
+        else:
+            delta = precondition(l_inv, r_inv, gw)
+            if cfg.rescale:
+                delta = rescale_update(delta, gw, l_inv.ndim - 2)
+        delta = delta.to(gw.dtype)
+        if so_on is not None:
+            delta = torch.where(so_on, delta, gw)     # MKOR-H fallback
+        return statlib.tree_set(out, path,
+                                {**statlib.tree_get(out, path), "w": delta})
+
+    def per_layer_setup(grads, params):
+        tree = params if params is not None else grads
+        return ({statlib.path_str(p): p
+                 for p in statlib.iter_dense_layers(grads)},
+                statlib.layer_phases(manifest_for(tree, cfg), cfg.inv_freq,
+                                     cfg.stagger))
+
+    def update_per_layer(grads, state, params, stats, so_on, off):
+        """The synchronous per-layer step (the reference's
+        ``update_per_layer``); ``so_on`` and ``off`` as in
+        :func:`update_sync`."""
+        count = int(state["count"])
+        paths, phases = per_layer_setup(grads, params)
+        new_factors, new_windows, out = {}, {}, grads
+        for key, fac in state["factors"].items():
+            g_w, a_vec, g_vec = layer_inputs(grads, stats, paths[key])
+            old = (fac["l_inv"], fac["r_inv"])
+            do_inv = not off and count % cfg.inv_freq == phases.get(key, 0)
+            has_stats = a_vec is not None and g_vec is not None
+            l_inv, r_inv = old
+            if cfg.rank > 1:
+                win = state["stat_windows"][key]
+                if has_stats:
+                    # push, then on the phase step consume the window and
+                    # reset its count (the phase step's own stats count)
+                    win = push_layer(win, a_vec, g_vec)
+                    if do_inv:
+                        l_inv, r_inv = _select(so_on, (
+                            layer_block(l_inv, win, "g"),
+                            layer_block(r_inv, win, "a")), old)
+                        zero = torch.zeros_like(win["n"])
+                        win = {**win, "n": zero if so_on is None else
+                               torch.where(so_on, zero, win["n"])}
+                new_windows[key] = win
+            elif has_stats and do_inv:
+                l_inv, r_inv = _select(so_on, (layer_smw(l_inv, g_vec),
+                                               layer_smw(r_inv, a_vec)), old)
+            new_factors[key] = {"l_inv": l_inv, "r_inv": r_inv}
+            if not off:
+                out = precondition_layer(out, paths[key], l_inv, r_inv, g_w,
+                                         so_on)
+        fstate = {"factors": new_factors}
+        if cfg.rank > 1:
+            fstate["stat_windows"] = new_windows
+        return out, fstate
+
+    def tick_per_layer(state, tree, view=None):
+        """:func:`tick_banked` a layer at a time (the reference's
+        ``tick_per_layer``)."""
+        if cfg.hybrid and view is False:
+            return state
+        c_on = state["hybrid"]["on"] if cfg.hybrid else None
+        phases = statlib.layer_phases(manifest_for(tree, cfg), cfg.inv_freq,
+                                      cfg.stagger)
+        count = int(state["count"])
+        active = dict(state["factors"])
+        pending = dict(state["pending_factors"])
+        windows = dict(state["stat_windows"])
+        for key in state["factors"]:
+            if count % cfg.inv_freq != phases.get(key, 0):
+                continue
+            pend, win = pending[key], windows[key]
+            launched = {"l_inv": layer_block(pend["l_inv"], win, "g"),
+                        "r_inv": layer_block(pend["r_inv"], win, "a")}
+            n = torch.zeros_like(win["n"])
+            if c_on is None:
+                active[key], pending[key] = pend, launched
+            else:
+                act = active[key]
+                active[key] = {k: torch.where(c_on, pend[k], act[k])
+                               for k in pend}
+                pending[key] = {k: torch.where(c_on, launched[k], pend[k])
+                                for k in pend}
+                n = torch.where(c_on, n, win["n"])
+            windows[key] = {**win, "n": n}
+        return {**state, "factors": active, "pending_factors": pending,
+                "stat_windows": windows}
+
+    def update_per_layer_async(grads, state, params, stats, so_on, off):
+        """Push this step's stats and precondition with the ACTIVE factors
+        (the reference's ``update_per_layer_async``)."""
+        paths, _ = per_layer_setup(grads, params)
+        new_windows, out = {}, grads
+        for key, fac in state["factors"].items():
+            g_w, a_vec, g_vec = layer_inputs(grads, stats, paths[key])
+            win = state["stat_windows"][key]
+            if a_vec is not None and g_vec is not None:
+                win = push_layer(win, a_vec, g_vec)
+            new_windows[key] = win
+            if not off:
+                out = precondition_layer(out, paths[key], fac["l_inv"],
+                                         fac["r_inv"], g_w, so_on)
+        return out, {"factors": state["factors"],
+                     "pending_factors": state["pending_factors"],
+                     "stat_windows": new_windows}
+
+    def tick(state, tree, view=None):
+        return (tick_per_layer if per_layer else tick_banked)(state, tree,
+                                                              view)
+
     def precompute(state, params=None, view=None, **_):
         """The phase tick of the two-phase protocol: run it at the top of
         the train step, before the gradients exist, then pass
@@ -986,7 +1195,10 @@ def mkor(backend: GradientTransformation,
             hybrid = _hybrid_update(hybrid, loss, hs["hybrid_first"],
                                     hs["hybrid_late"], cfg)
             so_on = hybrid["on"]
-        step = update_async if cfg.staleness else update_sync
+        if cfg.staleness:
+            step = update_per_layer_async if per_layer else update_async
+        else:
+            step = update_per_layer if per_layer else update_sync
         out, fstate = step(grads, state, params, stats, so_on, off)
         # probes are stat taps: never step them, keep backend moments clean
         out = statlib.zero_probes(out)
@@ -1010,7 +1222,10 @@ def mkor_h(backend: GradientTransformation,
 
 def factor_slices(state, tree, cfg: MKORConfig = MKORConfig()):
     """Per-layer ``{path_str: {"l_inv", "r_inv"}}`` views of the factor
-    banks (int8 banks decoded to fp32), for tests and inspection."""
+    state, whatever its layout (int8 banks decoded to fp32), for tests and
+    inspection."""
+    if "factors" in state:                          # layout="per_layer"
+        return dict(state["factors"])
     out = {}
     for bucket in manifest_for(tree, cfg):
         bank = state["factor_banks"][bucket.bucket_id]

@@ -80,16 +80,18 @@ def tree_to_numpy(tree: Any) -> Any:
 
 
 def opt_state_from_numpy(host_state: Any, device: DeviceLike = None) -> Any:
-    """A JAX MKOR, LAMB, SGD or Adam optimizer state (as numpy; a
-    ``chain``'s tuple of states too) → the port's state, every leaf copied
-    with the reference's dtype: factor and pending banks (bf16 or the int8
-    6-key sides, as :func:`banks_from_numpy`), stat windows
-    (:func:`windows_from_numpy`), ``hybrid``, the health sentinel's
-    ``health`` counters (0-d int32) and the backend's moments on
-    ``device`` (SGD's ``mu`` stays ``None`` without momentum); each
-    ``count`` (MKOR's and its backend's) a 0-d int32 tensor on the CPU
-    whatever ``device`` is, as the port keeps it (its schedule branches on
-    it on the host)."""
+    """A JAX MKOR, Eva, KFAC, SNGD, LAMB, SGD or Adam optimizer state (as
+    numpy; a ``chain``'s tuple of states too) → the port's state, every
+    leaf copied with the reference's dtype: factor and pending banks (bf16
+    or the int8 6-key sides, as :func:`banks_from_numpy`), the per-layer
+    layout's ``factors`` and ``pending_factors``, stat windows
+    (:func:`windows_from_numpy`; a per-layer window's count ``n`` a 0-d
+    int32), ``hybrid``, the health sentinel's ``health`` counters (0-d
+    int32), Eva's ``vecs`` (``seen`` a 0-d bool), KFAC's covariances and
+    inverses, and the backend's moments on ``device`` (SGD's ``mu`` stays
+    ``None`` without momentum); each ``count`` (the optimizer's and its
+    backend's) a 0-d int32 tensor on the CPU whatever ``device`` is, as
+    the port keeps it (its schedule branches on it on the host)."""
     dev = resolve_device(device)
 
     def walk(tree):

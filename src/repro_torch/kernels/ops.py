@@ -12,6 +12,14 @@ returned untouched.
 
 A single factor or slice (no lead dims) runs as a bank of one.
 
+MKOR's per-layer layout calls the reference's per-layer entries,
+:func:`smw_rank1_update` (``v`` may be chained rows),
+:func:`smw_block_update` and :func:`fused_precondition`: one layer's
+``(*stack, d, d)`` factor goes through the banked entry with
+``lead = stack``, one launch a layer side.  :func:`matmul_cu` (the
+reference's ``pallas_matmul``) launches ``matmul``.  Launches count under
+the kernels' own names.
+
 There is no counterpart of the TPU plan (``KernelPlan``, ``_pick_block``
 and the 12 MiB VMEM budget): the kernels mask ragged edges themselves, so
 nothing is padded, and the fused precondition keeps its first product in
@@ -159,6 +167,47 @@ def smw_block_update_banked(j: torch.Tensor, v: torch.Tensor, n_valid, *,
 
 
 # ----------------------------------------------------------------------- #
+# Per-layer entries (the reference's, for MKOR's per-layer layout): one
+# layer's factor ``(*stack, d, d)`` goes through the banked entry with
+# ``lead = stack``, so a stacked layer is one launch a side, not one a
+# slice (the reference maps its per-slice kernel over the stack).
+# ----------------------------------------------------------------------- #
+def smw_rank1_update(j_inv: torch.Tensor, v: torch.Tensor, *, gamma: float,
+                     variant: str = "paper",
+                     out: torch.Tensor = None) -> torch.Tensor:
+    """``fused_smw`` on one layer's factor j_inv (*stack, d, d) with stats
+    v (*stack, d), or (*stack, r, d) chained oldest first (one launch a
+    row).  ``out`` (may be ``j_inv``) receives the update in place."""
+    if v.ndim != j_inv.ndim:
+        return smw_rank1_update_banked(j_inv, v, gamma=gamma,
+                                       variant=variant, out=out)
+    for i in range(v.shape[-2]):
+        j_inv = smw_rank1_update_banked(j_inv, v[..., i, :], gamma=gamma,
+                                        variant=variant, out=out)
+        out = j_inv                     # the next row updates it in place
+    return j_inv
+
+
+def smw_block_update(j_inv: torch.Tensor, v: torch.Tensor, *, gamma: float,
+                     variant: str = "paper", n_valid=None,
+                     with_pivot: bool = False, out: torch.Tensor = None):
+    """``fused_block_smw`` on one layer's factor j_inv (*stack, d, d) from
+    its window rows v (*stack, r, d), oldest first; ``n_valid`` (None: a
+    full window) broadcastable to ``stack``.  ``with_pivot`` also returns
+    the smallest pivot over the stack (0-d fp32)."""
+    return smw_block_update_banked(
+        j_inv, v, v.shape[-2] if n_valid is None else n_valid, gamma=gamma,
+        variant=variant, with_pivot=with_pivot, out=out)
+
+
+def matmul_cu(a: torch.Tensor, b: torch.Tensor, *,
+              out_dtype=torch.float32) -> torch.Tensor:
+    """A @ B through ``csrc/matmul.cu`` (the reference's
+    ``pallas_matmul``): 2-D, or 3-D batched (a 2-D operand broadcast)."""
+    return mm.matmul(a, b, out_dtype=out_dtype)
+
+
+# ----------------------------------------------------------------------- #
 # Precondition
 # ----------------------------------------------------------------------- #
 def two_sided_precondition(l_inv: torch.Tensor, r_inv: torch.Tensor,
@@ -167,9 +216,20 @@ def two_sided_precondition(l_inv: torch.Tensor, r_inv: torch.Tensor,
     dims of ``g_w`` broadcast the 2-D factors."""
     lead = tuple(g_w.shape[:-2])
     g3 = g_w.reshape((-1,) + tuple(g_w.shape[-2:])).contiguous()
-    t = mm.matmul(r_inv.contiguous(), g3)
-    out = mm.matmul(t, l_inv.contiguous())
+    t = matmul_cu(r_inv.contiguous(), g3)
+    out = matmul_cu(t, l_inv.contiguous())
     return out.reshape(lead + tuple(out.shape[-2:]))
+
+
+def fused_precondition(l_inv: torch.Tensor, r_inv: torch.Tensor,
+                       g_w: torch.Tensor, *,
+                       rescale: bool = True) -> torch.Tensor:
+    """``fused_precond`` on one layer: factors (*stack, d, d), g_w (*stack,
+    *extra, d_in, d_out) → fp32 ΔW, each stack slice rescaled alone, one
+    launch over the stack.  Extra dims fall back to
+    :func:`two_sided_precondition` (counted and warned), as in the
+    reference."""
+    return fused_precondition_banked(l_inv, r_inv, g_w, rescale=rescale)
 
 
 def fused_precondition_banked(l_inv: torch.Tensor, r_inv: torch.Tensor,

@@ -1,7 +1,7 @@
 """Training launcher of the port (counterpart of ``repro/launch/train.py``):
 
     python -m repro_torch.launch.train --arch bert-large [--reduced] \\
-        --optimizer mkor|mkor_h|lamb|sgd|adamw --steps N \\
+        --optimizer mkor|mkor_h|eva|lamb|sgd|adamw --steps N \\
         --global-batch B --seq-len S --inv-freq F [--rank R] \\
         [--staleness 0|1] [--quant none|bf16|int8] [--use-kernels] \\
         [--chunk N] [--ckpt-dir D [--ckpt-every N]] [--health] \\
@@ -11,8 +11,9 @@ Runs on the GPU unless ``--device cpu`` is given (and raises when there is
 no GPU).  ``--rank`` and ``--staleness`` select block rank-r updates and
 the double-buffered inverse banks (defaults 1 and 0, as in the
 reference).  ``--optimizer`` builds what the reference's launcher builds:
-``mkor`` and ``mkor_h`` (MKOR-H, the sticky switch to first order) on a
-LAMB backend, ``lamb``, ``sgd`` (momentum 0.9) and ``adamw``.  ``--quant`` is the factor storage (``MKORConfig.factor_quant``,
+``mkor`` and ``mkor_h`` (MKOR-H, the sticky switch to first order) and
+``eva`` (the Eva baseline, ``core/eva.py``) on a LAMB backend, ``lamb``,
+``sgd`` (momentum 0.9) and ``adamw``.  ``--quant`` is the factor storage (``MKORConfig.factor_quant``,
 the reference launcher's flag): ``int8`` keeps codes, per-slice scales and
 fp32 error feedback.  ``--use-kernels`` sends MKOR's (and MKOR-H's)
 banked SMW, block update and precondition through the hand-written CUDA
@@ -46,6 +47,7 @@ import numpy as np
 from repro_torch import checkpointing
 from repro_torch.configs import registry
 from repro_torch.core import firstorder, schedule as sched_lib
+from repro_torch.core.eva import EvaConfig, eva
 from repro_torch.core.mkor import MKORConfig, mkor, mkor_h
 from repro_torch.data import pipeline
 from repro_torch.device import resolve_device
@@ -66,8 +68,7 @@ def build_optimizer(name: str, lr, *, inv_freq: int = 10, rank: int = 1,
                           health=health)
         return (mkor if name == "mkor" else mkor_h)(backend, mcfg), mcfg
     if name == "eva":
-        raise SystemExit("eva is not ported yet (ROADMAP.md queue 1 item 6: "
-                         "layout='per_layer' and the baselines)")
+        return eva(backend, EvaConfig()), None
     if name == "lamb":
         return backend, None
     if name == "sgd":

@@ -130,6 +130,35 @@ def test_block_smw_pivot_is_reference_pivot(variant):
     np.testing.assert_allclose(float(piv), min(pivs), rtol=1e-4)
 
 
+def non_pd_window(d=64, r=4):
+    """A finite J that is not positive definite (−10·I) and a full window
+    of r equal unit rows: the mid matrix γ^{2m}I + γ^{3m}S (paper) or
+    γ^m I + S (exact) then has a negative eigenvalue, so the reference's
+    Cholesky pivot is NaN."""
+    j = -10.0 * np.eye(d, dtype=np.float32)
+    v = np.tile(np.ones(d, np.float32) / np.sqrt(d), (r, 1))
+    return j, v
+
+
+@pytest.mark.parametrize("variant", ["paper", "exact_smw"])
+def test_block_smw_pivot_nan_where_mid_not_positive(variant):
+    """The plain route's pivot on a mid matrix that is not positive
+    definite is NaN, as ``repro.core.mkor.smw_block_update(with_pivot=
+    True)`` gives there (``csrc/block_smw.cu`` exports NaN for a pivot
+    that is not positive; tests/test_torch_cuda.py holds the kernel to
+    the same input); the update itself stays finite and matches."""
+    j, v = non_pd_window()
+    want, want_piv = j_mkor.smw_block_update(jnp.asarray(j), jnp.asarray(v),
+                                             0.9, variant, with_pivot=True)
+    assert np.isnan(float(want_piv))
+    got, piv = t_ops.smw_block_update_banked(
+        torch.tensor(j)[None], torch.tensor(v)[None], v.shape[0], gamma=0.9,
+        variant=variant, with_pivot=True)
+    assert piv.shape == () and torch.isnan(piv)
+    assert torch.isfinite(got).all()
+    _close(np.asarray(want), got[0], 1e-5, 1e-6)
+
+
 def test_block_smw_banked_edges():
     """An empty owner chunk comes back untouched; one factor with no lead
     dims runs as a bank of one; ``out`` may be the bank itself."""

@@ -93,6 +93,8 @@ STATES = {
     # the health subtree, with trips: at a pivot tolerance of 1e30 every
     # inversion trips
     "mkor-health-rank2": dict(rank=2, health=True, health_pivot_tol=1e30),
+    "mkor-per_layer-rank2-staleness1": dict(layout="per_layer", rank=2,
+                                            staleness=1),
     "sgd": None,
 }
 

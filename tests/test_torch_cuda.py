@@ -115,6 +115,39 @@ def test_cuda_fused_block_smw_matches_plain(cuda_device, b, d, r, dtype,
     assert torch.equal(inplace, got)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("variant", ["paper", "exact_smw"])
+def test_cuda_block_smw_pivot_nan_where_mid_not_positive(cuda_device, dtype,
+                                                         variant):
+    """A bank of I and a finite J that is not positive definite (−10·I),
+    each with a full window of r equal unit rows: the second slice's mid
+    matrix has a negative eigenvalue, so its pivot is NaN, as the plain
+    route's Cholesky (and the reference's) gives; the first slice's
+    pivot matches the plain one; both updates stay finite and match."""
+    d, r = 64, 4
+    eye = torch.eye(d, device=cuda_device)
+    j = torch.stack([eye, -10.0 * eye]).to(dtype)
+    v = torch.ones((2, r, d), device=cuda_device) / d ** 0.5
+    sq, gm = block_weights(torch.full((2,), r, device=cuda_device), r, 0.9)
+    vt = (v * sq[..., None]).contiguous()
+    got, piv = t_rk.fused_block_smw(j, vt, gm, variant=variant,
+                                    with_pivot=True)
+    want, want_piv = t_rk.fused_block_smw_plain(j, vt, gm, variant=variant,
+                                                with_pivot=True)
+    assert torch.isfinite(want_piv[0]) and torch.isnan(want_piv[1])
+    assert torch.isnan(piv[1]) and torch.allclose(piv[0], want_piv[0],
+                                                  rtol=1e-3)
+    assert torch.isfinite(got).all()
+    rel, floor = (2 ** -7, 1e-5) if dtype == torch.bfloat16 else \
+        (1e-5, 1e-6)
+    assert _within(got, want, rel, floor)
+    _, bank_piv = t_ops.smw_block_update_banked(j, v, r, gamma=0.9,
+                                                variant=variant,
+                                                with_pivot=True)
+    assert torch.isnan(bank_piv)                # the bank's min is NaN
+
+
 def _near_identity(d, dtype, gen, device):
     return (torch.eye(d, device=device) + 0.01 * torch.randn(
         (d, d), generator=gen, device=device)).to(dtype)
@@ -636,24 +669,35 @@ CAPTURE_CASES = {
     "plain-rank1": dict(),
     "plain-rank2-staleness1": dict(rank=2, staleness=1),
     "plain-int8-rank1": dict(factor_quant="int8"),
+    # the per-layer layout through the per-layer kernel entries
+    "kernels-per_layer-rank1": dict(use_kernels=True, layout="per_layer"),
+    "kernels-per_layer-rank2-staleness1": dict(
+        use_kernels=True, layout="per_layer", rank=2, staleness=1),
     "lamb": None,
+    "eva": dict(optimizer="eva"),
 }
 
 
 def _graph_setup(device, kw, steps):
     """The reduced bert-large on the card, mkor(lamb) at inv_freq 3 (or
-    LAMB alone), a cosine schedule that moves the learning rate and the
-    bias corrections every step, and ``steps`` numpy batches."""
+    LAMB alone, or eva(lamb) for ``optimizer="eva"``), a cosine schedule
+    that moves the learning rate and the bias corrections every step, and
+    ``steps`` numpy batches."""
     from repro_torch.configs import bert_large
     from repro_torch.core import firstorder, schedule
+    from repro_torch.core.eva import eva
     from repro_torch.core.mkor import MKORConfig, mkor
     from repro_torch.data import pipeline
     from repro_torch.models import model as model_lib
     from repro_torch.training import loop as t_loop
     cfg = bert_large.CONFIG.reduced()
     lr = schedule.warmup_cosine(1e-2, 2, steps)
-    opt = firstorder.lamb(lr) if kw is None else \
-        mkor(firstorder.lamb(lr), MKORConfig(inv_freq=3, **kw))
+    if kw is None:
+        opt = firstorder.lamb(lr)
+    elif kw.get("optimizer") == "eva":
+        opt = eva(firstorder.lamb(lr))
+    else:
+        opt = mkor(firstorder.lamb(lr), MKORConfig(inv_freq=3, **kw))
     params = model_lib.init_params(cfg, seed=0, device=device)
     ds = pipeline.make_dataset(cfg, global_batch=2, seq_len=16, seed=0)
     batches = [pipeline.make_batch(ds, i) for i in range(steps)]
@@ -757,7 +801,9 @@ def test_cuda_chunk_runner_replays_equal_eager(cuda_device, case):
     t_ops.reset_launch_counts()
     _, state_out, hist = t_loop.train_epoch(step, params, state, batches,
                                             chunk=3, runner=runner)
-    n_keys = 1 if kw is None else 3
+    # one graph for LAMB and Eva (no branch of their own), one a residue
+    # of inv_freq 3 for MKOR
+    n_keys = 1 if kw is None or "optimizer" in kw else 3
     assert len(runner.graphs) == n_keys and len(replayed) == 7 - n_keys
     assert all(torch.isfinite(torch.tensor(h["loss"])) for h in hist)
     assert int(state_out["count"]) == 7

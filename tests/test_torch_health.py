@@ -170,8 +170,9 @@ def _check_states(js, ts, kw):
      "layout='bank'")],
     ids=["per_layer", "cooldown0", "both"])
 def test_health_config_errors_match_reference(overrides, match):
-    """The reference's ValueError, checked before the port's
-    NotImplementedError for ``per_layer``."""
+    """The reference's ValueError for health with ``per_layer`` (the
+    per-layer layout is ported, without the per-bucket sentinel) and for a
+    cooldown below 1."""
     with pytest.raises(ValueError, match=match):
         j_mkor.mkor(j_fo.lamb(1e-3), j_mkor.MKORConfig(**overrides))
     with pytest.raises(ValueError, match=match):

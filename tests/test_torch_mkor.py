@@ -179,12 +179,27 @@ def test_mkor_autoencoder_banks_match(ae_params):
 
 # the ids are the ones pytest gave these cases when each was one (field,
 # value) pair; the health sentinel is ported, and its cases went with the
-# check they tested (tests/test_torch_health.py holds its config checks)
+# check they tested (tests/test_torch_health.py holds its config checks).
+# The per-layer layout is ported: its case now checks that it builds and
+# steps (tests/test_torch_per_layer.py holds it to the reference).
 @pytest.mark.parametrize("overrides", [
     pytest.param({"dist": (("data", 2),)}, id="dist-value0"),
     pytest.param({"live": (True, False)}, id="live-value1"),
     pytest.param({"layout": "per_layer"}, id="layout-per_layer")])
 def test_unported_configs_raise(overrides):
     cfg = t_mkor.MKORConfig(**overrides)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_mkor.mkor(t_fo.lamb(1e-3), cfg)
+    if overrides.get("layout") != "per_layer":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            t_mkor.mkor(t_fo.lamb(1e-3), cfg)
+        return
+    opt = t_mkor.mkor(t_fo.lamb(1e-3), cfg)
+    params = {"fc": {"w": torch.ones((8, 6)), "probe": torch.zeros(6)}}
+    state = opt.init(params)
+    grads = {"fc": {"w": torch.full((8, 6), 0.5), "probe": torch.ones(6)}}
+    stats = {"fc": {"a": torch.ones(8)}}
+    upd, state = opt.update(grads, state, params=params, stats=stats)
+    assert sorted(state["factors"]) == ["fc"] and int(state["count"]) == 1
+    assert not torch.equal(state["factors"]["fc"]["l_inv"].float(),
+                           torch.eye(6))          # count 0: a phase step
+    assert torch.isfinite(upd["fc"]["w"]).all() and \
+        torch.equal(upd["fc"]["probe"], torch.zeros(6))

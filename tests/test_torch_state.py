@@ -38,9 +38,14 @@ CONFIGS = [dict(rank=1), dict(rank=2), dict(rank=1, staleness=1),
            # every inversion trips, so the carried health leaves are not 0
            dict(rank=2, staleness=1, health=True),
            dict(rank=2, factor_quant="int8", health=True,
-                health_pivot_tol=1e30)]
+                health_pivot_tol=1e30),
+           # the per-layer layout: factors, windows and pending factors
+           # keyed by layer
+           dict(rank=1, layout="per_layer"),
+           dict(rank=2, staleness=1, layout="per_layer")]
 IDS = ["bf16-rank1", "bf16-rank2", "bf16-staleness1", "int8-rank1",
-       "bf16-rank2-staleness1-health", "int8-rank2-health-pivot"]
+       "bf16-rank2-staleness1-health", "int8-rank2-health-pivot",
+       "per_layer-rank1", "per_layer-rank2-staleness1"]
 
 
 def _host(tree):
@@ -233,7 +238,8 @@ def test_two_steps_from_a_carried_state_match(ae_params, kw):
             for k, leaf in h.items():
                 assert ts["health"][bid][k].dtype == torch.int32
                 assert int(ts["health"][bid][k]) == int(leaf), (bid, k)
-    for key in ("factor_banks", "pending_banks"):
+    for key in ("factor_banks", "pending_banks", "factors",
+                "pending_factors"):
         if key not in js:
             continue
         if kw.get("factor_quant") == "int8":

@@ -54,7 +54,7 @@ def test_train_launcher_quant_int8_cpu(capsys, rank, staleness):
     assert final == final and abs(final) < 1e3          # finite
 
 
-@pytest.mark.parametrize("optimizer", ["mkor_h", "sgd", "adamw"])
+@pytest.mark.parametrize("optimizer", ["mkor_h", "sgd", "adamw", "eva"])
 def test_train_launcher_optimizers_cpu(capsys, optimizer):
     final = t_train.main(["--arch", "bert-large", "--reduced", "--optimizer",
                           optimizer, "--steps", "3", "--global-batch", "2",
@@ -63,12 +63,6 @@ def test_train_launcher_optimizers_cpu(capsys, optimizer):
     out = capsys.readouterr().out
     assert f"optimizer={optimizer} " in out and "step     2 loss=" in out
     assert final == final and abs(final) < 1e3          # finite
-
-
-def test_train_launcher_eva_names_its_roadmap_item():
-    with pytest.raises(SystemExit, match="queue 1 item 6"):
-        t_train.main(["--arch", "bert-large", "--reduced", "--optimizer",
-                      "eva", "--steps", "1", "--device", "cpu"])
 
 
 def _health_lines(capsys, chunk):
