@@ -37,7 +37,13 @@ Phases (each prints its own lines; any failure exits non-zero):
      and fused_block_smw on a finite J that is not positive definite
      (−10·I) with a full window of equal unit rows: the pivot of that
      slice NaN (the plain route's and the reference's Cholesky fail
-     there), the others and the update as the plain route's;
+     there), the others and the update as the plain route's; the SMW
+     kernels and their int8 bodies on the owned chunk of a data-parallel
+     rank whose tail is zero padding (5 slices of 1024² at world 2): the
+     real slices as the full-bank launch's, the padded slot zero; and
+     fused_precond and its int8 body required to give the same bits on a
+     second call (ΣG² and ΣΔ² in a fixed order), with their times beside
+     the atomic version's (ATOMICS_MS);
   4. full-width bert-large (24 layers, random weights from seed 0, batch 8
      x 128) trained with mkor(lamb) through the kernels on six paths (and
      with LAMB alone, with mkor_h(lamb), with the health sentinel, in the
@@ -119,6 +125,33 @@ Phases (each prints its own lines; any failure exits non-zero):
         each: every KFAC inversion against float64 torch.linalg.inv,
         SNGD's first step against the dense float64 (F + NμI)⁻¹ at the
         layers of width 256 x 64, no kernel of REPLACES;
+     o. data parallel (training/loop.py make_dist_train_step, MKOR with
+        dist): o1, an NCCL group of one rank (rank 1, inv_freq 3), 6
+        eager steps with the bit-tight stat payload, each held against
+        the single-device step from the same state (params, whole state
+        and metrics torch.equal, else the leaf and its difference printed
+        and a failure); 6 eager steps with the default bf16 payload; then
+        captured in chunks of 3 like the paths of phase 5, and the
+        captured dist step in turns with the captured single-device step
+        (dist, single, single, dist); o3, launch/train.py --dist as a
+        user runs it (LAUNCH_DIST): one NCCL rank spawned by the
+        launcher, in chunks of 3, and two spawned gloo ranks on the one
+        card at --chunk 1 with a closing checkpoint ("world": 2 in its
+        metadata), each one's logged losses within LAUNCH_DIST_RTOL of
+        the launcher without --dist; o2, two processes on the one card
+        over gloo (this script with --dist-rank, each rank's output to a
+        file), full bert-large (24 layers), bf16 rank 1 (inv_freq 3, 6
+        steps), int8 rank 4 (inv_freq 4, 8) and bf16 staleness 1
+        (inv_freq 3, 9): after every step each rank's launches (the SMW
+        kernel twice for each phase bucket, each on the rank's owned
+        chunk, as the launch's slice count shows; fused_precond on every
+        bucket), int8 error feedback zero, every leaf's fingerprint (two
+        64-bit sums of its bits) equal across the ranks, and on phase
+        steps rank 0's gathered banks against the single-device optimizer
+        on the same inputs from the same state (torch.equal, else the bf16
+        bound, printed; int8 codes and scales equal); after each run every
+        leaf of both ranks torch.equal through the group; each rank's
+        peak memory;
      each profiled step also lists the host's waits on the device; on
      every path every GEMM of matmul and fused_precond (and of their int8
      variants) must run on the Hopper core (per-core counts);
@@ -165,6 +198,7 @@ import collections
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -215,6 +249,10 @@ PEAK_OPS = {"fused_smw": PEAK_FP32_OPS_PER_S,
             "fused_block_smw[int8]": PEAK_FP32_OPS_PER_S,
             "fused_precond[int8]": PEAK_BF16_OPS_PER_S,
             "matmul[int8 operand]": PEAK_BF16_OPS_PER_S}
+# fused_precond's time, summed over the bert-large shapes, when it still
+# added ΣG² and ΣΔ² with atomics (PERF.md §6: NVIDIA H100 80GB HBM3 at
+# 700 W, the run before the fixed-order sums)
+ATOMICS_MS = {"fused_precond": 6.173, "fused_precond[int8]": 8.186}
 # the kernels each training path must launch (and must not)
 _NOT_INT8 = ("fused_smw", "fused_block_smw", "fused_precond", "matmul")
 _INT8_GEMMS = ("fused_precond[int8]", "matmul[int8 operand]")
@@ -248,6 +286,18 @@ PATH_KERNELS = {
     # the baselines reach no Pallas kernel in the reference
     "eva": ((), tuple(REPLACES)),
     "baselines": ((), tuple(REPLACES)),
+    # data parallel: world 1 over NCCL (bit-tight and bf16 payloads), and
+    # two ranks over gloo, each on its owned chunks
+    "dist_w1": (("fused_smw", "fused_precond", "matmul"),
+                ("fused_block_smw",)),
+    "dist_w1_bf16": (("fused_smw", "fused_precond", "matmul"),
+                     ("fused_block_smw",)),
+    "dist_w2_rank1": (("fused_smw", "fused_precond", "matmul"),
+                      ("fused_block_smw",)),
+    "dist_w2_int8_rank4": (("fused_block_smw[int8]",) + _INT8_GEMMS,
+                           _NOT_INT8 + ("fused_smw[int8]",)),
+    "dist_w2_staleness1": (("fused_block_smw", "fused_precond", "matmul"),
+                           ("fused_smw",)),
 }
 # the paths whose GEMMs all run on the Hopper core: every one (bf16
 # factors, and int8 codes widened to bf16 in shared memory)
@@ -272,6 +322,22 @@ PER_LAYER_STEPS = 6               # path k: two full inv_freq=3 windows
 PER_LAYER4_STEPS = 8              # path l: rank 4, staleness 1, inv_freq 4
 EVA_STEPS = 4                     # path m: eager, and two chunks of 2
 BASELINE_STEPS = 6                # path n: KFAC and SNGD, each
+DIST_STEPS = 6                    # path o1: world 1, rank 1, inv_freq 3
+# path o2: two ranks on the one card, each run's MKORConfig fields (inv_freq
+# 3 unless given) and steps: every bucket's phase twice (its second
+# inversion from a factor off the identity); at staleness 1 each bucket's
+# launch, promote and relaunch
+DIST_RUNS = {
+    "dist_w2_rank1": (dict(), 6),
+    "dist_w2_int8_rank4": (dict(rank=4, inv_freq=4, factor_quant="int8"), 8),
+    "dist_w2_staleness1": (dict(staleness=1), 9)}
+DIST_TIMEOUT = 600                # seconds for both o2 ranks
+# path o3: the launcher's --dist (rank 1, inv_freq 3): NCCL at one rank in
+# chunks of 3, then two gloo ranks on the one card at --chunk 1
+LAUNCH_DIST = {"nccl": (["--dist-devices", "1", "--chunk", "3"], 6),
+               "gloo": (["--dist-devices", "2", "--dist-backend", "gloo",
+                         "--chunk", "1"], 3)}
+LAUNCH_DIST_RTOL = 2e-3           # its losses against the single-device run
 # each path's numbers for the closing summary lines
 SUMMARY = collections.defaultdict(dict)
 
@@ -491,6 +557,10 @@ def check_fused_precond(torch, rows):
                 require(math.isfinite(err) and err <= tol,
                         f"fused_precond {b}x{di}x{do} [{core or route}] "
                         "disagrees with its plain version")
+                # ΣG² and ΣΔ² run in a fixed order: the same bits again
+                require_repeatable(torch, lambda: pc.fused_precond(
+                    r, g, l, rescale=rescale, core=core), got,
+                    f"fused_precond {b}x{di}x{do} [{core or route}]")
                 row.add(err)
                 del got, want
         if main:
@@ -788,6 +858,74 @@ def check_poisoned_kernels(torch):
         require(hit and same, f"poisoned {tag}: the poison did not stay in "
                 "its slice")
         del want, got
+
+
+def check_owned_chunks(torch):
+    """The SMW kernels and their int8 bodies on the owned chunk that the
+    data-parallel path hands them when the world does not divide a bank:
+    5 slices of 1024² at world 2 give chunks of 3, so rank 1 owns slices
+    3 and 4 and one zero-padded slot (a zero factor -- int8: codes and
+    scale 0 -- with a zero vector; for the block update a window count of
+    0).  The real slices must match the full-bank launch (torch.equal, or
+    else the kernel's bound against it, printed), the padded slice must
+    come back zero."""
+    from repro_torch.core.mkor import block_weights
+    from repro_torch.kernels import rank1_smw as rk
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    n, world, d, r = 5, 2, 1024, 4
+    chunk = -(-n // world)
+    own = n - chunk                          # rank 1's real slices
+
+    def rank1_chunk(x):
+        return torch.cat([x[chunk:], x.new_zeros((chunk - own,)
+                                                 + tuple(x.shape[1:]))])
+    for kind in ("bf16", "int8"):
+        if kind == "int8":
+            j, sc = int8_bank(torch, n, d, gen)
+        else:
+            j, sc = near_identity(torch, n, d, gen, torch.bfloat16), None
+        v = torch.randn((n, d), generator=gen, device="cuda")
+        w = torch.randn((n, r, d), generator=gen, device="cuda")
+        cnt = torch.full((n,), r, device="cuda")
+        sq, gm = block_weights(cnt, r, 0.9)
+        vt = (w * sq[..., None]).contiguous()
+        cnt_c = torch.cat([cnt[chunk:], cnt.new_zeros(chunk - own)])
+        sq_c, gm_c = block_weights(cnt_c, r, 0.9)
+        vt_c = (rank1_chunk(w) * sq_c[..., None]).contiguous()
+        sc_c = None if sc is None else rank1_chunk(sc)
+        runs = {
+            "fused_smw": (lambda: rk.fused_smw(j, v, gamma=0.9, scale=sc),
+                          lambda: rk.fused_smw(rank1_chunk(j),
+                                               rank1_chunk(v), gamma=0.9,
+                                               scale=sc_c)),
+            "fused_block_smw": (
+                lambda: rk.fused_block_smw(j, vt, gm, scale=sc),
+                lambda: rk.fused_block_smw(rank1_chunk(j), vt_c, gm_c,
+                                           scale=sc_c))}
+        for name, (full_fn, part_fn) in runs.items():
+            tag = name + ("[int8]" if kind == "int8" else "")
+            full, part = full_fn(), part_fn()
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(part.float()).all()) and
+                    int(torch.count_nonzero(part[own:])) == 0,
+                    f"{tag}: the padded slot of an owned chunk is not zero")
+            real, want = part[:own], full[chunk:]
+            if torch.equal(real, want):
+                how = "torch.equal to the full-bank launch"
+            else:
+                rel, floor = (2.0 ** -7, 1e-5) if kind == "bf16" else \
+                    (1e-5, 1e-6)
+                err, ratio = bf16_close(real, want, rel, floor)
+                require(math.isfinite(ratio) and ratio <= 1.0,
+                        f"{tag}: an owned chunk's real slices differ from "
+                        "the full-bank launch")
+                how = (f"within the bound of the full-bank launch (max abs "
+                       f"err {err:.3e}, ratio {ratio:.3f})")
+            print(f"{tag} on an owned chunk of {chunk} slices of {d}^2 "
+                  f"({own} real, {chunk - own} zero-padded, world {world}): "
+                  f"real slices {how}; padded slot zero")
+            del full, part
+        del j, v, w, vt, vt_c
 
 
 def check_non_pd_pivot(torch):
@@ -1229,6 +1367,9 @@ def check_fused_precond_int8(torch, rows):
                 require(math.isfinite(err) and err <= tol,
                         f"fused_precond[int8] {b}x{di}x{do} "
                         f"[{core or route}] disagrees with its plain version")
+                require_repeatable(torch, lambda: pc.fused_precond(
+                    rq, g, lq, rescale=rescale, core=core, **kw), got,
+                    f"fused_precond[int8] {b}x{di}x{do} [{core or route}]")
                 row.add(err)
                 del got, want
         if main:
@@ -2217,6 +2358,10 @@ def summary_lines():
                      f"{v['turn_post']:.3f} ms against LAMB alone "
                      f"{v['turn_lamb']:.3f} ms; checkpoint {n_bytes:,} "
                      f"bytes, save {t_save:.3f} s, restore {t_restore:.3f} s")
+        if "turn_dist" in v:
+            d, sd = v["turn_dist"], v["turn_single"]
+            line += (f"; in turns captured at world 1 {d:.3f} ms against "
+                     f"the single-device step {sd:.3f} ms ({d - sd:+.3f} ms)")
         if "turn_on" in v:
             on, off = v["turn_on"], v["turn_off"]
             line += (f"; in turns captured with the sentinel {on:.3f} ms "
@@ -2291,7 +2436,7 @@ def profile_step(torch, fn):
         by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
         by_name[e.name][1] += 1
     port = ("mkor::gemm_kernel", "wgmma_gemm_kernel", "sumsq_kernel",
-            "rescale_kernel", "block_smw_kernel")
+            "sum_parts_kernel", "rescale_kernel", "block_smw_kernel")
 
     def is_port(n):
         return any(p in n for p in port)
@@ -3224,22 +3369,30 @@ def train_per_layer_rank4_stale1(torch, dev, setup):
 
 
 def _run_launcher(torch, argv, tag):
-    """``launch/train.py``'s main in this process, its lines printed with
-    ``tag``; returns the logged losses."""
-    import contextlib
-    import io
+    """``launch/train.py``'s main in this process, its lines (and those of
+    the ranks it spawns, which share this process's standard output)
+    printed with ``tag``; returns the logged losses and main's result."""
+    import tempfile
     from repro_torch.launch import train as train_cli
-    buf = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        train_cli.main(argv)
+    with tempfile.TemporaryFile(mode="w+") as f:
+        sys.stdout.flush()
+        saved = os.dup(1)
+        os.dup2(f.fileno(), 1)
+        try:
+            final = train_cli.main(argv)
+        finally:
+            sys.stdout.flush()
+            os.dup2(saved, 1)
+            os.close(saved)
+            f.seek(0)
+            lines = f.read().splitlines()
+            for line in lines:
+                print(f"[{tag}] {line}")
     torch.cuda.synchronize()
-    lines = buf.getvalue().splitlines()
-    for line in lines:
-        print(f"[{tag}] {line}")
     print(f"[{tag}] {time.perf_counter() - t0:.1f} s in all")
     return [float(ln.split("loss=")[1].split()[0]) for ln in lines
-            if ln.startswith("step")]
+            if ln.startswith("step")], final
 
 
 def eva_path(torch, dev, setup):
@@ -3266,7 +3419,7 @@ def eva_path(torch, dev, setup):
     ops.reset_fallback_counts()
     for chunk in (1, 2):
         tag = f"{name} launcher --chunk {chunk}"
-        losses = _run_launcher(torch, [
+        losses, _ = _run_launcher(torch, [
             "--arch", "bert-large", "--optimizer", "eva", "--steps",
             str(EVA_STEPS), "--chunk", str(chunk), "--log-every", "1"], tag)
         require(len(losses) == EVA_STEPS and
@@ -3488,6 +3641,513 @@ def baselines_path(torch, dev):
     return counts
 
 
+# ----------------------------------------------------------------------- #
+# Path o: data parallel (training/loop.py make_dist_train_step,
+# MKORConfig(dist=...)'s owner-sharded inversions)
+# ----------------------------------------------------------------------- #
+def fingerprint(torch, t, block=1 << 24):
+    """Two 64-bit sums of a tensor's bit pattern (plain, and weighted by a
+    position hash; integer arithmetic, wrapping), ``block`` elements at a
+    time: equal tensors give equal pairs, and two that differ in any bit
+    give equal pairs only by a 2^-64 chance."""
+    bits = {1: torch.int8, 2: torch.int16, 4: torch.int32}[t.element_size()]
+    x = t.detach().contiguous().reshape(-1).view(bits)
+    out = torch.zeros((2,), dtype=torch.int64, device=x.device)
+    for s0 in range(0, x.numel(), block):
+        xs = x[s0:s0 + block].to(torch.int64)
+        w = torch.arange(s0, s0 + xs.numel(), device=x.device,
+                         dtype=torch.int64) * 2654435761 + 40503
+        out += torch.stack([xs.sum(), (xs * w).sum()])
+    return out
+
+
+def dist_world1_path(torch, dev, setup):
+    """Path o1: make_dist_train_step over an NCCL group of one rank (the
+    launcher's --dist at --dist-devices 1), rank 1, inv_freq 3, eager with
+    the bit-tight payload, each step against the single-device step from
+    the same state (params, whole state and metrics torch.equal); the
+    default bf16 payload eager; captured in chunks of 3 from the eager
+    run's final state (every replay against the eager dist step); then the
+    captured dist step in turns with the captured single-device step.
+    Returns the launch counts."""
+    import tempfile
+    import torch.distributed as tdist
+    from repro_torch.core import firstorder
+    from repro_torch.core.mkor import MKORConfig, mkor
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import build, ops
+    from repro_torch.training import loop as train_lib
+    cfg, params, ds, make = setup
+    launches = collections.Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tdist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                 rank=0, world_size=1)
+        try:
+            dist = (("data", 1),)
+
+            def dist_step(payload):
+                opt = mkor(firstorder.lamb(1e-3), MKORConfig(
+                    use_kernels=True, inv_freq=3, dist=dist))
+                return opt, train_lib.make_dist_train_step(
+                    cfg, opt, dist, stats_payload_dtype=payload)
+            opt_d, step_d = dist_step(None)
+            _, step_s, _ = make(True)
+            name = "dist_w1"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            ops.reset_fallback_counts()
+            p, s = params, opt_d.init(params)
+            times, losses = [], []
+            for step in range(DIST_STEPS):
+                batch = train_lib.batch_to_device(
+                    pipeline.make_batch(ds, step), dev)
+                mark = build.count_mark()
+                want = step_s(p, s, batch)
+                build.rewind_counts(mark)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = step_d(p, s, batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(got[2]["loss"]))
+                tree = ("params", "state", "metrics")
+                g = dict(flat_paths(dict(zip(tree, got))))
+                w = dict(flat_paths(dict(zip(tree, want))))
+                require(sorted(g, key=str) == sorted(w, key=str),
+                        f"{name}: the dist step's tree is not the "
+                        "single-device step's")
+                bad = [("/".join(map(str, k)),
+                        float((g[k].float() - v.float()).abs().max()))
+                       for k, v in w.items() if not torch.equal(g[k], v)]
+                for tag, diff in bad[:8]:
+                    print(f"[{name}] step {step}: {tag} differs from the "
+                          f"single-device step by max |diff| {diff:.3e}")
+                require(not bad, f"{name}: step {step}: {len(bad)} of "
+                        f"{len(w)} leaves differ from the single-device "
+                        "step")
+                p, s = got[0], got[1]
+                del want, got, g, w
+            counts = ops.launch_counts()
+            require_path_kernels(name, counts, ops.gemm_core_counts(),
+                                 ops.fallback_counts())
+            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            print(f"[{name}] {DIST_STEPS} eager steps over NCCL at world 1, "
+                  "bit-tight payload: params, whole optimizer state and "
+                  "metrics torch.equal to the single-device step from the "
+                  f"same state at every step; losses {losses}; step ms "
+                  f"{[round(t, 3) for t in times]} (median of steps 1-"
+                  f"{DIST_STEPS - 1} {statistics.median(times[1:]):.3f}); "
+                  f"peak memory {peak:.3f} GiB with the comparison copy")
+            SUMMARY[name]["eager_ms"] = statistics.median(times[1:])
+            SUMMARY[name]["eager_peak"] = peak
+            launches.update(counts)
+
+            opt_b, step_b = dist_step("bfloat16")
+            _, _, counts = run_path(torch, dev, "dist_w1_bf16", step_b,
+                                    opt_b, params, ds, DIST_STEPS)
+            launches.update(counts)
+            gc.collect()
+            torch.cuda.empty_cache()
+            g_counts, p, s, runner = graph_path(
+                torch, dev, name, step_d, p, s, ds, DIST_STEPS, 3)
+            launches.update(g_counts)
+            dist_turns(torch, dev, runner, step_s, p, s, ds,
+                       int(s["count"]))
+            del p, s, runner
+            gc.collect()
+            torch.cuda.empty_cache()
+        finally:
+            tdist.destroy_process_group()
+    return launches
+
+
+def dist_turns(torch, dev, runner_d, step_s, params, state, ds, start):
+    """The captured dist step at world 1 and the captured single-device
+    step in turns (dist, single, single, dist; TURN_STEPS one-step chunks
+    each, the first of each turn dropped), from the same state: the cost
+    of the collectives' flat-buffer plumbing at world 1.  The two runners
+    share their static buffers (the second adopts the first's)."""
+    from repro_torch.data import pipeline
+    from repro_torch.training import loop as train_lib
+    runner_s = train_lib.make_chunk_runner(step_s)
+    # capture the single-device step's graphs (one a residue) first
+    params, state, _ = runner_s(params, state, train_lib.stack_batches(
+        [pipeline.make_batch(ds, start + k) for k in range(3)]))
+    i, medians = start + 3, {"dist": [], "single": []}
+    for kind in ("dist", "single", "single", "dist"):
+        runner = runner_d if kind == "dist" else runner_s
+        times = []
+        for _ in range(TURN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, _ = runner(params, state, _one_step(ds, i))
+            times.append((time.perf_counter() - t0) * 1e3)
+            i += 1
+        medians[kind].append(statistics.median(times[1:]))
+        print(f"[dist_w1 turns] {kind} captured: step ms "
+              f"{[round(t, 3) for t in times]}, median of steps 2-"
+              f"{TURN_STEPS} {medians[kind][-1]:.3f}")
+    d, s = (statistics.median(medians[k]) for k in ("dist", "single"))
+    print(f"[dist_w1 turns] captured dist step at world 1 {d:.3f} ms "
+          f"against the single-device step {s:.3f} ms ({d - s:+.3f} ms)")
+    SUMMARY["dist_w1"].update(turn_dist=d, turn_single=s)
+    del runner_s
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dist_launcher_path(torch):
+    """Path o3: ``launch/train.py --dist`` as a user runs it (bert-large,
+    rank 1, inv_freq 3, the default bf16 stat payload, through the
+    kernels), each run against the same launcher without ``--dist``
+    (LAUNCH_DIST): one NCCL rank (--dist-devices 1: a spawned process on
+    cuda:rank % count) in chunks of 3, so the chunk runner captures the
+    collectives; two spawned gloo ranks on the one card at --chunk 1,
+    closing with a checkpoint that rank 0 alone writes ("world": 2 in its
+    metadata).  Each run's logged losses within LAUNCH_DIST_RTOL of the
+    single-device run's, main's result its last loss (rank 0's, through
+    the results queue), and one set of log lines (rank 0 alone prints)."""
+    import tempfile
+    from repro_torch import checkpointing
+    from repro_torch.checkpointing import msgpack_codec
+    for backend, (extra, steps) in LAUNCH_DIST.items():
+        name = f"dist_launcher_{backend}"
+        base = ["--arch", "bert-large", "--use-kernels", "--inv-freq", "3",
+                "--steps", str(steps), "--log-every", "1"]
+        chunk = extra[extra.index("--chunk"):]
+        want, _ = _run_launcher(torch, base + chunk, f"{name} single")
+        torch.cuda.empty_cache()
+        # two ranks share the card (see dist_world2_path); the spawned
+        # ranks take the setting from the environment
+        alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            with tempfile.TemporaryDirectory() as ckpt:
+                argv = base + ["--dist"] + extra
+                if backend == "gloo":
+                    argv += ["--ckpt-dir", ckpt]
+                t0 = time.perf_counter()
+                got, final = _run_launcher(torch, argv, name)
+                seconds = time.perf_counter() - t0
+                meta = None
+                if backend == "gloo":
+                    step = checkpointing.latest_step(ckpt)
+                    require(step is not None and
+                            checkpointing.validate(ckpt, step),
+                            f"{name}: no valid checkpoint in --ckpt-dir")
+                    meta = msgpack_codec.unpackb(
+                        (Path(ckpt) / f"step_{step:08d}" /
+                         "manifest.msgpack").read_bytes())["metadata"]
+                    require(meta.get("world") == 2,
+                            f"{name}: checkpoint metadata {meta}")
+        finally:
+            if alloc is None:
+                os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        torch.cuda.empty_cache()
+        require(len(got) == len(want) == steps and
+                all(math.isfinite(x) for x in got),
+                f"{name}: logged losses {got}, single-device {want}")
+        worst = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+        print(f"[{name}] losses {got} against the single-device launcher "
+              f"{want}: worst relative difference {worst:.3e} (tol "
+              f"{LAUNCH_DIST_RTOL}); main returned {final}"
+              + (f"; checkpoint metadata {meta}" if meta else "")
+              + f"; {seconds:.1f} s")
+        require(worst <= LAUNCH_DIST_RTOL,
+                f"{name}: losses differ from the single-device run")
+        require(float(f"{final:.4f}") == got[-1], f"{name}: main returned "
+                f"{final}, rank 0 logged {got[-1]}")
+
+
+class DistTee:
+    """Wraps a dist MKOR optimizer, keeping what its precompute and update
+    were handed (the state before the tick; the mean gradients, stats and
+    loss and the state the update saw), so that rank 0 can run the
+    single-device optimizer on the same inputs."""
+
+    def __init__(self, opt):
+        from repro_torch.core.firstorder import GradientTransformation
+        self.rec = {}
+
+        def precompute(state, **kw):
+            self.rec["pre"] = (state, kw)
+            return opt.precompute(state, **kw)
+
+        def update(grads, state, **kw):
+            self.rec["update"] = (grads, state, kw)
+            return opt.update(grads, state, **kw)
+        self.opt = GradientTransformation(
+            opt.init, update,
+            precompute if opt.precompute is not None else None, opt.plan,
+            opt.observe)
+
+
+class ChunkLog:
+    """The lead dims (flattened) and d of every banked SMW launch, by
+    wrapping ops' two banked entries (their behaviour unchanged)."""
+
+    def __init__(self, ops):
+        self.launches = []
+        for fn_name in ("smw_rank1_update_banked", "smw_block_update_banked"):
+            fn = getattr(ops, fn_name)
+
+            def wrapped(j, *a, _fn=fn, **kw):
+                n = 1
+                for d in j.shape[:-2]:
+                    n *= d
+                self.launches.append((n, j.shape[-1]))
+                return _fn(j, *a, **kw)
+            setattr(ops, fn_name, wrapped)
+
+
+def _gather_bytes(torch, t):
+    """Both ranks' bytes of ``t`` on the host (rank order), through the
+    host-staged gloo all-gather."""
+    import torch.distributed as tdist
+    host = t.detach().contiguous().reshape(-1).view(torch.uint8).cpu()
+    out = torch.empty((2 * host.numel(),), dtype=torch.uint8)
+    tdist.all_gather_into_tensor(out, host)
+    return out[:host.numel()], out[host.numel():]
+
+
+def dist_world2_run(torch, dev, setup, name, kw, steps, rank, log):
+    """One o2 run in this rank: ``steps`` eager dist steps through the
+    kernels (bit-tight payload).  After every step: the launches (the SMW
+    kernel on this rank's chunk of each phase bucket, fused_precond and
+    matmul on every slice), replication (each leaf's fingerprint against
+    the other rank's), int8 error feedback zero; on phase steps (rank 0)
+    the gathered banks against the single-device optimizer on the same
+    inputs from the same state.  After the last step every leaf of both
+    ranks torch.equal.  ``log``: the :class:`ChunkLog` of the process.
+    Returns the launch counts and what held."""
+    import torch.distributed as tdist
+    from repro_torch.core import firstorder, stats as statlib
+    from repro_torch.core.mkor import MKORConfig, manifest_for, mkor
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import build, ops
+    from repro_torch.sharding import collectives
+    from repro_torch.training import loop as train_lib
+    cfg, params, ds, _ = setup
+    dist = (("data", 2),)
+    kw = {"inv_freq": 3, **kw}
+    tee = DistTee(mkor(firstorder.lamb(1e-3), MKORConfig(
+        use_kernels=True, dist=dist, **kw)))
+    step_d = train_lib.make_dist_train_step(cfg, tee.opt, dist,
+                                            stats_payload_dtype=None)
+    mcfg = MKORConfig(use_kernels=True, **kw)
+    opt_s = mkor(firstorder.lamb(1e-3), mcfg)
+    manifest = manifest_for(params, mcfg)
+    phases = statlib.bucket_phases(manifest, mcfg.inv_freq, mcfg.stagger)
+    slices = {b.bucket_id: statlib.bucket_slices(b) for b in manifest}
+    chunks = {}                       # d -> the chunks of buckets with a d side
+    for b in manifest:
+        for d in (b.d_in, b.d_out):
+            chunks.setdefault(d, set()).add(
+                collectives.owner_chunk(slices[b.bucket_id], 2))
+    quant = kw.get("factor_quant") == "int8"
+    smw = ("fused_block_smw" if kw.get("rank", 1) > 1 or kw.get("staleness")
+           else "fused_smw") + ("[int8]" if quant else "")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    ops.reset_fallback_counts()
+    p, s = params, tee.opt.init(params)
+    held = collections.Counter()
+    losses, times = [], []
+    for step in range(steps):
+        batch = train_lib.batch_to_device(pipeline.make_batch(ds, step), dev)
+        before = ops.launch_counts()
+        log.launches.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, s, m = step_d(p, s, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        now = ops.launch_counts()
+        delta = {k: now.get(k, 0) - before.get(k, 0) for k in now}
+        hit = [b for b in manifest if step % mcfg.inv_freq ==
+               phases[b.bucket_id]]
+        require(delta.get(smw, 0) == 2 * len(hit) and
+                len(log.launches) == 2 * len(hit),
+                f"{name} rank {rank} step {step}: {delta} with "
+                f"{len(hit)} phase buckets")
+        for n, d in log.launches:
+            require(n in chunks[d] and n < max(slices.values()),
+                    f"{name} rank {rank} step {step}: an SMW launch on {n} "
+                    f"slices of {d}^2, not an owned chunk {chunks[d]}")
+        gemm = "fused_precond[int8]" if quant else "fused_precond"
+        require(delta.get(gemm, 0) == len(manifest),
+                f"{name} rank {rank} step {step}: {gemm} {delta}")
+        held["smw launches on owned chunks"] += len(log.launches)
+        if quant:
+            for key in ("factor_banks", "pending_banks"):
+                for bank in s.get(key, {}).values():
+                    require(not bank["l_ef"].any() and not bank["r_ef"].any(),
+                            f"{name} rank {rank} step {step}: error "
+                            "feedback not zero under dist")
+        # replication: every leaf's fingerprint against the other rank's
+        leaves = list(flat_paths({"params": p, "state": s}))
+        fps = torch.stack([fingerprint(torch, t.to(dev))
+                           for _, t in leaves]).cpu()
+        both = torch.empty((2 * fps.shape[0],) + tuple(fps.shape[1:]),
+                           dtype=fps.dtype)
+        tdist.all_gather_into_tensor(both, fps)
+        diff = [("/".join(map(str, k)))
+                for (k, _), a, b in zip(leaves, both[:len(leaves)],
+                                        both[len(leaves):])
+                if not torch.equal(a, b)]
+        require(not diff, f"{name} step {step}: the ranks differ at "
+                f"{diff[:4]} ({len(diff)} leaves)")
+        held["leaf fingerprints equal across ranks"] += len(leaves)
+        if rank == 0 and hit:
+            mark = build.count_mark()
+            if kw.get("staleness"):
+                state_in, pkw = tee.rec["pre"]
+                want = opt_s.precompute(state_in, **pkw)
+                got = tee.rec["update"][1]        # the dist tick's result
+                keys = ("factor_banks", "pending_banks")
+            else:
+                grads, state_in, ukw = tee.rec["update"]
+                _, want = opt_s.update(grads, state_in, **ukw)
+                got, keys = s, ("factor_banks",)
+            build.rewind_counts(mark)
+            torch.cuda.synchronize()
+            for key in keys:
+                for b in hit:
+                    bid = b.bucket_id
+                    for k, w in want[key][bid].items():
+                        g = got[key][bid][k]
+                        tag = f"{name} step {step} {key}/{bid}/{k}"
+                        if k.endswith("_ef"):
+                            continue        # dist: zero; single: residual
+                        if torch.equal(g, w):
+                            held["gathered bank leaves torch.equal to the "
+                                 "single-device step"] += 1
+                            continue
+                        require(not quant and g.dtype == torch.bfloat16,
+                                f"{tag}: int8 codes or scales differ from "
+                                "the single-device step's")
+                        err, ratio = bf16_close(g, w)
+                        print(f"{tag}: max_abs_err {err:.3e}, worst ratio "
+                              f"to the bf16 bound {ratio:.3f} (tol 1)")
+                        require(math.isfinite(ratio) and ratio <= 1.0,
+                                f"{tag} differs from the single-device step")
+                        held["gathered bank leaves within the bf16 "
+                             "bound"] += 1
+            del want, got
+        tee.rec.clear()                 # the step's inputs go
+        torch.cuda.empty_cache()        # the other rank shares the card
+    counts = ops.launch_counts()
+    require_path_kernels(name, counts, ops.gemm_core_counts(),
+                         ops.fallback_counts())
+    # after the last step: every leaf of both ranks, byte for byte
+    for path, t in flat_paths({"params": p, "state": s}):
+        a, b = _gather_bytes(torch, t)
+        require(torch.equal(a, b), f"{name}: the ranks differ at "
+                f"{'/'.join(map(str, path))} after step {steps - 1}")
+        held["leaves torch.equal across ranks after the last step"] += 1
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"[{name}] rank {rank}: losses {losses}; step ms "
+          f"{[round(t, 3) for t in times]}; peak {peak:.3f} GiB; held "
+          f"{dict(held)}", flush=True)
+    return {"counts": counts, "held": dict(held), "losses": losses,
+            "step_ms": times, "peak_gib": peak}
+
+
+def dist_child(rank: int, store: str, out: str) -> int:
+    """One rank of path o2 (``chip_smoke.py --dist-rank R --dist-store S
+    --dist-out O``, started by :func:`dist_world2_path`): joins the gloo
+    group, runs DIST_RUNS, writes its results to ``out`` as JSON."""
+    import torch
+    import torch.distributed as tdist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    tdist.init_process_group("gloo", init_method=f"file://{store}",
+                             rank=rank, world_size=2)
+    try:
+        from repro_torch.kernels import ops
+        setup = bert_large_setup(dev)
+        log = ChunkLog(ops)
+        results = {}
+        for name, (kw, steps) in DIST_RUNS.items():
+            t0 = time.perf_counter()
+            results[name] = dist_world2_run(torch, dev, setup, name, kw,
+                                            steps, rank, log)
+            results[name]["seconds"] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        tdist.destroy_process_group()
+    Path(out).write_text(json.dumps(results))
+    return 0
+
+
+def dist_world2_path(torch):
+    """Path o2: two processes on the one card over gloo (the launcher's
+    --dist --dist-backend gloo, eager), each running DIST_RUNS; rank 0's
+    output is printed.  Returns the launch counts of both ranks."""
+    import tempfile
+    launches = collections.Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [Path(tmp) / f"rank{r}.json" for r in range(2)]
+        # two processes share the card: segments that grow and shrink keep
+        # one rank's cached blocks from starving the other
+        env = dict(os.environ,
+                   PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+        # each rank writes its output to a file: a rank never blocks on a
+        # full pipe while the other waits for it in a collective
+        logs = [Path(tmp) / f"rank{r}.log" for r in range(2)]
+        procs = []
+        try:
+            for r in range(2):
+                with open(logs[r], "w") as f:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, str(Path(__file__).resolve()),
+                         "--dist-rank", str(r), "--dist-store",
+                         str(Path(tmp) / "store"), "--dist-out",
+                         str(outs[r])], stdout=f, stderr=subprocess.STDOUT,
+                        text=True, env=env))
+            deadline = time.monotonic() + DIST_TIMEOUT
+            for proc in procs:
+                proc.wait(timeout=max(deadline - time.monotonic(), 1))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        print(logs[0].read_text().rstrip())
+        if any(proc.returncode for proc in procs):
+            print(f"--- rank 1 (last lines)\n{logs[1].read_text()[-3000:]}")
+        require(all(proc.returncode == 0 for proc in procs),
+                "dist_w2: a rank failed (exit codes "
+                f"{[proc.returncode for proc in procs]})")
+        res = [json.loads(o.read_text()) for o in outs]
+    for name in DIST_RUNS:
+        r0, r1 = res[0][name], res[1][name]
+        require(r0["losses"] == r1["losses"], f"{name}: losses differ")
+        for r in (r0, r1):
+            launches.update(r["counts"])
+        print(f"[{name}] two ranks on one card over gloo: losses "
+              f"{r0['losses']}; step ms rank 0 "
+              f"{[round(t, 3) for t in r0['step_ms']]} (median of steps 1-"
+              f"{len(r0['step_ms']) - 1} "
+              f"{statistics.median(r0['step_ms'][1:]):.3f}); peak memory "
+              f"rank 0 {r0['peak_gib']:.3f} GiB (with the comparison "
+              f"copies), rank 1 {r1['peak_gib']:.3f} GiB; launches rank 0 "
+              f"{r0['counts']}, rank 1 {r1['counts']}; held: rank 0 "
+              f"{r0['held']}, rank 1 {r1['held']}; {r0['seconds']:.1f} s")
+        SUMMARY[name]["eager_ms"] = statistics.median(r0["step_ms"][1:])
+        SUMMARY[name]["eager_peak"] = max(r0["peak_gib"], r1["peak_gib"])
+    return launches
+
+
 def train_paths(torch, dev, setup):
     """Phases 4 and 5: each path's eager run, then its captured version
     from the eager run's final state (its count, and the residues of its
@@ -3547,6 +4207,16 @@ def train_paths(torch, dev, setup):
     t0 = time.perf_counter()
     launches.update(baselines_path(torch, dev))
     print(f"[baselines] path done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches.update(dist_world1_path(torch, dev, setup))
+    print(f"[dist_w1] path done in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dist_launcher_path(torch)
+    print(f"[dist_launcher] path done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches.update(dist_world2_path(torch))
+    print(f"[dist_w2] path done in {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -3588,9 +4258,15 @@ def main() -> int:
     check_matmul_int8(torch, rows)
     check_poisoned_kernels(torch)
     check_non_pd_pivot(torch)
+    check_owned_chunks(torch)
     for name in GEMM_KERNELS:
         r = rows[name]
         b_ms, b_by = r.bound(r.bytes, r.ops)
+        if name in ATOMICS_MS:
+            print(f"{name}, sum of the bert-large shapes, sums in a fixed "
+                  f"order: {r.ms:.4f} ms against {ATOMICS_MS[name]:.3f} ms "
+                  f"with atomic sums ({100 * (r.ms / ATOMICS_MS[name] - 1):+.1f}"
+                  " %; another call, PERF.md)")
         print(f"{name}, sum of the bert-large shapes: wgmma core {r.ms:.4f} ms "
               f"{rate(r.ops, r.ms)}, " + ", ".join(
                   f"{k} {v:.4f} ms" for k, v in r.other_ms.items())
@@ -3634,6 +4310,9 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if len(sys.argv) > 1 and sys.argv[1] == "--dist-rank":
+            # one rank of path o2, started by dist_world2_path
+            sys.exit(dist_child(int(sys.argv[2]), sys.argv[4], sys.argv[6]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

@@ -130,11 +130,28 @@ goes through the per-layer entries of ``kernels/ops.py``, one launch a
 layer side over its stack.  It takes rank ≥ 1, staleness 0 or 1, stagger
 on or off, both variants, MKOR-H and factor storage ``none`` / ``bf16``.
 
-Ported so far: both layouts, rank ≥ 1, staleness 0 or 1, stagger on or
-off, ``variant`` ``paper`` and ``exact_smw``, factor storage ``none`` /
+Data parallel (``dist``, the reference's owner-sharded inversions):
+under the dist step of ``training/loop.py`` every worker holds the whole
+state and sees the same mean gradients and stats, so everything runs
+replicated except the bank inversions.  With ``dist`` of world > 1, each
+bank side's stabilize and SMW (rank 1), or block update (rank > 1 and the
+staleness-1 tick), runs on this worker's chunk of the bank's flattened
+(slot x stack) slices only (``sharding.collectives.owner_sharded_map``),
+through the kernels with ``use_kernels``; the updated
+slices are gathered in worker order.  The chunk's zero padding is inert
+(a zero factor with a zero vector; a window count of 0).  int8: the owner
+stabilizes its fp32 chunk and ``quant_encode``s it at the wire (no error
+feedback), so the gathered codes are the stored codes and every worker's
+error feedback stays zero.  The sentinel derives its trips from
+replicated data only, and the block update exports no pivot under dist.
+``live`` (a liveness mask) re-splits the chunks over the live workers.
+At world 1 the single-device branches run.  The per-layer layout runs
+replicated, as the reference's does.
+
+Ported: both layouts, rank ≥ 1, staleness 0 or 1, stagger on or off,
+``variant`` ``paper`` and ``exact_smw``, factor storage ``none`` /
 ``bf16`` / ``int8`` (int8 in the bank layout), MKOR-H, the health
-sentinel (bank layout); dist off.  dist / live raise
-``NotImplementedError`` naming their ROADMAP item; int8 or health with the
+sentinel (bank layout), ``dist`` and ``live``.  int8 or health with the
 per-layer layout raises ``ValueError``, as in the reference.
 ``MKORConfig`` keeps every field of the reference with the same default,
 with ``use_pallas`` renamed ``use_kernels`` and the Pallas-only
@@ -176,6 +193,7 @@ from repro_torch.core.firstorder import (GradientTransformation,
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.precond import rescale_update  # Alg. 1 line 10
 from repro_torch.kernels.rank1_smw import fused_block_smw_plain
+from repro_torch.sharding import collectives
 from repro_torch.tree import tree_leaves
 
 
@@ -326,9 +344,6 @@ def _check_supported(cfg: MKORConfig) -> None:
         raise ValueError(
             "factor_quant='int8' requires layout='bank': the scale / "
             "error-feedback state is per bucket")
-    if cfg.dist is not None or cfg.live is not None:
-        raise NotImplementedError("MKOR port: dist / live (ROADMAP queue 1: "
-                                  "distributed) is not ported yet")
     if cfg.variant not in ("paper", "exact_smw"):
         raise ValueError(f"unknown variant {cfg.variant!r}")
 
@@ -469,6 +484,8 @@ def mkor(backend: GradientTransformation,
          cfg: MKORConfig = MKORConfig()) -> GradientTransformation:
     """MKOR wrapping a first-order ``backend`` (Alg. 1)."""
     _check_supported(cfg)
+    # owner-sharded inversions: the reference's dist_on
+    dist_on = cfg.dist is not None and collectives.world_size(cfg.dist) > 1
     per_layer = cfg.layout == "per_layer"
     quant8 = cfg.factor_quant == "int8"
     store_dtype = statlib.factor_storage_dtype(cfg.factor_dtype,
@@ -495,23 +512,58 @@ def mkor(backend: GradientTransformation,
     def decode(side):
         return statlib.quant_decode(side[0], side[1])
 
+    def owner_map(fn, j, *rest, quant=False):
+        """``fn`` on this worker's chunk of the bank ``j`` (*lead, d, d) and
+        of the lead-aligned ``rest``, the lead dims flattened, and the
+        chunks gathered back to ``j``'s shape; with ``quant``, ``fn``
+        returns int8 codes and scales, gathered to ``j``'s and ``lead``."""
+        lead = tuple(j.shape[:-2])
+        n = 1
+        for d in lead:
+            n *= d
+        flat = [x.reshape((n,) + tuple(x.shape[len(lead):]))
+                for x in (j,) + rest]
+        if quant:
+            q, sc = collectives.owner_sharded_map_quant(
+                fn, flat, cfg.dist, n, cfg.live)
+            return q.reshape(j.shape), sc.reshape(lead)
+        return collectives.owner_sharded_map(
+            fn, flat, cfg.dist, n, cfg.live).reshape(j.shape)
+
+    def rank1_bank(j, v, scale=None):
+        """Stabilize, then the rank-1 SMW of bank ``j`` (*lead, d, d) with
+        stats ``v`` (*lead, d); int8 codes ``j`` with their ``scale``: the
+        SMW of the codes (fp32 out), then the stabilizer."""
+        if scale is not None:
+            if cfg.use_kernels:
+                f = kops.smw_rank1_update_banked(
+                    j, v, gamma=cfg.gamma, variant=cfg.variant, scale=scale)
+            else:
+                f = smw_rank1_update(statlib.quant_decode(j, scale), v,
+                                     cfg.gamma, cfg.variant)
+            return stab(f)
+        jb = stab(j)
+        if cfg.use_kernels:
+            return kops.smw_rank1_update_banked(
+                jb, v, gamma=cfg.gamma, variant=cfg.variant, out=jb)
+        return smw_rank1_update(jb, v, cfg.gamma, cfg.variant)
+
     def side_rank1(side, v):
         """Rank-1 SMW on one bank side (*lead, d, d) with stats (*lead,
         d).  bf16 / fp32: stabilize, then update.  int8: update the codes
-        (fp32 out), stabilize, requantize with the error feedback."""
-        if quant8:
-            q, sc, ef = side
-            if cfg.use_kernels:
-                f = kops.smw_rank1_update_banked(
-                    q, v, gamma=cfg.gamma, variant=cfg.variant, scale=sc)
-            else:
-                f = smw_rank1_update(decode(side), v, cfg.gamma, cfg.variant)
-            return statlib.quant_requantize(stab(f), ef)
-        jb = stab(side[0])
-        if cfg.use_kernels:
-            return (kops.smw_rank1_update_banked(
-                jb, v, gamma=cfg.gamma, variant=cfg.variant, out=jb),)
-        return (smw_rank1_update(jb, v, cfg.gamma, cfg.variant),)
+        (fp32 out), stabilize, requantize with the error feedback, or under
+        dist encode the owned chunk at the wire (the error feedback stays
+        zero)."""
+        if not quant8:
+            return ((owner_map(rank1_bank, side[0], v) if dist_on
+                     else rank1_bank(side[0], v)),)
+        q, sc, ef = side
+        if not dist_on:
+            return statlib.quant_requantize(rank1_bank(q, v, sc), ef)
+        codes, scales = owner_map(
+            lambda qc, vc, scc: statlib.quant_encode(rank1_bank(qc, vc, scc)),
+            q, v, sc, quant=True)
+        return codes, scales, ef
 
     def block_update(j, v_ord, cnt, with_pivot, **kw):
         """The block update of bank (or codes) ``j``, through the kernel
@@ -527,22 +579,39 @@ def mkor(backend: GradientTransformation,
                                n_valid=cnt, with_pivot=with_pivot)
         return (res[0], torch.amin(res[1])) if with_pivot else res
 
-    def side_block(side, v_ord, cnt, with_pivot=False):
-        """One block update of a bank side (*lead, d, d) from the ordered
+    def block_bank(j, v_ord, cnt, scale=None, with_pivot=False):
+        """One block update of bank ``j`` (*lead, d, d) from the ordered
         window rows ``v_ord`` (*lead, r, d) with fill counts ``cnt``
-        (``lead``), in the order of :func:`side_rank1`.  Returns the new
-        side and, with ``with_pivot``, the bank's smallest pivot (else
-        None)."""
-        if quant8:
-            q, sc, ef = side
-            res = block_update(q, v_ord, cnt, with_pivot, scale=sc)
-            f, piv = res if with_pivot else (res, None)
-            return statlib.quant_requantize(stab(f), ef), piv
-        jb = stab(side[0])
-        res = block_update(jb, v_ord, cnt, with_pivot,
-                           **({"out": jb} if cfg.use_kernels else {}))
+        (``lead``), in the order of :func:`rank1_bank`.  Returns the bank
+        and, with ``with_pivot``, its smallest pivot (else None)."""
+        if scale is None:
+            j = stab(j)
+            kw = {"out": j} if cfg.use_kernels else {}
+        else:
+            kw = {"scale": scale}
+        res = block_update(j, v_ord, cnt, with_pivot, **kw)
         f, piv = res if with_pivot else (res, None)
-        return (f,), piv
+        return (f if scale is None else stab(f)), piv
+
+    def side_block(side, v_ord, cnt, with_pivot=False):
+        """One block update of a bank side, as :func:`side_rank1` orders
+        it.  Returns the new side and, with ``with_pivot`` (never under
+        dist), the bank's smallest pivot (else None)."""
+        if not dist_on:
+            if not quant8:
+                f, piv = block_bank(side[0], v_ord, cnt, None, with_pivot)
+                return (f,), piv
+            f, piv = block_bank(side[0], v_ord, cnt, side[1], with_pivot)
+            return statlib.quant_requantize(f, side[2]), piv
+        if not quant8:
+            return (owner_map(lambda jc, vc, cc: block_bank(jc, vc, cc)[0],
+                              side[0], v_ord, cnt),), None
+        q, sc, ef = side
+        codes, scales = owner_map(
+            lambda qc, vc, cc, scc: statlib.quant_encode(
+                block_bank(qc, vc, cc, scc)[0]),
+            q, v_ord, cnt, sc, quant=True)
+        return (codes, scales, ef), None
 
     def window_rows(win, name, cnt):
         """The fp32 (or stored-dtype) rows of window ``name`` ("a" or
@@ -852,8 +921,11 @@ def mkor(backend: GradientTransformation,
                     if do_inv:
                         l_old = tuple(map(take, l_side))
                         r_old = tuple(map(take, r_side))
+                        # no pivot export under dist: a singular solve
+                        # shows in the gathered banks' post checks
                         l_new, r_new, piv = block_sides(
-                            l_old, r_old, sub, sub["n"], cfg.health)
+                            l_old, r_old, sub, sub["n"],
+                            cfg.health and not dist_on)
                         l_side = tuple(map(put, l_side,
                                            _select(sel, l_new, l_old)))
                         r_side = tuple(map(put, r_side,

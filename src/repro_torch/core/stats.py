@@ -15,9 +15,9 @@ The manifest is a pure function of the tree structure and the leaf shapes,
 so it can be rebuilt at every ``update`` and always agrees with ``init``.
 The rank-r stat windows (``window_push`` / ``window_ordered``) and the
 int8 storage helpers (``quant_encode`` / ``quant_decode`` /
-``quant_requantize``, ``window_push_quant`` / ``window_decode``) are here;
-the owner maps of the distributed path arrive with their slice (ROADMAP
-queue 1: distributed).
+``quant_requantize``, ``window_push_quant`` / ``window_decode``) are here,
+and the owner map of the data-parallel path (``live_mask``,
+``bucket_owner_map``).
 """
 from __future__ import annotations
 
@@ -218,6 +218,54 @@ def bucket_slices(bucket: FactorBucket) -> int:
     for d in bucket.stack:
         n *= d
     return n
+
+
+def live_mask(world_size: int,
+              live: Optional[Tuple[bool, ...]] = None) -> Tuple[bool, ...]:
+    """A validated liveness mask for ``world_size`` workers (``None``:
+    every worker live)."""
+    w = max(world_size, 1)
+    if live is None:
+        return (True,) * w
+    mask = tuple(bool(x) for x in live)
+    if len(mask) != w:
+        raise ValueError(
+            f"liveness mask has {len(mask)} entries for world {w}")
+    if not any(mask):
+        raise ValueError("liveness mask declares every worker dead")
+    return mask
+
+
+def owner_chunk(n_slots: int, n_live: int) -> int:
+    """Slices each live worker owns of ``n_slots`` (the last chunks may be
+    padding only)."""
+    return -(-n_slots // max(n_live, 1))
+
+
+def survivor_rank(mask: Tuple[bool, ...], worker: int) -> int:
+    """``worker``'s rank among the live workers of ``mask`` (0 for a dead
+    worker): the index of its chunk."""
+    return sum(mask[:worker]) if mask[worker] else 0
+
+
+def bucket_owner_map(manifest: BucketManifest, world_size: int,
+                     live: Optional[Tuple[bool, ...]] = None,
+                     ) -> Dict[str, Tuple[Tuple[int, int], ...]]:
+    """``{bucket_id: ((start, stop), ...)}``: worker w owns the flattened
+    (slot x stack) slices ``[start_w, stop_w)`` of every bucket's banks:
+    its :func:`owner_chunk` at its :func:`survivor_rank`, clipped to the
+    slice count (trailing workers may own empty ranges; dead workers own
+    ``(0, 0)``), the chunks ``sharding.collectives.owner_shard`` slices."""
+    mask = live_mask(world_size, live)
+    out = {}
+    for b in manifest:
+        n = bucket_slices(b)
+        chunk = owner_chunk(n, sum(mask))
+        out[b.bucket_id] = tuple(
+            (min(survivor_rank(mask, w) * chunk, n),
+             min((survivor_rank(mask, w) + 1) * chunk, n))
+            if alive else (0, 0) for w, alive in enumerate(mask))
+    return out
 
 
 # ----------------------------------------------------------------------- #

@@ -29,8 +29,10 @@
 // next tile's global loads held in registers while the current tile is
 // multiplied (no TMA, no wgmma).  Ragged M, N and K are masked at the
 // tile loads (zeros) and at the stores, so callers never pad.  The optional
-// epilogue adds each tile's sum of squares of C into sumsq[b] with one
-// atomic per warp (the order of those float adds varies run to run).
+// epilogue writes each warp's sum of squares of its part of C to its own
+// slot of sq_parts (kSqParts slots a tile, tile_parts() a slice); the
+// caller sums the slots in a fixed order, so the result is the same bits on
+// every run.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -47,6 +49,7 @@ constexpr int kWM = kBM / kWarpsM;  // 64
 constexpr int kWN = kBN / kWarpsN;  // 32
 constexpr int kFM = kWM / 16;       // 4 fragments down
 constexpr int kFN = kWN / 16;       // 2 fragments across
+constexpr int kSqParts = kThreads / 32;  // sum-of-squares slots a tile
 constexpr int kALd = kBK + 8;       // padded smem leading dims (multiples
 constexpr int kBLd = kBN + 8;       // of 8 elements, as WMMA requires)
 
@@ -76,7 +79,7 @@ struct GemmArgs {
   long long lda, ldb, ldc;  // row strides, elements
   long long sa, sb, sc;     // batch strides, elements (0 = broadcast)
   int vec_a, vec_b;         // 16-byte aligned rows: vector tile loads
-  float* sumsq;             // optional per-batch sum of squares of C
+  float* sq_parts;          // optional per-warp sums of squares of C
   const float* scale_a;     // per-batch scale of an int8 A, else null
   const float* scale_b;     // per-batch scale of an int8 B, else null
 };
@@ -291,11 +294,18 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(GemmArgs p) {
       }
       __syncwarp();
     }
-  if (p.sumsq != nullptr) {
+  if (p.sq_parts != nullptr) {
 #pragma unroll
     for (int off = 16; off > 0; off /= 2) sq += __shfl_xor_sync(0xffffffffu, sq, off);
-    if (lane == 0) atomicAdd(p.sumsq + batch, sq);
+    const long long tile = ((long long)batch * gridDim.y + blockIdx.y) *
+                           gridDim.x + blockIdx.x;
+    if (lane == 0) p.sq_parts[tile * kSqParts + warp] = sq;
   }
+}
+
+// Sum-of-squares slots a slice of an (m, n) C takes: kSqParts a tile.
+inline long long tile_parts(int m, int n) {
+  return (long long)((m + kBM - 1) / kBM) * ((n + kBN - 1) / kBN) * kSqParts;
 }
 
 template <typename TA, typename TB, typename TC>

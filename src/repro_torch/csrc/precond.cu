@@ -15,9 +15,12 @@
 //     tile -- the cheaper one;
 //   * this file's entry then launches, on one stream: a per-slice sum of
 //     squares of G, the second product with the sum of squares of D fused
-//     into its epilogue (one atomic per warp), and an in-place scale pass.
-//     The cross-block reductions that the TPU grid carried in SMEM become
-//     atomics into a (2, batch) scratch.
+//     into its epilogue, a fixed-order sum of the partial sums, and an
+//     in-place scale pass.  The cross-block reductions that the TPU grid
+//     carried in SMEM become partial sums in device scratch, one slot per
+//     block of the G pass and per warp of each product tile, each written
+//     once (no atomics); one block a slice then adds its slots in index
+//     order with a fixed tree (sum_parts_kernel).
 // Zero padding never appears: ragged dims are masked (WMMA) or zero-filled
 // by TMA within each slice.
 //
@@ -37,8 +40,11 @@
 //     Hopper's tensor-core path;
 //   * mkor_fused_precond -- everything else, on the WMMA core of gemm.cuh
 //     (fp32 T split into hi/lo on its way into shared memory).
-// Summation order (atomics) varies from run to run, so results agree with
-// the plain version to float32 rounding, not bit for bit.
+// Every sum runs in the same order on every call, so a second call on the
+// same inputs gives the same bits; the results agree with the plain
+// version to float32 rounding (another order than torch's), not bit for
+// bit.  Replicas of a data-parallel step that run fused_precond on equal
+// inputs therefore stay equal.
 //
 // int8 factors (fused_precond[int8], MKOR's int8 factor state): replaces
 // the quant body of the same TPU kernel (precond.py:57-63, the dequantized
@@ -59,9 +65,42 @@
 
 namespace {
 
+constexpr int kGParts = 64;       // blocks of the G pass a slice
+constexpr int kSumThreads = 256;
+
+// One call's scratch: the (2, batch) sums (G, then D), then kGParts slots a
+// slice for G, then n_d slots a slice for D.
+struct Scratch {
+  float* sums;
+  float* g_parts;
+  float* d_parts;
+  long long n_d;
+};
+
+Scratch carve(float* scratch, int batch, long long n_d) {
+  float* g_parts = scratch + 2 * batch;
+  return {scratch, g_parts, g_parts + (long long)kGParts * batch, n_d};
+}
+
+// Each thread's sum in a fixed stride order, then a fixed shuffle tree, then
+// the warps' sums in index order: the same bits on every launch.  The
+// block's sum is in thread 0.
+__device__ __forceinline__ float block_sum(float acc) {
+  for (int off = 16; off > 0; off /= 2)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  __shared__ float warp_sums[32];
+  if (threadIdx.x % 32 == 0) warp_sums[threadIdx.x / 32] = acc;
+  __syncthreads();
+  float s = 0.0f;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < blockDim.x / 32; ++w) s += warp_sums[w];
+  return s;
+}
+
+// parts[b * kGParts + blockIdx.x] = this block's share of sum(x[b]^2).
 template <typename T>
 __global__ void sumsq_kernel(const T* __restrict__ x, long long per_batch,
-                             float* __restrict__ out) {
+                             float* __restrict__ parts) {
   const int b = blockIdx.y;
   const T* xb = x + b * per_batch;
   float acc = 0.0f;
@@ -70,16 +109,21 @@ __global__ void sumsq_kernel(const T* __restrict__ x, long long per_batch,
     const float v = mkor::to_f32(xb[i]);
     acc += v * v;
   }
-  for (int off = 16; off > 0; off /= 2)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  __shared__ float warp_sums[32];
-  if (threadIdx.x % 32 == 0) warp_sums[threadIdx.x / 32] = acc;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.0f;
-    for (int w = 0; w < blockDim.x / 32; ++w) s += warp_sums[w];
-    atomicAdd(out + b, s);
-  }
+  const float s = block_sum(acc);
+  if (threadIdx.x == 0) parts[(long long)b * kGParts + blockIdx.x] = s;
+}
+
+// sums[b] = sum of g_parts[b, :] (blockIdx.y 0), sums[batch + b] = sum of
+// d_parts[b, :] (blockIdx.y 1), one block each.
+__global__ void sum_parts_kernel(Scratch sc, int batch) {
+  const int b = blockIdx.x;
+  const bool d = blockIdx.y == 1;
+  const long long n = d ? sc.n_d : kGParts;
+  const float* parts = (d ? sc.d_parts : sc.g_parts) + b * n;
+  float acc = 0.0f;
+  for (long long i = threadIdx.x; i < n; i += blockDim.x) acc += parts[i];
+  const float s = block_sum(acc);
+  if (threadIdx.x == 0) sc.sums[(d ? batch : 0) + b] = s;
 }
 
 __global__ void rescale_kernel(float* __restrict__ d, long long per_batch,
@@ -93,39 +137,51 @@ __global__ void rescale_kernel(float* __restrict__ d, long long per_batch,
     db[i] *= scale;
 }
 
-// Zero the (2 * batch) sums and add each slice's sum of squares of g into
-// the first half.
+// Each slice's partial sums of squares of g into sc.g_parts.
 cudaError_t start_sums(const void* g, int g_f32, long long per_out,
-                       int batch, float* sums, cudaStream_t stream) {
-  cudaError_t err = cudaMemsetAsync(sums, 0, sizeof(float) * 2 * batch,
-                                    stream);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(64, batch);
+                       int batch, const Scratch& sc, cudaStream_t stream) {
+  const dim3 grid(kGParts, batch);
   if (g_f32)
-    sumsq_kernel<float><<<grid, 256, 0, stream>>>(
-        static_cast<const float*>(g), per_out, sums);
+    sumsq_kernel<float><<<grid, kSumThreads, 0, stream>>>(
+        static_cast<const float*>(g), per_out, sc.g_parts);
   else
-    sumsq_kernel<__nv_bfloat16><<<grid, 256, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(g), per_out, sums);
+    sumsq_kernel<__nv_bfloat16><<<grid, kSumThreads, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(g), per_out, sc.g_parts);
   return cudaGetLastError();
 }
 
+// The fixed-order sums of both sets of slots, then the scale pass.
 cudaError_t finish_rescale(float* out, long long per_out, int batch,
-                           const float* sums, cudaStream_t stream) {
+                           const Scratch& sc, cudaStream_t stream) {
+  sum_parts_kernel<<<dim3(batch, 2), kSumThreads, 0, stream>>>(sc, batch);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
   rescale_kernel<<<dim3(256, batch), 256, 0, stream>>>(
-      out, per_out, sums, sums + batch);
+      out, per_out, sc.sums, sc.sums + batch);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// The floats of scratch that mkor_fused_precond (tma = 0) or
+// mkor_fused_precond_tma (tma = 1; p_split: the hi/lo pair is p, else q;
+// q_int8: q is int8 codes) needs for a (batch, m, n) out.
+extern "C" long long mkor_fused_precond_scratch(int m, int n, int batch,
+                                                int tma, int p_split,
+                                                int q_int8) {
+  const long long n_d =
+      tma ? mkor::wg::tile_parts(m, n, p_split, !p_split, p_split && q_int8)
+          : mkor::tile_parts(m, n);
+  return (long long)batch * (2 + kGParts + n_d);
+}
+
 // p (batch, m, k) @ q (batch, k, n) -> out (batch, m, n) fp32, rescaled
 // per slice by ||g[b]||_F / max(||out[b]||_F, 1e-30) when rescale != 0.
 // p_type / q_type: 0 bf16, 1 fp32, 2 int8 (then p_scale / q_scale is its
 // (batch,) fp32 scale, else null).  g is (batch, g_elems) bf16 or fp32;
-// sums is a (2 * batch) fp32 scratch.
+// scratch holds mkor_fused_precond_scratch(m, n, batch, 0, 0, 0) floats.
 extern "C" int mkor_fused_precond(const void* p, const void* q,
-                                  const void* g, float* out, float* sums,
+                                  const void* g, float* out, float* scratch,
                                   const float* p_scale,
                                   const float* q_scale, int m, int n, int k,
                                   int batch, int p_type, int q_type,
@@ -133,28 +189,30 @@ extern "C" int mkor_fused_precond(const void* p, const void* q,
                                   int rescale, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const long long per_out = (long long)m * n;
-  float* dsq = sums + batch;
+  const Scratch sc = carve(scratch, batch, mkor::tile_parts(m, n));
   if (rescale) {
-    const cudaError_t err = start_sums(g, g_f32, per_out, batch, sums,
-                                       stream);
+    const cudaError_t err = start_sums(g, g_f32, per_out, batch, sc, stream);
     if (err != cudaSuccess) return (int)err;
   }
   mkor::GemmArgs a{p, q, out, m, n, k, (long long)k, (long long)n,
                    (long long)n, (long long)m * k, (long long)k * n, per_out,
-                   vec_p, vec_q, rescale ? dsq : nullptr, p_scale, q_scale};
+                   vec_p, vec_q, rescale ? sc.d_parts : nullptr, p_scale,
+                   q_scale};
   cudaError_t err = mkor::dispatch_gemm(a, batch, p_type, q_type, 1, stream);
   if (err != cudaSuccess || !rescale) return (int)err;
-  return (int)finish_rescale(out, per_out, batch, sums, stream);
+  return (int)finish_rescale(out, per_out, batch, sc, stream);
 }
 
 // The Hopper core: p (batch, m, k) @ q (batch, k, n) -> out fp32, with
 // exactly one operand a bf16 hi/lo pair (p_lo or q_lo not null: the first
 // product's T) and the other a bf16 factor, or int8 codes when its scale
-// (p_scale / q_scale, (batch,) fp32) is not null; otherwise as
-// mkor_fused_precond.
+// (p_scale / q_scale, (batch,) fp32) is not null; scratch holds
+// mkor_fused_precond_scratch(m, n, batch, 1, p_lo != null, q_scale != null)
+// floats; otherwise as mkor_fused_precond.
 extern "C" int mkor_fused_precond_tma(const void* p, const void* p_lo,
                                       const void* q, const void* q_lo,
-                                      const void* g, float* out, float* sums,
+                                      const void* g, float* out,
+                                      float* scratch,
                                       const float* p_scale,
                                       const float* q_scale, int m, int n,
                                       int k, int batch, int g_f32,
@@ -166,10 +224,13 @@ extern "C" int mkor_fused_precond_tma(const void* p, const void* p_lo,
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const long long per_out = (long long)m * n;
-  float* dsq = rescale ? sums + batch : nullptr;
+  const bool p_split = p_lo != nullptr;
+  const Scratch sc = carve(
+      scratch, batch,
+      wg::tile_parts(m, n, p_split, !p_split, p_split && q_scale != nullptr));
+  float* dsq = rescale ? sc.d_parts : nullptr;
   if (rescale) {
-    const cudaError_t err = start_sums(g, g_f32, per_out, batch, sums,
-                                       stream);
+    const cudaError_t err = start_sums(g, g_f32, per_out, batch, sc, stream);
     if (err != cudaSuccess) return (int)err;
   }
   const wg::Operand a{p, p_lo, (long long)m * k, p_scale};
@@ -186,5 +247,5 @@ extern "C" int mkor_fused_precond_tma(const void* p, const void* p_lo,
                   : wg::launch<false, true, false>(a, b, out, nullptr, dsq,
                                                    m, n, k, batch, stream);
   if (err != cudaSuccess || !rescale) return (int)err;
-  return (int)finish_rescale(out, per_out, batch, sums, stream);
+  return (int)finish_rescale(out, per_out, batch, sc, stream);
 }

@@ -37,8 +37,9 @@
 // products of bf16 parts exact in fp32).
 // Epilogues, staged 64 columns at a time through a swizzled buffer per
 // warpgroup so that every global store is a 16-byte vector along a row:
-// fp32 C, optionally adding each tile's sum of squares into sumsq[b] (one
-// atomic per warp); or a bf16 hi/lo pair written as two (B, M, N) tensors
+// fp32 C, optionally writing each consumer warp's sum of squares of its part
+// of a tile to its own slot of sq_parts (kSqParts slots a tile,
+// tile_parts() a slice, summed later in a fixed order); or a bf16 hi/lo pair written as two (B, M, N) tensors
 // (the first product of fused_precond, 4 bytes an element as fp32), or hi
 // alone (a bf16 C).
 //
@@ -96,9 +97,16 @@ constexpr int kQBox = BK * kBoxCols;           // one (64 x 64) int8 box, 4 KB
 // at the bert-large products), 128 where B is a hi/lo pair, and where A is
 // a pair and B int8 codes (two 256-wide B parts, or a pair beside 16 KB of
 // raw codes, would leave room for only two stages).
-template <bool SA, bool SB, bool QB>
-__host__ __device__ constexpr int tile_n() {
-  return (SB || (SA && QB)) ? 128 : 256;
+__host__ __device__ constexpr int tile_n(bool sa, bool sb, bool qb) {
+  return (sb || (sa && qb)) ? 128 : 256;
+}
+constexpr int kSqParts = kConsumers * 4;       // sum-of-squares slots a tile
+
+// Sum-of-squares slots a slice of an (m, n) C takes on the tile
+// tile_n(sa, sb, qb) picks.
+inline long long tile_parts(int m, int n, bool sa, bool sb, bool qb) {
+  const int bn = tile_n(sa, sb, qb);
+  return (long long)((m + BM - 1) / BM) * ((n + bn - 1) / bn) * kSqParts;
 }
 
 template <bool SA, bool SB, int BN, bool QA, bool QB>
@@ -131,7 +139,7 @@ struct Params {
                                  // a / b map int8 codes for QA / QB
   void* c;                       // fp32 C, or the bf16 hi part
   void* c_lo;                    // bf16 lo part, or null
-  float* sumsq;                  // per-batch sum of squares of C, or null
+  float* sq_parts;               // per-warp sums of squares of C, or null
   const float* scale_a;          // (batch,) scales of int8 A / B codes
   const float* scale_b;
   int m, n, k, batch;
@@ -390,7 +398,7 @@ template <bool SA, bool SB, bool HILO, bool QA, bool QB>
 __global__ void __launch_bounds__(kThreads, 1)
     wgmma_gemm_kernel(__grid_constant__ const Params p) {
   constexpr bool Q = QA || QB;
-  constexpr int BN = tile_n<SA, SB, QB>();
+  constexpr int BN = tile_n(SA, SB, QB);
   using R = Ring<SA, SB, BN, QA, QB>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -598,11 +606,13 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
         }
       }
-      if (!HILO && p.sumsq != nullptr) {
+      if (!HILO && p.sq_parts != nullptr) {
 #pragma unroll
         for (int off = 16; off > 0; off /= 2)
           sq += __shfl_xor_sync(0xffffffffu, sq, off);
-        if (lane == 0) atomicAdd(p.sumsq + b, sq);
+        if (lane == 0)
+          p.sq_parts[((long long)b * per_slice + r) * kSqParts + wg * 4 +
+                     warp] = sq;
       }
     }
   }
@@ -674,11 +684,11 @@ struct Operand {
 
 template <bool SA, bool SB, bool HILO, bool QA = false, bool QB = false>
 cudaError_t launch(const Operand& a, const Operand& b, void* c, void* c_lo,
-                   float* sumsq, int m, int n, int k, int batch,
+                   float* sq_parts, int m, int n, int k, int batch,
                    cudaStream_t stream) {
   static_assert(!(QA && (SA || QB)) && !(QB && SB),
                 "int8 codes are one tensor, in one operand");
-  constexpr int BN = tile_n<SA, SB, QB>();
+  constexpr int BN = tile_n(SA, SB, QB);
   using R = Ring<SA, SB, BN, QA, QB>;
   Params p{};
   if ((QA && a.scale == nullptr) || (QB && b.scale == nullptr))
@@ -690,7 +700,7 @@ cudaError_t launch(const Operand& a, const Operand& b, void* c, void* c_lo,
     return cudaErrorInvalidValue;
   p.c = c;
   p.c_lo = c_lo;
-  p.sumsq = sumsq;
+  p.sq_parts = sq_parts;
   p.scale_a = a.scale;
   p.scale_b = b.scale;
   p.m = m;

@@ -72,11 +72,13 @@ _SIGNATURES = {
                                _I, _I, _I, _I, _I, _I, _P],
         "mkor_fused_precond_tma": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                    _I, _I, _I, _I, _I, _P],
+        "mkor_fused_precond_scratch": [_I, _I, _I, _I, _I, _I],
     },
 }
 
 # entry points that return something other than a CUDA error code
-_RESTYPES = {"mkor_block_smw_work": _LL, "mkor_block_smw_plan": None,
+_RESTYPES = {"mkor_block_smw_work": _LL, "mkor_fused_precond_scratch": _LL,
+             "mkor_block_smw_plan": None,
              "mkor_block_smw_ticket": None}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LAUNCHES: Counter = Counter()

@@ -7,6 +7,8 @@ source ``csrc/precond.cu``, whose header gives the H100 design).
 On CUDA tensors the first product runs through the port's ``matmul``
 kernel into device scratch, and the ``precond`` kernel does the second
 product with ΣΔ² fused into its epilogue, ΣG², and the in-place rescale.
+ΣG² and ΣΔ² are partial sums written to scratch and added in a fixed
+order, so a second call on the same inputs gives the same bits.
 The association is chosen so that the second product -- the one with the
 float32 intermediate T -- is the smaller: ``(R⁻¹G)L⁻¹`` when
 d_in > d_out, else ``R⁻¹(GL⁻¹)``.  Zero padding never arises (ragged dims
@@ -109,6 +111,15 @@ def precond_route(r_dtype: torch.dtype, g_dtype: torch.dtype,
     return "wgmma" if first == second == "wgmma" else "wmma"
 
 
+def _scratch(lib, m: int, n: int, batch: int, device, *, tma=False,
+             p_split=False, q_int8=False) -> torch.Tensor:
+    """The fp32 scratch of one launch: the sums and their partial-sum
+    slots, as many as the C entry point says its tiles write."""
+    n_floats = lib.mkor_fused_precond_scratch(m, n, batch, int(tma),
+                                              int(p_split), int(q_int8))
+    return torch.empty((n_floats,), dtype=torch.float32, device=device)
+
+
 def fused_precond(r_inv: torch.Tensor, g: torch.Tensor, l_inv: torch.Tensor,
                   *, rescale: bool = True,
                   r_scale: Optional[torch.Tensor] = None,
@@ -158,7 +169,7 @@ def fused_precond(r_inv: torch.Tensor, g: torch.Tensor, l_inv: torch.Tensor,
                          "and rows; got "
                          f"{r_inv.dtype} / {g.dtype} / {l_inv.dtype}, "
                          f"d_in {d_in}, d_out {d_out}")
-    sums = torch.empty((2 * b,), dtype=torch.float32, device=g.device)
+    lib = build.library("precond")
     if (core or route) == "wgmma":
         # T as a bf16 hi/lo pair (of the scaled product for an int8
         # factor); the second product takes both parts and the other
@@ -171,11 +182,13 @@ def fused_precond(r_inv: torch.Tensor, g: torch.Tensor, l_inv: torch.Tensor,
             (p, p_lo), (q, q_lo) = mm.matmul_split(
                 r_inv, g, a_scale=r_scale), (l_inv, None)
             k, p_scale, q_scale = d_out, None, l_scale
-        lib = build.library("precond")
+        scratch = _scratch(lib, d_in, d_out, b, g.device, tma=True,
+                           p_split=p_lo is not None,
+                           q_int8=q_scale is not None)
         with torch.cuda.device(g.device):
             err = lib.mkor_fused_precond_tma(
                 p.data_ptr(), build.ptr(p_lo), q.data_ptr(), build.ptr(q_lo),
-                g.data_ptr(), out.data_ptr(), sums.data_ptr(),
+                g.data_ptr(), out.data_ptr(), scratch.data_ptr(),
                 build.ptr(p_scale), build.ptr(q_scale), d_in, d_out, k, b,
                 int(g.dtype == torch.float32), int(rescale),
                 build.stream_handle(g.device))
@@ -194,11 +207,11 @@ def fused_precond(r_inv: torch.Tensor, g: torch.Tensor, l_inv: torch.Tensor,
         p_scale, q_scale = None, l_scale
     vec_p = build.rows_aligned(p, k)
     vec_q = build.rows_aligned(q, d_out)
-    lib = build.library("precond")
+    scratch = _scratch(lib, d_in, d_out, b, g.device)
     with torch.cuda.device(g.device):
         err = lib.mkor_fused_precond(
             p.data_ptr(), q.data_ptr(), g.data_ptr(), out.data_ptr(),
-            sums.data_ptr(), build.ptr(p_scale), build.ptr(q_scale), d_in,
+            scratch.data_ptr(), build.ptr(p_scale), build.ptr(q_scale), d_in,
             d_out, k, b, build.dtype_code(p), build.dtype_code(q),
             int(g.dtype == torch.float32), int(vec_p), int(vec_q),
             int(rescale), build.stream_handle(g.device))

@@ -1,6 +1,6 @@
 """The train step: loss, gradients, MKOR stat plumbing, optimizer glue,
-and the chunk runner (port of ``repro/training/loop.py``'s single-device
-paths).
+the data-parallel step and the chunk runner (port of
+``repro/training/loop.py``).
 
 One step is Algorithm 1 end to end: forward (capturing E[a]) → backward
 (probe gradients = E[g]) → MKOR factor update + preconditioning → backend
@@ -28,6 +28,19 @@ and ``update``).  A switch that flips inside a chunk takes effect in the
 next one; the optimizer keeps the steps in between exact on the device.
 The per-step loop (``train_step`` called without a view) reads the view
 once a step.
+
+The data-parallel step (:func:`make_dist_step_fn`,
+:func:`make_dist_train_step`) runs in each process of a
+``torch.distributed`` group with the same signature as the single-device
+step: it takes the global batch, keeps this rank's rows, and makes every
+wire byte explicit (``sharding/collectives.py``): the loss mean, the
+gradients as one flat reduce-scatter and all-gather pair with the rank-1
+stat mean between the halves, and, when the optimizer carries
+``MKORConfig.dist``, the owner-sharded inversions inside ``update``.  Params
+and optimizer state are replicated: every rank holds the same bits.  On
+NCCL the collectives run on the current stream, so the chunk runner
+captures them in its graphs; gloo with CUDA tensors stages them through
+the host, which a graph cannot hold.
 """
 from __future__ import annotations
 
@@ -43,6 +56,7 @@ from repro_torch.core.firstorder import GradientTransformation
 from repro_torch.kernels import build
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import collectives
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -138,6 +152,103 @@ def make_train_step(cfg: ModelConfig, optimizer: GradientTransformation,
     train_step.plan = optimizer.plan
     train_step.observe = optimizer.observe
     return train_step
+
+
+# ----------------------------------------------------------------------- #
+# The explicit-collective data-parallel step
+# ----------------------------------------------------------------------- #
+def make_dist_step_fn(grads_fn: Callable, optimizer: GradientTransformation,
+                      dist: collectives.DistSpec, *,
+                      stats_payload_dtype: Optional[str] = "bfloat16"
+                      ) -> Callable:
+    """Wrap a local ``grads_fn(params, local_batch) -> (loss, grads, stats
+    [, extra_metrics])`` into a data-parallel step over the process group
+    (of ``dist``'s world size).
+
+    The step takes the global batch: rank w keeps rows ``[w·B/W,
+    (w+1)·B/W)`` of every batch leaf, the reference's sharding order, and
+    a leading dim that the world does not divide raises.  In the
+    reference's order: the optimizer's precompute tick, the local loss and
+    gradients, the loss pmean, the gradients' reduce-scatter, the rank-1
+    stat pmean (``stats_payload_dtype``: bf16 by default, ``None`` for the
+    bit-tight mode), the all-gather, the update (owner-sharded inversions
+    when the optimizer carries ``MKORConfig.dist``), ``apply_updates`` and
+    the metrics.  Returns ``(params, opt_state, batch, scalars=None,
+    view=None) -> (params, opt_state, metrics)``, interchangeable with
+    :func:`make_train_step` (``plan`` and ``observe`` attached), so the
+    chunk runner takes it unchanged."""
+    world = collectives.world_size(dist)
+    warm = []
+
+    def step(params, opt_state, batch, scalars=None, view=None):
+        for key, leaf in batch.items():
+            if leaf.ndim == 0 or leaf.shape[0] % world:
+                raise ValueError(
+                    f"batch leaf {key!r} leading dim "
+                    f"{leaf.shape[0] if leaf.ndim else None} does not "
+                    f"divide the data world size {world}")
+        rank = collectives.worker_index(dist)
+        if not warm:
+            # a collective before any graph capture: it sets up the
+            # communicator, which a capture cannot do
+            collectives.pmean(torch.zeros((), device=tree_leaves(params)[0]
+                                          .device), dist)
+            warm.append(True)
+        local = {k: v[rank * (v.shape[0] // world):
+                      (rank + 1) * (v.shape[0] // world)]
+                 for k, v in batch.items()}
+        if view is None and optimizer.observe is not None:
+            view = optimizer.observe(opt_state)
+        precompute = optimizer.precompute is not None
+        if precompute:
+            opt_state = optimizer.precompute(opt_state, params=params,
+                                             view=view)
+        out = grads_fn(params, local)
+        loss, grads, stats = out[:3]
+        extra = out[3] if len(out) > 3 else {}
+        loss = collectives.pmean(loss, dist)
+        # the gradient mean as its two halves, the O(d) stat mean between
+        shard, spec = collectives.flat_reduce_scatter_mean(grads, dist)
+        stats = collectives.pmean_rank1_stats(
+            stats, dist, payload_dtype=stats_payload_dtype)
+        grads = collectives.flat_all_gather_tree(shard, spec, dist)
+        updates, opt_state = optimizer.update(
+            grads, opt_state, params=params, stats=stats, loss=loss,
+            precomputed=precompute, scalars=scalars, view=view)
+        params = firstorder.apply_updates(params, updates)
+        metrics = {
+            "loss": loss,
+            **{k: collectives.pmean(v, dist)
+               for k, v in extra.items()},
+            "grad_norm": firstorder.global_norm(grads),
+            "update_norm": firstorder.global_norm(updates),
+        }
+        return params, opt_state, metrics
+
+    step.plan = optimizer.plan
+    step.observe = optimizer.observe
+    return step
+
+
+def make_dist_train_step(cfg: ModelConfig,
+                         optimizer: GradientTransformation,
+                         dist: collectives.DistSpec, *,
+                         collect_stats: bool = True,
+                         stats_payload_dtype: Optional[str] = "bfloat16"
+                         ) -> Callable:
+    """The data-parallel :func:`make_train_step` (the launcher's
+    ``--dist``): the same signature and metrics, explicit collectives.
+    Build MKOR with ``MKORConfig(dist=dist)`` to owner-shard its
+    inversions over the same process group."""
+    loss_fn = make_loss_fn(cfg, collect_stats=collect_stats)
+
+    def local_grads(params, batch):
+        (loss, aux), grads = value_and_grad(loss_fn, params, batch)
+        return loss, grads, aux["stats"], {
+            "loss_lm": aux["loss_lm"].detach(), "moe_aux": aux["moe_aux"]}
+
+    return make_dist_step_fn(local_grads, optimizer, dist,
+                             stats_payload_dtype=stats_payload_dtype)
 
 
 # ----------------------------------------------------------------------- #

@@ -509,6 +509,95 @@ def test_cuda_fused_precond_cores(cuda_device, b, di, do):
             t_pc.fused_precond(r, g, l, core="wgmma")
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,di,do", [(4, 1024, 4096), (4, 4096, 1024),
+                                     (3, 1001, 600), (2, 1008, 720)])
+@pytest.mark.parametrize("quant", [False, True])
+def test_cuda_fused_precond_bit_repeatable(cuda_device, b, di, do, quant):
+    """ΣG² and ΣΔ² are added in a fixed order (csrc/precond.cu): a second
+    call on the same inputs gives the same bits, on both cores, bf16 and
+    int8 factors, rescale on and off."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    if quant:
+        (r, rsc), (l, lsc) = (_int8_bank(b, d, gen, cuda_device)
+                              for d in (di, do))
+        kw = dict(r_scale=rsc, l_scale=lsc)
+    else:
+        r, l = ((torch.eye(d, device=cuda_device) + 0.01 * torch.randn(
+            (b, d, d), generator=gen, device=cuda_device)).to(torch.bfloat16)
+            for d in (di, do))
+        kw = {}
+    g = (0.01 * torch.randn((b, di, do), generator=gen,
+                            device=cuda_device)).to(torch.bfloat16)
+    route = t_pc.precond_route(r.dtype, g.dtype, l.dtype, di, do,
+                               r.data_ptr(), g.data_ptr(), l.data_ptr())
+    for core in ((None, "wmma") if route == "wgmma" else (None,)):
+        for rescale in (True, False):
+            first = t_pc.fused_precond(r, g, l, rescale=rescale, core=core,
+                                       **kw)
+            for _ in range(3):
+                again = t_pc.fused_precond(r, g, l, rescale=rescale,
+                                           core=core, **kw)
+                assert torch.equal(again, first), (core, rescale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bfloat16", "int8"])
+@pytest.mark.parametrize("rank", [1, 4])
+def test_cuda_smw_owned_chunk_with_padded_tail(cuda_device, kind, rank):
+    """The data-parallel path's owned chunk of a bank the world does not
+    divide (5 slices at world 2: rank 1 owns slices 3, 4 and one zero slot,
+    a zero factor with a zero vector, or a window count of 0): the real
+    slices as the full-bank launch's, the padded slot zero."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    n, chunk, d = 5, 3, 256
+    if kind == "int8":
+        j, sc = _int8_bank(n, d, gen, cuda_device)
+    else:
+        j, sc = (torch.eye(d, device=cuda_device) + 0.01 * torch.randn(
+            (n, d, d), generator=gen, device=cuda_device)).to(
+                torch.bfloat16), None
+
+    def tail(x):
+        return torch.cat([x[chunk:], x.new_zeros((2 * chunk - n,)
+                                                 + tuple(x.shape[1:]))])
+    sc_c = None if sc is None else tail(sc)
+    if rank == 1:
+        v = torch.randn((n, d), generator=gen, device=cuda_device)
+        full = t_rk.fused_smw(j, v, gamma=0.9, scale=sc)
+        part = t_rk.fused_smw(tail(j), tail(v), gamma=0.9, scale=sc_c)
+    else:
+        w = torch.randn((n, rank, d), generator=gen, device=cuda_device)
+        cnt = torch.full((n,), rank, device=cuda_device)
+        cnt_c = tail(cnt)
+        sq, gm = block_weights(cnt, rank, 0.9)
+        sq_c, gm_c = block_weights(cnt_c, rank, 0.9)
+        full = t_rk.fused_block_smw(j, (w * sq[..., None]).contiguous(), gm,
+                                    scale=sc)
+        part = t_rk.fused_block_smw(tail(j), (tail(w) * sq_c[..., None])
+                                    .contiguous(), gm_c, scale=sc_c)
+    own = n - chunk
+    assert int(torch.count_nonzero(part[own:])) == 0
+    rel, floor = (2 ** -7, 1e-5) if kind == "bfloat16" else (1e-5, 1e-6)
+    assert _within(part[:own], full[chunk:], rel, floor)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra,match", [
+    (["--dist-devices", "2"], "--dist-backend gloo"),
+    (["--dist-devices", "2", "--dist-backend", "gloo"], "--chunk 1")])
+def test_cuda_launcher_dist_refusals(cuda_device, extra, match):
+    """NCCL with more ranks than cards exits naming --dist-backend gloo
+    (on a one-card machine), and gloo on the card refuses a capture."""
+    from repro_torch.launch import train as t_train
+    if "gloo" not in extra and torch.cuda.device_count() >= 2:
+        pytest.skip("needs fewer cards than ranks")
+    with pytest.raises(SystemExit, match=match):
+        t_train.main(["--arch", "bert-large", "--reduced", "--steps", "1",
+                      "--global-batch", "2", "--dist", "--chunk", "4"]
+                     + extra)
+
+
 # ----------------------------------------------------------------------- #
 # The persistent SMW kernel (block_smw.cu): fused_block_smw at every built
 # rank and fused_smw as its r = 1 instance, on every body (bf16, fp32 and

@@ -22,6 +22,8 @@ from repro_torch.core import mkor as t_mkor
 from repro_torch.models import config as t_config
 from repro_torch.training import loop as t_loop
 
+from torch_dist_worker import run_ranks
+
 # the module, not the function that repro.core re-exports under its name
 j_mkor = importlib.import_module("repro.core.mkor")
 torch.set_num_threads(2)
@@ -180,26 +182,42 @@ def test_mkor_autoencoder_banks_match(ae_params):
 # the ids are the ones pytest gave these cases when each was one (field,
 # value) pair; the health sentinel is ported, and its cases went with the
 # check they tested (tests/test_torch_health.py holds its config checks).
-# The per-layer layout is ported: its case now checks that it builds and
-# steps (tests/test_torch_per_layer.py holds it to the reference).
+# The per-layer layout and the data-parallel fields are ported: each case
+# now checks that its config builds and steps (tests/test_torch_per_layer.py
+# and tests/test_torch_dist.py hold them to the reference).  ``dist`` of
+# world 2 steps in two spawned gloo ranks (tests/torch_dist_worker.py);
+# ``live`` without ``dist`` is never consulted, as in the reference.
 @pytest.mark.parametrize("overrides", [
     pytest.param({"dist": (("data", 2),)}, id="dist-value0"),
     pytest.param({"live": (True, False)}, id="live-value1"),
     pytest.param({"layout": "per_layer"}, id="layout-per_layer")])
-def test_unported_configs_raise(overrides):
-    cfg = t_mkor.MKORConfig(**overrides)
-    if overrides.get("layout") != "per_layer":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_mkor.mkor(t_fo.lamb(1e-3), cfg)
+def test_unported_configs_raise(overrides, tmp_path):
+    if "dist" in overrides:
+        ranks = run_ranks(tmp_path, 2, [{"name": "fc", "kind": "fc",
+                                         "mkor": overrides}])
+        for r in ranks:
+            upd, state = r["fc"]["update"], r["fc"]["state"]
+            assert sorted(state["factor_banks"]) == ["8x6"]
+            assert int(state["count"]) == 1
+            assert not np.array_equal(state["factor_banks"]["8x6"]["l_inv"],
+                                      np.eye(6)[None])   # a phase step
+            assert np.isfinite(upd["fc"]["w"]).all()
+            assert not upd["fc"]["probe"].any()
+            for a, b in zip(jax.tree.leaves(r["fc"]),
+                            jax.tree.leaves(ranks[0]["fc"])):
+                assert np.array_equal(a, b)      # replicas hold the same bits
         return
+    cfg = t_mkor.MKORConfig(**overrides)
     opt = t_mkor.mkor(t_fo.lamb(1e-3), cfg)
     params = {"fc": {"w": torch.ones((8, 6)), "probe": torch.zeros(6)}}
     state = opt.init(params)
     grads = {"fc": {"w": torch.full((8, 6), 0.5), "probe": torch.ones(6)}}
     stats = {"fc": {"a": torch.ones(8)}}
     upd, state = opt.update(grads, state, params=params, stats=stats)
-    assert sorted(state["factors"]) == ["fc"] and int(state["count"]) == 1
-    assert not torch.equal(state["factors"]["fc"]["l_inv"].float(),
+    assert int(state["count"]) == 1
+    factors = t_mkor.factor_slices(state, params, cfg)
+    assert sorted(factors) == ["fc"]
+    assert not torch.equal(factors["fc"]["l_inv"].float(),
                            torch.eye(6))          # count 0: a phase step
     assert torch.isfinite(upd["fc"]["w"]).all() and \
         torch.equal(upd["fc"]["probe"], torch.zeros(6))
