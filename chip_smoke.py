@@ -140,9 +140,9 @@ Phases (each prints its own lines; any failure exits non-zero):
         metadata), each one's logged losses within LAUNCH_DIST_RTOL of
         the launcher without --dist; o2, two processes on the one card
         over gloo (this script with --dist-rank, each rank's output to a
-        file), full bert-large (24 layers), bf16 rank 1 (inv_freq 3, 6
-        steps), int8 rank 4 (inv_freq 4, 8) and bf16 staleness 1
-        (inv_freq 3, 9): after every step each rank's launches (the SMW
+        file), bert-large cut to TWO_RANK_LAYERS = 8 layers, bf16 rank 1
+        (inv_freq 3, 4 steps), int8 rank 4 (inv_freq 4, 5) and bf16
+        staleness 1 (inv_freq 3, 7): after every step each rank's launches (the SMW
         kernel twice for each phase bucket, each on the rank's owned
         chunk, as the launch's slice count shows; fused_precond on every
         bucket), int8 error feedback zero, every leaf's fingerprint (two
@@ -152,6 +152,30 @@ Phases (each prints its own lines; any failure exits non-zero):
         bound, printed; int8 codes and scales equal); after each run every
         leaf of both ranks torch.equal through the group; each rank's
         peak memory;
+     p. elastic fault tolerance (training/resilience.py, the launcher's
+        --elastic): p1, launch/train.py --elastic --dist --dist-devices 1
+        as a user runs it (a process of its own; rank 1, inv_freq 3,
+        chunks of 3, 9 steps): with --chaos drop_collective@4 --log-json
+        its losses float for float the launcher's without --elastic and
+        chaos, one retry line; with --ckpt-dir and SIGTERM to the launcher
+        as soon as its first chunk's lines come, exit 0, the preemption
+        line and an emergency checkpoint at the next unconsumed step, and
+        a rerun from it ending on the uninterrupted run's losses bit for
+        bit; the launcher's captured step with --elastic (no donation)
+        against without, in turns (elastic, plain, plain, elastic), with
+        each runner's peak memory; p3, the launcher's make_runner twice as
+        a remap rebuilds, the first released before the second captures:
+        the second's peak reserved memory within REBUILD_SLACK_GIB of the
+        first's, its replays each against the eager step; p2, two gloo
+        ranks on the one card (this script with --elastic-rank), bert-large
+        cut to 8 layers, staleness 1 and the sentinel through
+        kill_shard@3:1,drop_collective@4 at --chunk 1: both ranks' events
+        equal, the reset buckets orphaned_buckets on the old map with
+        banks the identity, windows zero and cooldown armed, equal on both
+        ranks, every SMW launch on the owned chunk (half, then all of the
+        slices), the replicas' fingerprints equal every step, and the
+        step after the kill's tick launches and banks torch.equal to the
+        single-device kernel tick from the same quarantined state;
      each profiled step also lists the host's waits on the device; on
      every path every GEMM of matmul and fused_precond (and of their int8
      variants) must run on the Hopper core (per-core counts);
@@ -298,6 +322,12 @@ PATH_KERNELS = {
                            _NOT_INT8 + ("fused_smw[int8]",)),
     "dist_w2_staleness1": (("fused_block_smw", "fused_precond", "matmul"),
                            ("fused_smw",)),
+    # elastic: p1's captured steps with and without --elastic and p3's
+    # rebuilt runner (rank 1), p2's two ranks through a kill (staleness 1)
+    "elastic_p1": (("fused_smw", "fused_precond", "matmul"),
+                   ("fused_block_smw",)),
+    "elastic_p2": (("fused_block_smw", "fused_precond", "matmul"),
+                   ("fused_smw",)),
 }
 # the paths whose GEMMs all run on the Hopper core: every one (bf16
 # factors, and int8 codes widened to bf16 in shared memory)
@@ -324,20 +354,43 @@ EVA_STEPS = 4                     # path m: eager, and two chunks of 2
 BASELINE_STEPS = 6                # path n: KFAC and SNGD, each
 DIST_STEPS = 6                    # path o1: world 1, rank 1, inv_freq 3
 # path o2: two ranks on the one card, each run's MKORConfig fields (inv_freq
-# 3 unless given) and steps: every bucket's phase twice (its second
-# inversion from a factor off the identity); at staleness 1 each bucket's
-# launch, promote and relaunch
+# 3 unless given) and steps: at rank 1 one bucket's phase twice (its second
+# inversion from a factor off the identity); at rank 4 every bucket's first
+# window and one bucket's second; at staleness 1 each bucket's launch,
+# promote and relaunch
 DIST_RUNS = {
-    "dist_w2_rank1": (dict(), 6),
-    "dist_w2_int8_rank4": (dict(rank=4, inv_freq=4, factor_quant="int8"), 8),
-    "dist_w2_staleness1": (dict(staleness=1), 9)}
+    "dist_w2_rank1": (dict(), 4),
+    "dist_w2_int8_rank4": (dict(rank=4, inv_freq=4, factor_quant="int8"), 5),
+    "dist_w2_staleness1": (dict(staleness=1), 7)}
 DIST_TIMEOUT = 600                # seconds for both o2 ranks
+# o2 and p2: two gloo ranks on the one card, bert-large cut to this depth
+# (full width): gloo stages every collective through the host, 8-11 s a
+# step at 24 layers on a slow host
+TWO_RANK_LAYERS = 8
 # path o3: the launcher's --dist (rank 1, inv_freq 3): NCCL at one rank in
 # chunks of 3, then two gloo ranks on the one card at --chunk 1
 LAUNCH_DIST = {"nccl": (["--dist-devices", "1", "--chunk", "3"], 6),
                "gloo": (["--dist-devices", "2", "--dist-backend", "gloo",
                          "--chunk", "1"], 3)}
 LAUNCH_DIST_RTOL = 2e-3           # its losses against the single-device run
+# path p: elastic fault tolerance (training/resilience.py, --elastic).  p1:
+# the launcher as a user runs it (one spawned NCCL rank, rank 1, inv_freq 3,
+# chunks of 3); its captured step with --elastic (no donation) against
+# without, in turns of ELASTIC_TURN_CHUNKS chunks (the first dropped)
+ELASTIC_LAUNCH = ["--arch", "bert-large", "--use-kernels", "--chunk", "3",
+                  "--inv-freq", "3", "--steps", "9", "--log-every", "1"]
+ELASTIC_DIST = ["--dist", "--dist-devices", "1"]
+ELASTIC_DROP = "drop_collective@4"
+ELASTIC_TURN_CHUNKS = 4
+ELASTIC_TIMEOUT = 300             # seconds for a launcher run, or both p2 ranks
+# p2: a kill on the card, two gloo ranks at --chunk 1 (TWO_RANK_LAYERS
+# layers); the step after the kill is compared
+ELASTIC_KILL_STEPS = 7
+ELASTIC_KILL_AT = 3
+ELASTIC_KILL_CHAOS = f"kill_shard@{ELASTIC_KILL_AT}:1,drop_collective@4"
+ELASTIC_KILL_KW = dict(staleness=1, health=True, inv_freq=3)
+# p3: the second runner's peak reserved memory over the first runner's
+REBUILD_SLACK_GIB = 1.0
 # each path's numbers for the closing summary lines
 SUMMARY = collections.defaultdict(dict)
 
@@ -2333,6 +2386,21 @@ def summary_lines():
             return "not measured"
         return f"{b[1]:.3f} of {b[0]:.3f} ms ({100 * b[1] / b[0]:.1f} %)"
     for name, v in SUMMARY.items():
+        if name == "elastic_p1":
+            e, p = v["turn_elastic"], v["turn_plain"]
+            (_, pa, pr), (eb, ea, er) = v["mem"]["plain"], v["mem"]["elastic"]
+            r1, freed, r2 = v["rebuild"]
+            print(f"summary [{name}]: captured step in turns with --elastic "
+                  f"{e:.3f} ms against {p:.3f} ms without ({e - p:+.3f} ms, "
+                  f"{100 * (e - p) / p:+.1f} %); peak memory without "
+                  f"{pa:.3f} GiB allocated ({pr:.3f} reserved), with "
+                  f"{ea:.3f} GiB ({er:.3f} reserved; {eb:.3f} GiB allocated "
+                  f"before it); rebuild: peak reserved {r1:.3f} GiB with the "
+                  f"first runner, {freed:.3f} GiB after its release, "
+                  f"{r2:.3f} GiB after the second capture; launcher runs "
+                  f"{', '.join(f'{x:.1f}' for x in v['launch_s'])} s, the "
+                  f"emergency checkpoint at cursor {v['cursor']}")
+            continue
         if "graph_ms" not in v:             # paths l and n run eagerly
             print(f"summary [{name}]: step median eager "
                   f"{v['eager_ms']:.3f} ms (not captured); peak memory "
@@ -3887,10 +3955,11 @@ class DistTee:
 
 class ChunkLog:
     """The lead dims (flattened) and d of every banked SMW launch, by
-    wrapping ops' two banked entries (their behaviour unchanged)."""
+    wrapping ops' two banked entries (their behaviour unchanged); while
+    ``keep`` is set, their results too."""
 
     def __init__(self, ops):
-        self.launches = []
+        self.launches, self.outputs, self.keep = [], [], False
         for fn_name in ("smw_rank1_update_banked", "smw_block_update_banked"):
             fn = getattr(ops, fn_name)
 
@@ -3899,7 +3968,10 @@ class ChunkLog:
                 for d in j.shape[:-2]:
                     n *= d
                 self.launches.append((n, j.shape[-1]))
-                return _fn(j, *a, **kw)
+                out = _fn(j, *a, **kw)
+                if self.keep:
+                    self.outputs.append(out)
+                return out
             setattr(ops, fn_name, wrapped)
 
 
@@ -3913,6 +3985,25 @@ def _gather_bytes(torch, t):
     return out[:host.numel()], out[host.numel():]
 
 
+def require_replicas(torch, dev, tree, tag):
+    """Every leaf's fingerprint against the other rank's (one all-gather
+    through the group); returns the number of leaves."""
+    import torch.distributed as tdist
+    leaves = list(flat_paths(tree))
+    fps = torch.stack([fingerprint(torch, t.to(dev))
+                       for _, t in leaves]).cpu()
+    both = torch.empty((2 * fps.shape[0],) + tuple(fps.shape[1:]),
+                       dtype=fps.dtype)
+    tdist.all_gather_into_tensor(both, fps)
+    diff = [("/".join(map(str, k)))
+            for (k, _), a, b in zip(leaves, both[:len(leaves)],
+                                    both[len(leaves):])
+            if not torch.equal(a, b)]
+    require(not diff, f"{tag}: the ranks differ at {diff[:4]} ({len(diff)} "
+            "leaves)")
+    return len(leaves)
+
+
 def dist_world2_run(torch, dev, setup, name, kw, steps, rank, log):
     """One o2 run in this rank: ``steps`` eager dist steps through the
     kernels (bit-tight payload).  After every step: the launches (the SMW
@@ -3923,7 +4014,6 @@ def dist_world2_run(torch, dev, setup, name, kw, steps, rank, log):
     inputs from the same state.  After the last step every leaf of both
     ranks torch.equal.  ``log``: the :class:`ChunkLog` of the process.
     Returns the launch counts and what held."""
-    import torch.distributed as tdist
     from repro_torch.core import firstorder, stats as statlib
     from repro_torch.core.mkor import MKORConfig, manifest_for, mkor
     from repro_torch.data import pipeline
@@ -3989,20 +4079,8 @@ def dist_world2_run(torch, dev, setup, name, kw, steps, rank, log):
                     require(not bank["l_ef"].any() and not bank["r_ef"].any(),
                             f"{name} rank {rank} step {step}: error "
                             "feedback not zero under dist")
-        # replication: every leaf's fingerprint against the other rank's
-        leaves = list(flat_paths({"params": p, "state": s}))
-        fps = torch.stack([fingerprint(torch, t.to(dev))
-                           for _, t in leaves]).cpu()
-        both = torch.empty((2 * fps.shape[0],) + tuple(fps.shape[1:]),
-                           dtype=fps.dtype)
-        tdist.all_gather_into_tensor(both, fps)
-        diff = [("/".join(map(str, k)))
-                for (k, _), a, b in zip(leaves, both[:len(leaves)],
-                                        both[len(leaves):])
-                if not torch.equal(a, b)]
-        require(not diff, f"{name} step {step}: the ranks differ at "
-                f"{diff[:4]} ({len(diff)} leaves)")
-        held["leaf fingerprints equal across ranks"] += len(leaves)
+        held["leaf fingerprints equal across ranks"] += require_replicas(
+            torch, dev, {"params": p, "state": s}, f"{name} step {step}")
         if rank == 0 and hit:
             mark = build.count_mark()
             if kw.get("staleness"):
@@ -4072,8 +4150,11 @@ def dist_child(rank: int, store: str, out: str) -> int:
     tdist.init_process_group("gloo", init_method=f"file://{store}",
                              rank=rank, world_size=2)
     try:
+        import dataclasses
+        from repro_torch.configs import bert_large
         from repro_torch.kernels import ops
-        setup = bert_large_setup(dev)
+        setup = bert_large_setup(dev, dataclasses.replace(
+            bert_large.CONFIG, n_layers=TWO_RANK_LAYERS))
         log = ChunkLog(ops)
         results = {}
         for name, (kw, steps) in DIST_RUNS.items():
@@ -4089,12 +4170,11 @@ def dist_child(rank: int, store: str, out: str) -> int:
     return 0
 
 
-def dist_world2_path(torch):
-    """Path o2: two processes on the one card over gloo (the launcher's
-    --dist --dist-backend gloo, eager), each running DIST_RUNS; rank 0's
-    output is printed.  Returns the launch counts of both ranks."""
+def _two_ranks(flag, tag, timeout):
+    """This script re-run as two ranks on the one card (``flag R
+    --dist-store S --dist-out O``), each rank's output to a file; rank 0's
+    printed.  Returns both ranks' JSON results."""
     import tempfile
-    launches = collections.Counter()
     with tempfile.TemporaryDirectory() as tmp:
         outs = [Path(tmp) / f"rank{r}.json" for r in range(2)]
         # two processes share the card: segments that grow and shrink keep
@@ -4110,11 +4190,11 @@ def dist_world2_path(torch):
                 with open(logs[r], "w") as f:
                     procs.append(subprocess.Popen(
                         [sys.executable, str(Path(__file__).resolve()),
-                         "--dist-rank", str(r), "--dist-store",
+                         flag, str(r), "--dist-store",
                          str(Path(tmp) / "store"), "--dist-out",
                          str(outs[r])], stdout=f, stderr=subprocess.STDOUT,
                         text=True, env=env))
-            deadline = time.monotonic() + DIST_TIMEOUT
+            deadline = time.monotonic() + timeout
             for proc in procs:
                 proc.wait(timeout=max(deadline - time.monotonic(), 1))
         finally:
@@ -4126,9 +4206,17 @@ def dist_world2_path(torch):
         if any(proc.returncode for proc in procs):
             print(f"--- rank 1 (last lines)\n{logs[1].read_text()[-3000:]}")
         require(all(proc.returncode == 0 for proc in procs),
-                "dist_w2: a rank failed (exit codes "
+                f"{tag}: a rank failed (exit codes "
                 f"{[proc.returncode for proc in procs]})")
-        res = [json.loads(o.read_text()) for o in outs]
+        return [json.loads(o.read_text()) for o in outs]
+
+
+def dist_world2_path(torch):
+    """Path o2: two processes on the one card over gloo (the launcher's
+    --dist --dist-backend gloo, eager), each running DIST_RUNS; rank 0's
+    output is printed.  Returns the launch counts of both ranks."""
+    launches = collections.Counter()
+    res = _two_ranks("--dist-rank", "dist_w2", DIST_TIMEOUT)
     for name in DIST_RUNS:
         r0, r1 = res[0][name], res[1][name]
         require(r0["losses"] == r1["losses"], f"{name}: losses differ")
@@ -4145,6 +4233,544 @@ def dist_world2_path(torch):
               f"{r0['held']}, rank 1 {r1['held']}; {r0['seconds']:.1f} s")
         SUMMARY[name]["eager_ms"] = statistics.median(r0["step_ms"][1:])
         SUMMARY[name]["eager_peak"] = max(r0["peak_gib"], r1["peak_gib"])
+    return launches
+
+
+# ----------------------------------------------------------------------- #
+# Path p: elastic fault tolerance (training/resilience.py, the launcher's
+# --elastic)
+# ----------------------------------------------------------------------- #
+def _launch(argv, tag, sigterm_after=None):
+    """``python -m repro_torch.launch.train argv`` in a process of its own
+    (a session of its own: the ranks it spawns write to the same pipe and
+    are stopped with it), every line printed with ``tag``.  With
+    ``sigterm_after`` (a line prefix) the launcher gets SIGTERM as soon as
+    such a line comes.  Returns (exit code, lines, seconds)."""
+    import signal
+    import threading
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + ([os.environ["PYTHONPATH"]]
+                               if os.environ.get("PYTHONPATH") else [])))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+        cwd=ROOT, start_new_session=True)
+
+    def kill_group():
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    timer = threading.Timer(ELASTIC_TIMEOUT, kill_group)
+    timer.start()
+    lines, sent = [], False
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            print(f"[{tag}] {lines[-1]}", flush=True)
+            if sigterm_after and not sent and \
+                    lines[-1].startswith(sigterm_after):
+                proc.send_signal(signal.SIGTERM)
+                sent = True
+                print(f"[{tag}] (SIGTERM sent to the launcher)", flush=True)
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+        kill_group()                  # whatever the session left running
+        proc.wait()
+    seconds = time.perf_counter() - t0
+    print(f"[{tag}] exit code {rc}, {seconds:.1f} s", flush=True)
+    require(not sigterm_after or sent, f"{tag}: no line {sigterm_after!r}")
+    return rc, lines, seconds
+
+
+def _logged(path):
+    """The launcher's --log-json history: [(step, loss)]."""
+    return [(h["step"], h["loss"]) for h in json.loads(Path(path).read_text())]
+
+
+def elastic_launcher_path():
+    """p1 as a user runs it: ``launch/train.py --elastic --dist
+    --dist-devices 1`` (one spawned NCCL rank) with ``--chaos
+    drop_collective@4 --log-json``, its losses float for float the
+    launcher's without --elastic and chaos, the retry line printed; then
+    with ``--ckpt-dir`` (no chaos) and SIGTERM to the launcher as soon as
+    its first chunk's lines come: exit 0, the preemption line, an
+    emergency checkpoint whose cursor is the next unconsumed step; a rerun
+    resumes there and ends on the uninterrupted run's final loss, bit for
+    bit."""
+    import tempfile
+    from repro_torch import checkpointing
+    from repro_torch.checkpointing import msgpack_codec
+    base = ELASTIC_LAUNCH + ELASTIC_DIST
+    steps = int(base[base.index("--steps") + 1])
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        rc, _, sec_plain = _launch(
+            base + ["--log-json", str(tmp / "plain.json")], "elastic plain")
+        require(rc == 0, f"elastic plain: exit code {rc}")
+        want = _logged(tmp / "plain.json")
+        rc, lines, sec_drop = _launch(
+            base + ["--elastic", "--chaos", ELASTIC_DROP, "--log-json",
+                    str(tmp / "drop.json")], "elastic drop")
+        require(rc == 0, f"elastic drop: exit code {rc}")
+        got = _logged(tmp / "drop.json")
+        drop_at = int(ELASTIC_DROP.split("@")[1])
+        retry = [ln for ln in lines if ln.startswith(
+            f"[elastic] step {drop_at}: dispatch failed")]
+        require(len(retry) == 1, f"elastic drop: retry lines {retry}")
+        require(len(want) == steps and got == want,
+                f"elastic drop: losses {got} against the plain launcher's "
+                f"{want}")
+        print(f"[elastic drop] {steps} losses float for float the launcher's "
+              f"without --elastic: {[x for _, x in got]}; retry line: "
+              f"{retry[0]}")
+        ckpt = tmp / "ckpt"
+        rc, lines, sec_pre = _launch(
+            base + ["--elastic", "--ckpt-dir", str(ckpt), "--log-json",
+                    str(tmp / "pre.json")], "elastic preempt",
+            sigterm_after="step     2 loss=")
+        require(rc == 0, f"elastic preempt: exit code {rc}")
+        require("preempted: emergency checkpoint taken, exiting cleanly" in
+                lines, "elastic preempt: no preemption line")
+        logged = _logged(tmp / "pre.json")
+        at = checkpointing.latest_step(str(ckpt))
+        require(at is not None and checkpointing.validate(str(ckpt), at),
+                "elastic preempt: no valid emergency checkpoint")
+        meta = msgpack_codec.unpackb((ckpt / f"step_{at:08d}" /
+                                      "manifest.msgpack").read_bytes())[
+            "metadata"]
+        cursor = meta["cursor"]["step"]
+        require(meta.get("emergency") is True and
+                cursor == logged[-1][0] + 1 < steps,
+                f"elastic preempt: checkpoint metadata {meta} after logged "
+                f"steps {[k for k, _ in logged]}")
+        require(logged == want[:cursor], "elastic preempt: losses before the "
+                "preemption differ from the uninterrupted run's")
+        rc, lines, sec_res = _launch(
+            base + ["--elastic", "--ckpt-dir", str(ckpt), "--log-json",
+                    str(tmp / "resume.json")], "elastic resume")
+        require(rc == 0, f"elastic resume: exit code {rc}")
+        require(f"restored checkpoint step {cursor - 1} (data cursor "
+                f"{cursor})" in lines, "elastic resume: no restore line")
+        resumed = _logged(tmp / "resume.json")
+        print(f"[elastic preempt] SIGTERM after the first chunk: stopped "
+              f"after step {cursor - 1}, emergency checkpoint metadata "
+              f"{meta}; the rerun logged {resumed}; the uninterrupted run "
+              f"{want[cursor:]}")
+        require(resumed == want[cursor:], "elastic resume: losses differ "
+                "from the uninterrupted run's")
+    SUMMARY["elastic_p1"].update(launch_s=(sec_plain, sec_drop, sec_pre,
+                                           sec_res), cursor=cursor)
+
+
+def elastic_turns(torch, dev):
+    """p1's captured step with --elastic (the runner keeps its inputs: a
+    copy of params and state into its buffers and a clone out, each chunk)
+    against the launcher's step without it, both built by the launcher
+    (``setup``'s ``make_runner``) without --dist: each runner's first two
+    chunks alone (captures, then replays) with its peak memory, then in
+    turns in this process (elastic, plain, plain, elastic), chunks of 3
+    synchronized, the first of each turn dropped.  Returns the launches,
+    the elastic run (``setup``'s result) and the params and state."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.training import loop as train_lib
+    plain = train_cli.setup(train_cli.parse_args(ELASTIC_LAUNCH))
+    el = train_cli.setup(train_cli.parse_args(ELASTIC_LAUNCH + ["--elastic"]))
+    params, state, ds = plain.params, plain.opt_state, plain.ds
+    el.params = el.opt_state = plain.params = plain.opt_state = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    chunk = int(ELASTIC_LAUNCH[ELASTIC_LAUNCH.index("--chunk") + 1])
+    runners = {"plain": plain.make_runner(), "elastic": el.make_runner()}
+    require(runners["plain"].donate and not runners["elastic"].donate,
+            "elastic turns: the launcher's runners donate wrongly")
+    i, mem = 0, {}
+
+    def run(kind):
+        nonlocal params, state, i
+        from repro_torch.data import pipeline
+        stacked = train_lib.stack_batches(
+            [pipeline.make_batch(ds, i + k) for k in range(chunk)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = runners[kind](params, state, stacked)
+        torch.cuda.synchronize()              # the clones out, too
+        i += chunk
+        require(all(math.isfinite(float(x)) for x in m["loss"]),
+                f"elastic turns: non-finite loss ({kind})")
+        return (time.perf_counter() - t0) * 1e3 / chunk
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ops.reset_fallback_counts()
+    for kind in ("plain", "elastic"):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats()
+        run(kind)
+        run(kind)
+        mem[kind] = (before / 2 ** 30,
+                     torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                     torch.cuda.max_memory_reserved(dev) / 2 ** 30)
+        print(f"[elastic turns] {kind}: a chunk of captures and one of "
+              f"replays; allocated before {mem[kind][0]:.3f} GiB, peak "
+              f"allocated {mem[kind][1]:.3f} GiB, peak reserved "
+              f"{mem[kind][2]:.3f} GiB")
+    medians = {"plain": [], "elastic": []}
+    for kind in ("elastic", "plain", "plain", "elastic"):
+        times = [run(kind) for _ in range(ELASTIC_TURN_CHUNKS)]
+        medians[kind].append(statistics.median(times[1:]))
+        print(f"[elastic turns] {kind}: ms a step over chunks of {chunk} "
+              f"{[round(t, 3) for t in times]}, median of chunks 2-"
+              f"{ELASTIC_TURN_CHUNKS} {medians[kind][-1]:.3f}")
+    counts = ops.launch_counts()
+    require_path_kernels("elastic_p1", counts, ops.gemm_core_counts(),
+                         ops.fallback_counts())
+    e, p = (statistics.median(medians[k]) for k in ("elastic", "plain"))
+    print(f"[elastic turns] captured step {e:.3f} ms with --elastic against "
+          f"{p:.3f} ms without ({e - p:+.3f} ms, {100 * (e / p - 1):+.1f} %)")
+    SUMMARY["elastic_p1"].update(turn_elastic=e, turn_plain=p, mem=mem)
+    for r in runners.values():
+        r.release()
+    del runners
+    return counts, el, params, state
+
+
+def elastic_rebuild_path(torch, dev, el, carried):
+    """p3: the launcher's ``make_runner`` twice, as a remap rebuilds (at
+    world 1 no kill or demotion changes the mask, so the supervisor cannot
+    drive it on one card), at full bert-large rank 1: the first runner
+    captures and replays a chunk, is released
+    (``ChunkRunner.release``), and the second captures; the peak reserved
+    memory after the second capture within the first runner's plus
+    REBUILD_SLACK_GIB; then the second runner's replays, each against the
+    eager step from the same state (:class:`ReplayCheck`).  ``carried``:
+    a list holding the params and state, emptied here, so that only the
+    runners' own results stay alive, as in a rebuild.  Returns the
+    launches."""
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.training import loop as train_lib
+    chunk = int(ELASTIC_LAUNCH[ELASTIC_LAUNCH.index("--chunk") + 1])
+    params, state = carried
+    carried.clear()
+    i = int(state["count"])
+
+    def stacked():
+        nonlocal i
+        out = train_lib.stack_batches(
+            [pipeline.make_batch(el.ds, i + k) for k in range(chunk)])
+        i += chunk
+        return out
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    ops.reset_fallback_counts()
+    base = torch.cuda.memory_reserved(dev) / 2 ** 30
+    live = torch.cuda.memory_allocated(dev) / 2 ** 30
+    first = el.make_runner(None)
+    for _ in range(2):
+        params, state, _ = first(params, state, stacked())
+    torch.cuda.synchronize()
+    r1 = torch.cuda.max_memory_reserved(dev) / 2 ** 30
+    first.release()
+    del first
+    freed = torch.cuda.memory_reserved(dev) / 2 ** 30
+    live2 = torch.cuda.memory_allocated(dev) / 2 ** 30
+    second = el.make_runner(None)
+    params, state, _ = second(params, state, stacked())
+    torch.cuda.synchronize()
+    r2 = torch.cuda.max_memory_reserved(dev) / 2 ** 30
+    print(f"[elastic rebuild] {live:.3f} GiB allocated ({base:.3f} GiB "
+          f"reserved) before; peak reserved {r1:.3f} GiB with the first "
+          f"runner (captured, one chunk replayed); {live2:.3f} GiB allocated "
+          f"({freed:.3f} GiB reserved) after its release; peak {r2:.3f} GiB "
+          f"after the second runner's capture ({r2 - r1:+.3f} GiB, tol "
+          f"{REBUILD_SLACK_GIB})")
+    require(r2 <= r1 + REBUILD_SLACK_GIB, "elastic rebuild: the second "
+            "capture holds the first runner's memory too")
+    check = ReplayCheck(torch, second, second.step_fn, "elastic_rebuild",
+                        True)
+    for _ in range(2):
+        params, state, _ = second(params, state, stacked())
+    check.report()
+    require(check.n == 2 * chunk and len(second.graphs) == chunk,
+            f"elastic rebuild: {check.n} replays, {len(second.graphs)} "
+            "graphs")
+    counts = ops.launch_counts()
+    require_path_kernels("elastic_p1", counts, ops.gemm_core_counts(),
+                         ops.fallback_counts())
+    del second._replay, check
+    second.release()
+    SUMMARY["elastic_p1"].update(rebuild=(r1, freed, r2))
+    return counts
+
+
+def elastic_kill_run(torch, dev, rank):
+    """p2 in this rank (one of two gloo ranks on the one card): bert-large
+    cut to TWO_RANK_LAYERS layers, ``resilience.elastic_train`` at
+    --chunk 1 (eager runners without donation, built as the launcher's
+    ``make_runner``, their optimizer wrapped by :class:`DistTee`), the
+    sentinel, staleness 1, ELASTIC_KILL_CHAOS.  After each step: the SMW
+    launches on the owned chunk (half the slices while both ranks live,
+    all of them on the survivor after the kill) and the replicas'
+    fingerprints.  At the remapped runner's first call: the reset buckets
+    (trips up by one, cooldown armed) are ``orphaned_buckets`` on the old
+    map, their active and pending banks the identity and windows zero, the
+    quarantined state's fingerprints equal across the ranks.  At the step
+    after the kill (rank 0): the tick's kernel launches and gathered banks
+    torch.equal to the single-device kernel tick from the same quarantined
+    state.  Returns the events, launches and what held."""
+    import dataclasses
+    from repro_torch.configs import bert_large
+    from repro_torch.core import firstorder, stats as statlib
+    from repro_torch.core.mkor import MKORConfig, manifest_for, mkor
+    from repro_torch.kernels import build, ops
+    from repro_torch.sharding import collectives
+    from repro_torch.training import chaos, resilience
+    from repro_torch.training import loop as train_lib
+    from repro_torch.data import pipeline
+    cfg = dataclasses.replace(bert_large.CONFIG,
+                              n_layers=TWO_RANK_LAYERS)
+    cfg, params, ds, _ = bert_large_setup(dev, cfg)
+    dist = (("data", 2),)
+    kw = dict(use_kernels=True, **ELASTIC_KILL_KW)
+    mcfg = MKORConfig(dist=dist, **kw)
+    opt_s = mkor(firstorder.lamb(1e-3), MKORConfig(**kw))
+    manifest = manifest_for(params, mcfg)
+    phases = statlib.bucket_phases(manifest, mcfg.inv_freq, mcfg.stagger)
+    slices = {b.bucket_id: statlib.bucket_slices(b) for b in manifest}
+    log = ChunkLog(ops)
+    held = collections.Counter()
+    per_step, last = [], {}
+    tag = f"elastic_p2 rank {rank}"
+
+    def eye_like(t):
+        return torch.eye(t.shape[-1], dtype=t.dtype,
+                         device=t.device).expand(t.shape)
+
+    def check_quarantine(s, live):
+        dead = [w for w, x in enumerate(live) if not x]
+        want = resilience.orphaned_buckets(params, mcfg, dead, (True, True))
+        before = last["state"]["health"]
+        reset = [b.bucket_id for b in manifest
+                 if int(s["health"][b.bucket_id]["trips"]) ==
+                 int(before[b.bucket_id]["trips"]) + 1 and
+                 int(s["health"][b.bucket_id]["cooldown"]) ==
+                 mcfg.health_cooldown]
+        require(reset == want and want, f"{tag}: reset buckets {reset}, "
+                f"orphaned_buckets on the old map {want} (dead {dead})")
+        for bid in want:
+            for key in ("factor_banks", "pending_banks"):
+                for k, t in s[key][bid].items():
+                    require(torch.equal(t, eye_like(t)),
+                            f"{tag}: {key}/{bid}/{k} is not the identity")
+                    held["orphan bank leaves the identity"] += 1
+            for k, t in s["stat_windows"][bid].items():
+                require(not t.any(), f"{tag}: stat_windows/{bid}/{k} not 0")
+                held["orphan window leaves zero"] += 1
+        held["quarantined leaves equal across ranks"] += require_replicas(
+            torch, dev, s, f"{tag} quarantined state")
+        print(f"[{tag}] quarantined {want} (orphaned_buckets on the old map):"
+              " banks the identity, windows zero, cooldown "
+              f"{mcfg.health_cooldown}, equal across the ranks", flush=True)
+
+    def compare_tick(tee):
+        """The single-device kernel tick from the same quarantined state
+        against the dist tick (rank 0)."""
+        state_in, pkw = tee.rec["pre"]
+        got_out, log.outputs = log.outputs, []
+        mark = build.count_mark()
+        log.keep = True
+        want = opt_s.precompute(state_in, **pkw)
+        log.keep = False
+        build.rewind_counts(mark)
+        want_out, log.outputs = log.outputs, []
+        torch.cuda.synchronize()
+        require(len(got_out) == len(want_out) > 0,
+                f"{tag}: {len(got_out)} tick launches, single-device "
+                f"{len(want_out)}")
+        for g, w in zip(got_out, want_out):
+            g, w = (g, w) if isinstance(g, tuple) else ((g,), (w,))
+            for a, b in zip(g, w):
+                # the dist launch takes the owned chunk's lead dims flat
+                require(a.numel() == b.numel() and torch.equal(
+                    a.reshape(-1), b.reshape(-1)), f"{tag}: a tick launch's "
+                    "result differs from the single-device kernel's")
+                held["tick launch results torch.equal to the single-device "
+                     "kernel's"] += 1
+        got = tee.rec["update"][1]
+        for key in ("factor_banks", "pending_banks"):
+            for bid, bank in want[key].items():
+                for k, w in bank.items():
+                    require(torch.equal(got[key][bid][k], w),
+                            f"{tag}: {key}/{bid}/{k} differs from the "
+                            "single-device kernel tick")
+                    held["gathered bank leaves torch.equal to the "
+                         "single-device tick"] += 1
+
+    def factory(live):
+        tee = DistTee(mkor(firstorder.lamb(1e-3), MKORConfig(
+            dist=dist, live=live, **kw)))
+        inner = train_lib.make_chunk_runner(
+            train_lib.make_dist_train_step(cfg, tee.opt, dist),
+            donate=False, capture=False)
+        n_live = sum(live) if live is not None else 2
+        first = [live is not None]
+
+        def run(p, s, stacked):
+            step = int(s["count"])
+            if first[0]:
+                first[0] = False
+                check_quarantine(s, live)
+            before = ops.launch_counts()
+            log.launches.clear()
+            log.keep = rank == 0 and step == ELASTIC_KILL_AT
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, s, m = inner(p, s, stacked)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            log.keep = False
+            now = ops.launch_counts()
+            delta = {k: now.get(k, 0) - before.get(k, 0) for k in now}
+            hit = [b for b in manifest
+                   if step % mcfg.inv_freq == phases[b.bucket_id]]
+            require(delta.get("fused_block_smw", 0) == 2 * len(hit) ==
+                    len(log.launches), f"{tag} step {step}: {delta} with "
+                    f"{len(hit)} phase buckets")
+            owned = {}
+            for b in manifest:
+                for d in (b.d_in, b.d_out):
+                    owned.setdefault(d, set()).add(collectives.owner_chunk(
+                        slices[b.bucket_id], n_live))
+            for n, d in log.launches:
+                require(n in owned[d], f"{tag} step {step}: an SMW launch "
+                        f"on {n} slices of {d}^2, not an owned chunk "
+                        f"{owned[d]} of {n_live} live")
+            per_step.append((step, list(live or (True, True)),
+                             list(log.launches), round(ms, 3)))
+            print(f"[{tag}] step {step} (live {live or (True, True)}): "
+                  f"loss {float(m['loss'][0]):.6f}, SMW launches (slices, "
+                  f"d) {log.launches}, {ms:.1f} ms", flush=True)
+            if step == ELASTIC_KILL_AT and rank == 0:
+                require(live is not None and hit, f"{tag}: the step after "
+                        "the kill runs no tick")
+                compare_tick(tee)
+            tee.rec.clear()
+            held["leaf fingerprints equal across ranks"] += require_replicas(
+                torch, dev, {"params": p, "state": s}, f"{tag} step {step}")
+            last["state"] = s
+            return p, s, m
+        return run
+
+    sup = resilience.ElasticSupervisor(
+        2, echo=lambda line: print(f"[{tag}] {line}", flush=True))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ops.reset_fallback_counts()
+    t0 = time.perf_counter()
+    state = mkor(firstorder.lamb(1e-3), mcfg).init(params)
+    p, s, hist, preempted = resilience.elastic_train(
+        factory, params, state,
+        make_batch=lambda i: pipeline.make_batch(ds, i),
+        stack_batches=train_lib.stack_batches, start=0,
+        steps=ELASTIC_KILL_STEPS, chunk=1, supervisor=sup,
+        plan=chaos.parse_chaos_spec(ELASTIC_KILL_CHAOS), mcfg=mcfg)
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    require_path_kernels("elastic_p2", counts, ops.gemm_core_counts(),
+                         ops.fallback_counts())
+    require(not preempted and len(hist) == ELASTIC_KILL_STEPS and
+            all(math.isfinite(h["loss"]) for h in hist),
+            f"{tag}: history {hist}")
+    for path, t in flat_paths({"params": p, "state": s}):
+        a, b = _gather_bytes(torch, t)
+        require(torch.equal(a, b), f"{tag}: the ranks differ at "
+                f"{'/'.join(map(str, path))} after the last step")
+        held["leaves torch.equal across ranks after the last step"] += 1
+    return {"events": [{**e, "mask": list(e["mask"])} for e in sup.events],
+            "counts": counts, "held": dict(held), "steps": per_step,
+            "losses": [h["loss"] for h in hist], "seconds": seconds,
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+
+
+def elastic_child(rank: int, store: str, out: str) -> int:
+    """One rank of path p2 (``chip_smoke.py --elastic-rank R --dist-store
+    S --dist-out O``, started by :func:`elastic_kill_path`)."""
+    import torch
+    import torch.distributed as tdist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    tdist.init_process_group("gloo", init_method=f"file://{store}",
+                             rank=rank, world_size=2)
+    try:
+        result = elastic_kill_run(torch, dev, rank)
+    finally:
+        tdist.destroy_process_group()
+    Path(out).write_text(json.dumps(result))
+    return 0
+
+
+def elastic_kill_path(torch):
+    """p2: two processes on the one card over gloo (NCCL refuses two ranks
+    on one card), each running :func:`elastic_kill_run`; both ranks'
+    supervisor events and losses equal.  Returns both ranks' launches."""
+    res = _two_ranks("--elastic-rank", "elastic_p2", ELASTIC_TIMEOUT)
+    r0, r1 = res
+    require(r0["events"] == r1["events"] and r0["events"],
+            f"elastic_p2: events differ: {r0['events']} against "
+            f"{r1['events']}")
+    require(r0["losses"] == r1["losses"], "elastic_p2: losses differ")
+    launches = collections.Counter()
+    for r in res:
+        launches.update(r["counts"])
+    print(f"[elastic_p2] two ranks through {ELASTIC_KILL_CHAOS}: events on "
+          f"both ranks {r0['events']}; losses {r0['losses']}; SMW launches "
+          f"(slices, d) a step, rank 0 "
+          f"{[(st, lv, ln) for st, lv, ln, _ in r0['steps']]}, rank 1 "
+          f"{[(st, lv, ln) for st, lv, ln, _ in r1['steps']]}; step ms rank "
+          f"0 {[ms for *_, ms in r0['steps']]}; peak memory rank 0 "
+          f"{r0['peak_gib']:.3f} GiB, rank 1 {r1['peak_gib']:.3f} GiB; "
+          f"launches rank 0 {r0['counts']}, rank 1 {r1['counts']}; held: "
+          f"rank 0 {r0['held']}, rank 1 {r1['held']}; {r0['seconds']:.1f} s")
+    SUMMARY["elastic_p2"]["eager_ms"] = statistics.median(
+        ms for *_, ms in r0["steps"][1:])
+    SUMMARY["elastic_p2"]["eager_peak"] = max(r0["peak_gib"], r1["peak_gib"])
+    return launches
+
+
+def elastic_path(torch, dev):
+    """Path p: p1 (the launcher; its captured step with and without
+    --elastic, in turns), p3 (the rebuild), p2 (a kill on the card), each
+    sub-path's seconds printed.  Returns the launches."""
+    launches = collections.Counter()
+    t0 = time.perf_counter()
+    elastic_launcher_path()
+    print(f"[elastic p1 launcher] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    counts, el, params, state = elastic_turns(torch, dev)
+    launches.update(counts)
+    print(f"[elastic p1 turns] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    carried = [params, state]
+    del params, state
+    launches.update(elastic_rebuild_path(torch, dev, el, carried))
+    del el
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[elastic p3 rebuild] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches.update(elastic_kill_path(torch))
+    print(f"[elastic p2 kill] done in {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -4217,6 +4843,9 @@ def train_paths(torch, dev, setup):
     t0 = time.perf_counter()
     launches.update(dist_world2_path(torch))
     print(f"[dist_w2] path done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches.update(elastic_path(torch, dev))
+    print(f"[elastic] path done in {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -4313,6 +4942,10 @@ if __name__ == "__main__":
         if len(sys.argv) > 1 and sys.argv[1] == "--dist-rank":
             # one rank of path o2, started by dist_world2_path
             sys.exit(dist_child(int(sys.argv[2]), sys.argv[4], sys.argv[6]))
+        if len(sys.argv) > 1 and sys.argv[1] == "--elastic-rank":
+            # one rank of path p2, started by elastic_kill_path
+            sys.exit(elastic_child(int(sys.argv[2]), sys.argv[4],
+                                   sys.argv[6]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

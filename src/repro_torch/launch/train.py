@@ -5,7 +5,8 @@
         --global-batch B --seq-len S --inv-freq F [--rank R] \\
         [--staleness 0|1] [--quant none|bf16|int8] [--use-kernels] \\
         [--chunk N] [--ckpt-dir D [--ckpt-every N]] [--health] \\
-        [--chaos SPEC] [--device cpu] \\
+        [--chaos SPEC] [--elastic [--elastic-slow-factor X]] \\
+        [--log-json FILE] [--device cpu] \\
         [--dist [--dist-devices W] [--dist-backend nccl|gloo]]
 
 Runs on the GPU unless ``--device cpu`` is given (and raises when there is
@@ -34,15 +35,29 @@ recovery, ``MKORConfig.health``) and ``--chaos SPEC`` injects faults at
 exact steps (``training/chaos.py``: ``grad_nan``, ``factor_inf``,
 ``window_flip``, ``payload_corrupt``), both for the MKOR optimizers only;
 the host sites (``kill_shard``, ``delay_shard``, ``drop_collective``)
-need ``--elastic``, which is not ported yet.  Prints the logged steps'
-loss and ``done: final loss``.
+need ``--elastic``.  Prints the logged steps' loss and ``done: final
+loss``; ``--log-json FILE`` also writes the logged steps' metrics there
+(``loss``, ``grad_norm``, ... , ``step``, ``wall_s``), as the reference.
+
+``--elastic`` (MKOR optimizers only) runs the steps under the elastic
+supervisor (``training/resilience.py`` ``elastic_train``): retries with
+backoff around each span, the straggler policy
+(``--elastic-slow-factor``), the host chaos sites (a ``kill_shard``
+quarantines the dead rank's orphaned buckets and rebuilds the runner with
+the owners remapped over the survivors: :func:`setup`'s
+``make_runner(live)``), and SIGTERM: the ranks stop at the same span
+boundary, rank 0 takes an emergency checkpoint with the data cursor (no
+final save), prints ``preempted: emergency checkpoint taken, exiting
+cleanly`` and the launcher exits 0.  Under ``--elastic`` the runner keeps
+its inputs (``donate=False``): a retried span re-presents them.
 
 ``--dist`` trains data parallel (``training/loop.py``
 ``make_dist_train_step``, MKOR with owner-sharded inversions) over
 ``--dist-devices`` ranks; ``--global-batch`` must be a multiple of it.
 Under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` set) each process joins
 that group; otherwise the launcher spawns the ranks itself, joined by a
-``file://`` store in a temporary directory.  The backend is NCCL on CUDA,
+``file://`` store in a temporary directory, and forwards a SIGTERM it
+receives to them.  The backend is NCCL on CUDA,
 one card a rank, and gloo on the CPU; ``--dist-backend gloo`` puts
 several ranks on one card (collectives staged through the host, eager
 only: it refuses ``--chunk`` > 1, since a CUDA graph cannot hold the host
@@ -53,11 +68,14 @@ another world restores all the same (the state is replicated).
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import signal
 import sys
 import tempfile
 import time
-from typing import List, Optional
+from dataclasses import dataclass
+from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
@@ -75,20 +93,23 @@ from repro_torch.models import model as model_lib
 from repro_torch.sharding import collectives
 from repro_torch.training import chaos as chaos_lib
 from repro_torch.training import loop as train_lib
+from repro_torch.training import resilience
 
 
 def build_optimizer(name: str, lr, *, inv_freq: int = 10, rank: int = 1,
                     staleness: int = 0, quant: str = "none",
                     use_kernels: bool = False, health: bool = False,
-                    dist=None):
+                    dist=None, live=None):
     """Returns ``(optimizer, mkor_cfg)``; ``mkor_cfg`` is None for the
     first-order optimizers.  ``dist``: the data-parallel spec MKOR
-    owner-shards its inversions over (the world group)."""
+    owner-shards its inversions over (the world group); ``live``: the
+    elastic liveness mask the owners split over (the state tree does not
+    depend on it, so a state carries over to a rebuilt optimizer)."""
     backend = firstorder.lamb(lr)
     if name in ("mkor", "mkor_h"):
         mcfg = MKORConfig(inv_freq=inv_freq, rank=rank, staleness=staleness,
                           factor_quant=quant, use_kernels=use_kernels,
-                          health=health, dist=dist)
+                          health=health, dist=dist, live=live)
         return (mkor if name == "mkor" else mkor_h)(backend, mcfg), mcfg
     if name == "eva":
         return eva(backend, EvaConfig()), None
@@ -114,7 +135,7 @@ def build_schedule(kind: str, peak: float, steps: int):
     raise ValueError(kind)
 
 
-def _parse(argv: Optional[List[str]]) -> argparse.Namespace:
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--arch", required=True)
@@ -158,6 +179,17 @@ def _parse(argv: Optional[List[str]]) -> argparse.Namespace:
                          "Host sites (kill_shard, delay_shard, "
                          "drop_collective; site@step[:shard]) need "
                          "--elastic")
+    ap.add_argument("--elastic", action="store_true",
+                    help="elastic fault tolerance (training/resilience.py): "
+                         "retry/backoff around dispatch, SIGTERM emergency "
+                         "checkpoint, straggler EWMAs with owner demotion, "
+                         "and kill-shard failover (owner remap + orphan "
+                         "quarantine), every decision agreed across ranks; "
+                         "MKOR optimizers only")
+    ap.add_argument("--elastic-slow-factor", type=float, default=2.0,
+                    help="straggler policy: demote a shard whose step-time "
+                         "EWMA exceeds this multiple of the median "
+                         "(--elastic)")
     ap.add_argument("--chunk", type=int, default=8,
                     help="steps per chunk: CUDA graph replays with one "
                          "metrics fetch a chunk (1 = per-step dispatch); "
@@ -182,6 +214,9 @@ def _parse(argv: Optional[List[str]]) -> argparse.Namespace:
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--log-json", default="",
+                    help="write the logged steps' metrics to this JSON file "
+                         "(rank 0)")
     return ap.parse_args(argv)
 
 
@@ -189,7 +224,7 @@ def _dist_worker(rank: int, argv: List[str], world: int, store: str,
                  results) -> None:
     """A spawned rank: join the file store's group, train, and hand rank
     0's final loss back."""
-    args = _parse(argv)
+    args = parse_args(argv)
     tdist.init_process_group(args.dist_backend, init_method=f"file://{store}",
                              rank=rank, world_size=world)
     try:
@@ -201,7 +236,7 @@ def _dist_worker(rank: int, argv: List[str], world: int, store: str,
 
 
 def main(argv: Optional[List[str]] = None) -> float:
-    args = _parse(argv)
+    args = parse_args(argv)
     if not args.dist:
         return _train(args, 0, 1)
     device = resolve_device(args.device)
@@ -236,16 +271,54 @@ def main(argv: Optional[List[str]] = None) -> float:
         "--dist-backend", args.dist_backend]
     results = tmp.get_context("spawn").SimpleQueue()
     with tempfile.TemporaryDirectory() as tmpdir:
-        tmp.start_processes(_dist_worker,
-                            (child_argv, world, os.path.join(tmpdir, "store"),
-                             results),
-                            nprocs=world, start_method="spawn")
+        ctx = tmp.start_processes(
+            _dist_worker, (child_argv, world, os.path.join(tmpdir, "store"),
+                           results),
+            nprocs=world, join=False, start_method="spawn")
+
+        def forward(signum, frame):
+            # the ranks take their emergency checkpoint (--elastic)
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    os.kill(proc.pid, signum)
+        previous = signal.signal(signal.SIGTERM, forward)
+        try:
+            while not ctx.join():
+                pass
+        finally:
+            signal.signal(signal.SIGTERM, previous)
     return results.get()
 
 
-def _train(args: argparse.Namespace, rank: int, world: int) -> float:
-    """One process's training run: rank ``rank`` of ``world`` (1: no
-    process group)."""
+@dataclass
+class Run:
+    """One process's run, as :func:`setup` builds it: the rank's device,
+    the model config, the chaos plan, ``make_optimizer(live) ->
+    (optimizer, mkor_cfg)`` and ``make_runner(live) -> runner`` for a
+    liveness mask (the elastic remap rebuilds with them; ``None``: every
+    rank live), the params and optimizer state (restored from
+    ``--ckpt-dir`` when it holds a valid checkpoint), the data config, the
+    first step (the restored data cursor) and ``say`` (prints on rank 0
+    alone)."""
+    args: argparse.Namespace
+    rank: int
+    world: int
+    device: torch.device
+    cfg: Any
+    plan: Optional[chaos_lib.ChaosPlan]
+    mcfg: Optional[MKORConfig]
+    make_optimizer: Callable
+    make_runner: Callable
+    params: Any
+    opt_state: Any
+    ds: Any
+    start: int
+    say: Callable
+
+
+def setup(args: argparse.Namespace, rank: int = 0, world: int = 1) -> Run:
+    """Build rank ``rank`` of ``world``'s run (1: no process group) from
+    the parsed arguments (:func:`parse_args`)."""
     lead = rank == 0
 
     def say(*a):
@@ -269,23 +342,30 @@ def _train(args: argparse.Namespace, rank: int, world: int) -> float:
     plan = None
     if args.chaos:
         plan = chaos_lib.parse_chaos_spec(args.chaos)
-        if plan.host_faults:
+        if plan.host_faults and not args.elastic:
             raise SystemExit("host chaos sites (kill_shard/delay_shard/"
-                             "drop_collective) need --elastic, which is not "
-                             "ported yet (ROADMAP.md queue 1 item 8: "
-                             "elastic)")
-    opt, mcfg = build_optimizer(args.optimizer, lr, inv_freq=args.inv_freq,
-                                rank=args.rank, staleness=args.staleness,
-                                quant=args.quant,
-                                use_kernels=args.use_kernels,
-                                health=args.health, dist=dist)
-    if plan is not None and plan.injections:
-        if mcfg is None:
-            raise SystemExit("--chaos needs an MKOR optimizer (the "
-                             "injection sites live in MKOR state)")
-        opt = chaos_lib.chaotic(opt, plan, mcfg)
+                             "drop_collective) need --elastic")
+
+    def make_optimizer(live=None):
+        """(optimizer, mkor_cfg) for a liveness mask."""
+        opt_l, mcfg_l = build_optimizer(
+            args.optimizer, lr, inv_freq=args.inv_freq, rank=args.rank,
+            staleness=args.staleness, quant=args.quant,
+            use_kernels=args.use_kernels, health=args.health, dist=dist,
+            live=live)
+        if plan is not None and plan.injections:
+            if mcfg_l is None:
+                raise SystemExit("--chaos needs an MKOR optimizer (the "
+                                 "injection sites live in MKOR state)")
+            opt_l = chaos_lib.chaotic(opt_l, plan, mcfg_l)
+        return opt_l, mcfg_l
+
+    opt, mcfg = make_optimizer()
     if args.health and mcfg is None:
         raise SystemExit("--health needs an MKOR optimizer")
+    if args.elastic and mcfg is None:
+        raise SystemExit("--elastic needs an MKOR optimizer (failover "
+                         "quarantines MKOR factor state)")
     params = model_lib.init_params(cfg, seed=args.seed, device=device)
     say(f"arch={cfg.name} params={model_lib.param_count(params):,} "
         f"optimizer={args.optimizer} steps={args.steps} "
@@ -295,14 +375,24 @@ def _train(args: argparse.Namespace, rank: int, world: int) -> float:
            else "")
         + (" health" if args.health else "")
         + (f" chaos={args.chaos}" if args.chaos else "")
+        + (" elastic" if args.elastic else "")
         + (" kernels=cuda" if args.use_kernels else "")
         + (f" dist={world}x data-parallel backend={args.dist_backend}"
            if args.dist else ""))
 
+    def make_runner(live=None):
+        """The chunk runner of the step for a liveness mask (a rebuild with
+        a new mask is the failover remap: the same state tree, owners
+        re-split).  ``--chunk 1`` runs eager steps; under ``--elastic``
+        the runner keeps its inputs (no donation)."""
+        opt_l, _ = make_optimizer(live)
+        step = train_lib.make_dist_train_step(cfg, opt_l, dist) if dist \
+            else train_lib.make_train_step(cfg, opt_l)
+        return train_lib.make_chunk_runner(step, donate=not args.elastic,
+                                           capture=args.chunk > 1)
+
     ds = pipeline.make_dataset(cfg, global_batch=args.global_batch,
                                seq_len=args.seq_len, seed=args.seed)
-    step_fn = train_lib.make_dist_train_step(cfg, opt, dist) if args.dist \
-        else train_lib.make_train_step(cfg, opt)
     opt_state = opt.init(params)
     start = 0
     if args.ckpt_dir:
@@ -320,55 +410,83 @@ def _train(args: argparse.Namespace, rank: int, world: int) -> float:
                     if from_world and from_world != world else "")
             say(f"restored checkpoint step {latest} (data cursor "
                 f"{start}{note})")
+    return Run(args, rank, world, device, cfg, plan, mcfg, make_optimizer,
+               make_runner, params, opt_state, ds, start, say)
 
-    def save_ckpt(next_step: int, extra=None) -> None:
+
+def _train(args: argparse.Namespace, rank: int, world: int) -> float:
+    """One process's training run: rank ``rank`` of ``world`` (1: no
+    process group)."""
+    run = setup(args, rank, world)
+    say, ds = run.say, run.ds
+    params, opt_state, start = run.params, run.opt_state, run.start
+
+    def save_ckpt(next_step: int, p, s, extra=None) -> None:
         # the metadata carries the data cursor (the next unconsumed
         # batch), so a resumed run never trains a batch twice
-        if not lead:
+        if rank != 0:
             return
         meta = {"step": next_step - 1, "world": world,
                 "cursor": pipeline.cursor_metadata(
                     pipeline.cursor_for_step(next_step))}
         meta.update(extra or {})
-        checkpointing.save(args.ckpt_dir, next_step - 1, (params, opt_state),
-                           meta)
+        checkpointing.save(args.ckpt_dir, next_step - 1, (p, s), meta)
 
+    history = []
     t0 = time.time()
-    final = float("nan")
 
     def log_step(step: int, metrics) -> None:
-        nonlocal final
         if step % args.log_every == 0 or step == args.steps - 1:
-            final = float(metrics["loss"])
-            say(f"step {step:5d} loss={final:.4f} "
-                f"gnorm={float(metrics['grad_norm']):.3f} "
-                f"({time.time() - t0:.1f}s)")
+            m = {k: float(v) for k, v in metrics.items()}
+            m["step"] = step
+            m.setdefault("wall_s", time.time() - t0)
+            history.append(m)
+            say(f"step {step:5d} loss={m['loss']:.4f} "
+                f"gnorm={m['grad_norm']:.3f} ({m['wall_s']:.1f}s)")
 
-    # built after the restore, so its static buffers are the restored
-    # tensors
-    runner = train_lib.make_chunk_runner(step_fn) if args.chunk > 1 \
-        else None
-    i = start
-    for n in train_lib.chunk_schedule(args.steps - start, args.chunk):
-        if runner is None:            # --chunk 1: the per-step loop
-            batch = train_lib.batch_to_device(pipeline.make_batch(ds, i),
-                                              device)
-            params, opt_state, metrics = step_fn(params, opt_state, batch)
-            log_step(i, metrics)
-            last = metrics["loss"]
-        else:
+    def make_batch(step: int):
+        return pipeline.make_batch(ds, step)
+
+    preempted = False
+    if args.elastic:
+        supervisor = resilience.ElasticSupervisor(
+            world=world, monitor=resilience.StragglerMonitor(
+                world, slow_factor=args.elastic_slow_factor), echo=say)
+        with resilience.PreemptionGuard() as guard:
+            params, opt_state, _, preempted = resilience.elastic_train(
+                run.make_runner, params, opt_state, make_batch=make_batch,
+                stack_batches=train_lib.stack_batches, start=start,
+                steps=args.steps - start, chunk=args.chunk,
+                supervisor=supervisor, plan=run.plan, mcfg=run.mcfg,
+                save=save_ckpt if args.ckpt_dir else None,
+                ckpt_every=args.ckpt_every, guard=guard,
+                on_metrics=lambda step, hi, m: log_step(step, m))
+    else:
+        # the runner binds its static buffers at its first call: the
+        # restored tensors
+        runner = run.make_runner()
+        i = start
+        for n in train_lib.chunk_schedule(args.steps - start, args.chunk):
             stacked = train_lib.stack_batches(
-                [pipeline.make_batch(ds, i + k) for k in range(n)])
+                [make_batch(i + k) for k in range(n)])
             params, opt_state, metrics = runner(params, opt_state, stacked)
             for k in range(n):
                 log_step(i + k, {key: v[k] for key, v in metrics.items()})
-            last = metrics["loss"][n - 1]
-        prev, i = i, i + n
-        if args.ckpt_dir and args.ckpt_every and i < args.steps \
-                and (i // args.ckpt_every) > (prev // args.ckpt_every):
-            save_ckpt(i, {"loss": float(last)})
-    if args.ckpt_dir:
-        save_ckpt(args.steps)
+            prev, i = i, i + n
+            if args.ckpt_dir and args.ckpt_every and i < args.steps \
+                    and (i // args.ckpt_every) > (prev // args.ckpt_every):
+                save_ckpt(i, params, opt_state,
+                          {"loss": float(metrics["loss"][n - 1])})
+    if args.ckpt_dir and not preempted:
+        save_ckpt(args.steps, params, opt_state)
+    if args.log_json and rank == 0:
+        os.makedirs(os.path.dirname(args.log_json) or ".", exist_ok=True)
+        with open(args.log_json, "w") as f:
+            json.dump(history, f, indent=1)
+    final = history[-1]["loss"] if history else float("nan")
+    if preempted:
+        say("preempted: emergency checkpoint taken, exiting cleanly")
+        return final
     say(f"done: final loss {final:.4f}")
     if not np.isfinite(final):
         raise SystemExit("training diverged")

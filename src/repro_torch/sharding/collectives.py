@@ -92,8 +92,9 @@ def worker_index(dist: DistSpec) -> int:
 class _Native:
     """The backend's own collectives on the tensors' device."""
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        tdist.all_reduce(x)
+    def all_reduce(self, x: torch.Tensor,
+                   op=tdist.ReduceOp.SUM) -> torch.Tensor:
+        tdist.all_reduce(x, op=op)
         return x
 
     def reduce_scatter(self, out: torch.Tensor, x: torch.Tensor) -> None:
@@ -107,9 +108,10 @@ class _HostStaged(_Native):
     """gloo with CUDA tensors: each collective on host copies, the result
     copied back to the tensors' device."""
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+    def all_reduce(self, x: torch.Tensor,
+                   op=tdist.ReduceOp.SUM) -> torch.Tensor:
         host = x.cpu()
-        tdist.all_reduce(host)
+        tdist.all_reduce(host, op=op)
         return x.copy_(host)
 
     def reduce_scatter(self, out: torch.Tensor, x: torch.Tensor) -> None:
@@ -146,6 +148,13 @@ def pmean(x: torch.Tensor, dist: DistSpec) -> torch.Tensor:
     acc = x.to(_DTYPES[ACCUM_DTYPE]).clone()
     acc = transport(x.device).all_reduce(acc)
     return (acc / world_size(dist)).to(x.dtype)
+
+
+def all_reduce_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max of ``x`` over every rank of the group, in place
+    (the elastic supervisor's span-boundary agreement,
+    ``training/resilience.py``)."""
+    return transport(x.device).all_reduce(x, op=tdist.ReduceOp.MAX)
 
 
 def pmean_rank1_stats(stats, dist: DistSpec,

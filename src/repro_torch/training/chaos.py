@@ -33,9 +33,11 @@ same scalars itself (``firstorder.device_scalars``).
 Checkpoint faults are host-side files: :func:`truncate_checkpoint` and
 :func:`corrupt_checkpoint` damage a saved checkpoint directory byte for
 byte as the reference's do, for ``checkpointing.restore_latest_valid`` to
-roll back past.  The host sites (``HOST_SITES``) drive the elastic
-supervisor, which is not ported yet (ROADMAP.md queue 1 item 8): they
-parse, and :func:`chaotic` leaves them alone.
+roll back past.  The host sites (``HOST_SITES``: ``kill_shard``,
+``delay_shard``, ``drop_collective``) never enter the step:
+:func:`chaotic` leaves them alone, and ``training/resilience.py``
+``elastic_train`` takes them from ``ChaosPlan.host_events`` and fires them
+at span boundaries (the launcher's ``--elastic``).
 
 CLI: ``python -m repro_torch.launch.train ... --health --chaos
 "grad_nan@5,factor_inf@15"`` (optionally ``site@step:bucket_id``).

@@ -44,6 +44,7 @@ the host, which a graph cannot hold.
 """
 from __future__ import annotations
 
+import gc
 import traceback
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence
@@ -328,11 +329,18 @@ class ChunkRunner:
     replay is credited with the kernel launches its capture recorded.  The
     metrics come to the host once per chunk.
 
-    On the CPU (a device the caller asked for) the runner runs the same
-    steps eagerly, one after another, with the view read the same way."""
+    On the CPU (a device the caller asked for), or with ``capture=False``
+    (a step whose collectives a graph cannot hold: gloo staged through the
+    host), the runner runs the same steps eagerly, one after another, with
+    the view read the same way.
 
-    def __init__(self, step_fn: Callable, *, donate: bool = True):
-        self.step_fn, self.donate = step_fn, donate
+    :meth:`release` frees the graphs, the static buffers and the pool;
+    ``training/resilience.py`` ``elastic_train`` releases a runner before
+    it builds the next one for a new liveness mask."""
+
+    def __init__(self, step_fn: Callable, *, donate: bool = True,
+                 capture: bool = True):
+        self.step_fn, self.donate, self.capture = step_fn, donate, capture
         self.graphs: Dict = {}
         self.pool = None
         self.host: List[int] = []      # the state's host counts, as it runs
@@ -342,9 +350,23 @@ class ChunkRunner:
     def __call__(self, params, opt_state, stacked):
         n = len(next(iter(stacked.values())))
         device = tree_leaves(params)[0].device
-        if device.type != "cuda":
+        if device.type != "cuda" or not self.capture:
             return self._eager_chunk(params, opt_state, stacked, n, device)
         return self._graph_chunk(params, opt_state, stacked, n, device)
+
+    def release(self) -> None:
+        """Drop the graphs, the static buffers, the batch, scalar and
+        metrics buffers and the graph pool, then return the freed blocks
+        to the device (``torch.cuda.empty_cache``).  A later call binds and
+        captures anew."""
+        self.graphs.clear()
+        self.pool = None
+        self.host, self._template, self._view = [], None, {}
+        for name in ("_static", "_storages", "_batch", "_scalars", "_keys",
+                     "_metrics", "_host_mask"):
+            self.__dict__.pop(name, None)
+        gc.collect()
+        torch.cuda.empty_cache()
 
     def _observe(self, opt_state) -> None:
         """Read the optimizer's host view of ``opt_state`` (the chunk's
@@ -529,13 +551,13 @@ class ChunkRunner:
                                    for i, k in enumerate(self._keys)}
 
 
-def make_chunk_runner(step_fn: Callable, *, donate: bool = True
-                      ) -> ChunkRunner:
+def make_chunk_runner(step_fn: Callable, *, donate: bool = True,
+                      capture: bool = True) -> ChunkRunner:
     """A ``(params, opt_state, stacked) -> (params, opt_state,
     stacked_metrics)`` runner of ``step_fn`` over a chunk of steps: CUDA
-    graph replays on a CUDA device, eager steps on the CPU
-    (:class:`ChunkRunner`)."""
-    return ChunkRunner(step_fn, donate=donate)
+    graph replays on a CUDA device (unless ``capture=False``), eager steps
+    on the CPU (:class:`ChunkRunner`)."""
+    return ChunkRunner(step_fn, donate=donate, capture=capture)
 
 
 def train_epoch(step_fn: Callable, params, opt_state, batches, *,

@@ -2,6 +2,7 @@
 optimizers, and a run split by a checkpoint and resumed, bit-equal to an
 unbroken one), the GPU-by-default rule of the entry points, and the
 isolation of the port from JAX, the JAX package and msgpack."""
+import json
 import os
 import re
 import subprocess
@@ -90,18 +91,44 @@ def test_train_launcher_health_and_chaos_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--chaos", "kill_shard@2"], "queue 1 item 8"),
-    (["--chaos", "grad_nan@2:0,drop_collective@3"], "queue 1 item 8"),
+    (["--chaos", "kill_shard@2"], "need --elastic"),
+    (["--chaos", "grad_nan@2:0,drop_collective@3"], "need --elastic"),
     (["--optimizer", "lamb", "--chaos", "grad_nan@1"],
      "--chaos needs an MKOR optimizer"),
     (["--optimizer", "sgd", "--health"], "--health needs an MKOR optimizer"),
-    (["--chaos", "gamma_ray@1"], "unknown chaos site")],
+    (["--chaos", "gamma_ray@1"], "unknown chaos site"),
+    (["--optimizer", "lamb", "--elastic"],
+     "--elastic needs an MKOR optimizer")],
     ids=["host-site", "host-site-mixed", "chaos-lamb", "health-sgd",
-         "unknown-site"])
+         "unknown-site", "elastic-lamb"])
 def test_train_launcher_health_and_chaos_exits(argv, match):
     with pytest.raises((SystemExit, ValueError), match=match):
         t_train.main(["--arch", "bert-large", "--reduced", "--steps", "1",
                       "--device", "cpu"] + argv)
+
+
+def test_train_launcher_elastic_log_json_cpu(tmp_path, capsys):
+    """``--elastic --log-json F --chaos drop_collective@2``: the dropped
+    span is retried, the losses are the plain launcher's, and F holds
+    every logged step with the reference's keys."""
+    argv = ["--arch", "bert-large", "--reduced", "--steps", "4",
+            "--global-batch", "2", "--seq-len", "16", "--inv-freq", "2",
+            "--log-every", "1", "--chunk", "2", "--device", "cpu"]
+    plain = t_train.main(argv + ["--log-json", str(tmp_path / "plain.json")])
+    capsys.readouterr()
+    final = t_train.main(argv + ["--elastic", "--chaos", "drop_collective@2",
+                                 "--log-json", str(tmp_path / "el.json")])
+    out = capsys.readouterr().out
+    assert "elastic" in out.splitlines()[0]
+    assert "[elastic] step 2: dispatch failed (chaos: collective dropped " \
+        "at step 2); retry 1/2" in out
+    hist = json.loads((tmp_path / "el.json").read_text())
+    want = json.loads((tmp_path / "plain.json").read_text())
+    assert [h["step"] for h in hist] == [0, 1, 2, 3]
+    for h in hist:
+        assert {"loss", "grad_norm", "step", "wall_s"} <= set(h)
+    assert [h["loss"] for h in hist] == [h["loss"] for h in want]
+    assert final == plain == hist[-1]["loss"]
 
 
 def _resume_args(chunk, steps, ckpt_dir, every=0):

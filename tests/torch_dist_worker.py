@@ -207,8 +207,110 @@ def _model(sc, world):
             "state": interop.tree_to_numpy(state)}
 
 
+class _SpanClock:
+    """A clock under which span k of the elastic loop (which reads the
+    clock at a span's start and end) takes ``times[k]`` seconds."""
+
+    def __init__(self, times):
+        self.times, self.t, self.calls = list(times), 0.0, 0
+
+    def __call__(self):
+        self.calls += 1
+        if self.calls % 2 == 0:                 # a span's end
+            self.t += self.times[self.calls // 2 - 1]
+        return self.t
+
+
+def _elastic(sc, world):
+    """``resilience.elastic_train`` over the autoencoder's dist step (the
+    eager chunk runner, no donation), the chaos plan ``sc["chaos"]``.
+    With ``sc["span_times"]`` rank r's clock makes span k take
+    ``span_times[r][k]`` seconds (the ranks disagree); with ``sc["preempt"] =
+    (rank, step)`` that rank sends itself SIGTERM when it logs ``step``,
+    rank 0 takes the emergency checkpoint into ``sc["ckpt"]``, and every
+    rank then restores it and trains to the end.  Returns the history, the
+    supervisor's events and statuses, the state each runner built after
+    the first saw (the quarantined state), and the final params and
+    state."""
+    import signal
+
+    from repro_torch import checkpointing, interop
+    from repro_torch.core import baseline_net
+    from repro_torch.core import firstorder as fo
+    from repro_torch.core import mkor as mk
+    from repro_torch.data import pipeline
+    from repro_torch.training import chaos
+    from repro_torch.training import loop
+    from repro_torch.training import resilience as res
+    dist = (("data", world),)
+    rank = tdist.get_rank()
+    seen = []
+
+    def factory(live):
+        opt = mk.mkor(fo.sgd(1e-2, momentum=0.9),
+                      mk.MKORConfig(dist=dist, live=live, **sc["mkor"]))
+        runner = loop.make_chunk_runner(loop.make_dist_step_fn(
+            baseline_net.grads_and_full_stats, opt, dist,
+            stats_payload_dtype=None), donate=False)
+
+        first = [live is not None]
+
+        def run(params, state, stacked):
+            if first[0]:
+                first[0] = False
+                seen.append(interop.tree_to_numpy(state))
+            return runner(params, state, stacked)
+        builds.append(live)
+        return run
+    builds = []
+    mcfg = mk.MKORConfig(dist=dist, **sc["mkor"])
+    params = interop.params_from_numpy(sc["params"], CPU)
+    state = mk.mkor(fo.sgd(1e-2, momentum=0.9), mcfg).init(params)
+    sup = res.ElasticSupervisor(world, monitor=res.StragglerMonitor(
+        world, **sc.get("monitor", {})))
+    plan = chaos.parse_chaos_spec(sc["chaos"]) if sc.get("chaos") else None
+    clock = _SpanClock(sc["span_times"][rank]) if sc.get("span_times") \
+        else None
+    preempt = sc.get("preempt")
+
+    def on_metrics(step, hi, m):
+        if preempt and (rank, step) == tuple(preempt):
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    def save(at, p, s, extra):
+        if rank == 0:
+            checkpointing.save(sc["ckpt"], at - 1, (p, s), {
+                "step": at - 1, "world": world,
+                "cursor": pipeline.cursor_metadata(
+                    pipeline.cursor_for_step(at)), **extra})
+
+    def train(params, state, start, guard=None):
+        return res.elastic_train(
+            factory, params, state, make_batch=ae_batch,
+            stack_batches=loop.stack_batches, start=start,
+            steps=sc["steps"] - start, chunk=sc["chunk"], supervisor=sup,
+            plan=plan, mcfg=mcfg, save=save if preempt else None,
+            on_metrics=on_metrics, guard=guard, sleep=lambda s: None,
+            **({"clock": clock} if clock else {}))
+
+    with res.PreemptionGuard() as guard:
+        params, state, hist, preempted = train(params, state, 0, guard)
+    out = {"history": hist, "preempted": preempted}
+    if preempted:
+        tdist.barrier()                      # rank 0's checkpoint is on disk
+        (params, state), meta, _ = checkpointing.restore_latest_valid(
+            sc["ckpt"], (params, state))
+        out["meta"] = meta
+        params, state, rest, _ = train(params, state, meta["cursor"]["step"])
+        out["resumed"] = rest
+    out.update(events=sup.events, status=sup.status, builds=builds,
+               quarantined=seen, params=interop.tree_to_numpy(params),
+               state=interop.tree_to_numpy(state))
+    return out
+
+
 KINDS = {"collectives": _collectives, "ae": _ae, "model": _model,
-         "fc": _fc}
+         "fc": _fc, "elastic": _elastic}
 
 
 def main(job, rank, world, store, out):
