@@ -43,13 +43,18 @@ Phases (each prints its own lines; any failure exits non-zero):
      real slices as the full-bank launch's, the padded slot zero; and
      fused_precond and its int8 body required to give the same bits on a
      second call (ΣG² and ΣΔ² in a fixed order), with their times beside
-     the atomic version's (ATOMICS_MS);
+     the atomic version's (ATOMICS_MS); then the model zoo's shapes
+     (ZOO_SMW_DIMS, ZOO_GEMM_DIMS): the four SMW bodies (bf16 and int8,
+     rank 1 and block rank 4) on 2-slice banks at d = 24576, 16384, 14336
+     and 8960, fused_precond and matmul on starcoder2's and gemma2's MLP
+     GEMMs, each against its plain version, a second call for the same
+     bits, and timed beside its bound (``further_ms`` of the kernel line);
   4. full-width bert-large (24 layers, random weights from seed 0, batch 8
      x 128) trained with mkor(lamb) through the kernels on six paths (and
      with LAMB alone, with mkor_h(lamb), with the health sentinel, in the
-     per-layer layout and with Eva; KFAC and SNGD on an autoencoder),
-     each with the launch counts set to 0 just before it and read just
-     after:
+     per-layer layout and with Eva; KFAC and SNGD on an autoencoder; the
+     model zoo on path q), each with the launch counts set to 0 just
+     before it and read just after:
      a. rank 1, staleness 0 (inv_freq 3): step 0 against the plain route
         from the same state (banks, update, loss after the step), then 6
         steps with losses, step time, peak memory (also over the steps
@@ -176,9 +181,27 @@ Phases (each prints its own lines; any failure exits non-zero):
         slices), the replicas' fingerprints equal every step, and the
         step after the kill's tick launches and banks torch.equal to the
         single-device kernel tick from the same quarantined state;
+     q. the model zoo at full width (random weights from seed 0, batch 8
+        x 128 text tokens, mkor at rank 1, inv_freq 3, through the
+        kernels; ZOO_CUTS): q1, qwen2-moe-a2.7b cut to 2 layers (1.77 B
+        params; n_repeats 2): step 0 against the plain route from the
+        same state, 6 eager steps with exactly one extra-dims fallback a
+        step for each expert bucket (ALLOWED_FALLBACKS), the eager step
+        twice from one state (every leaf's fingerprint equal), a profiled
+        step with phase times, then captured through the chunk runner in
+        chunks of 3 (every replay's fingerprints equal to the eager step
+        of its count, run first while the state waits on the host: the
+        card cannot hold a second state beside the graph pool) and
+        replays alone; q2, every other assigned config cut in depth only
+        (two pattern periods; mixtral-8x22b one layer, over SGD: LAMB's
+        moments of its 2.9 B params do not fit a step beside its
+        gradients; jamba-v0.1-52b .reduced(n_layers=16); whisper-base
+        whole), step 0 against the plain route and step 1 twice from one
+        state, its fallbacks counted, losses and peak memory;
      each profiled step also lists the host's waits on the device; on
-     every path every GEMM of matmul and fused_precond (and of their int8
-     variants) must run on the Hopper core (per-core counts);
+     every path but q's every GEMM of matmul and fused_precond (and of
+     their int8 variants) must run on the Hopper core (per-core counts;
+     the zoo's ragged and fp32 GEMMs take the WMMA core, printed);
   5. each path of phase 4 captured as CUDA graphs (``rank1[graph]`` ...)
      through the chunk runner (training/loop.py), from its eager run's
      final state, launch counts set to 0 just before and read just after:
@@ -207,7 +230,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      the sentinel (path b's, path d's): on, off, off, on;
   6. a summary line per path (eager against captured; MKOR-H also before
      and after the flip, in turns, and its checkpoint; paths i and j the
-     sentinel against none, in turns), one JSON line
+     sentinel against none, in turns; q2 a line a config), one JSON line
      listing every kernel (launches summed over phases 4 and 5), the
      card's name and power limit, and, last, ``{"ok": true, "device":
      {...}}``.
@@ -328,10 +351,27 @@ PATH_KERNELS = {
                    ("fused_block_smw",)),
     "elastic_p2": (("fused_block_smw", "fused_precond", "matmul"),
                    ("fused_smw",)),
+    # the model zoo (path q): qwen2-moe-a2.7b at rank 1, eager and
+    # captured, and each other assigned config's step 0 and step 1
+    "qwen2_moe": (("fused_smw", "fused_precond", "matmul"),
+                  ("fused_block_smw",)),
+    "zoo": (("fused_smw", "fused_precond", "matmul"), ("fused_block_smw",)),
+    # a config whose every bucket has extra dims (mixtral at one layer:
+    # n_repeats 1) preconditions through the extra-dims route alone
+    "zoo_extra": (("fused_smw", "matmul"), ("fused_block_smw",
+                                            "fused_precond")),
 }
+# the fallbacks a path may take: the zoo's expert buckets (and, at one
+# layer, every bucket) take fused_precond's extra-dims route, once a step
+# for each such bucket (its count is held to that); no other path takes any
+ZOO_PATHS = ("qwen2_moe", "zoo", "zoo_extra")
+ALLOWED_FALLBACKS = {name: (("fused_precond", "extra_dims"),)
+                     for name in ZOO_PATHS}
 # the paths whose GEMMs all run on the Hopper core: every one (bf16
-# factors, and int8 codes widened to bf16 in shared memory)
-WGMMA_PATHS = tuple(PATH_KERNELS)
+# factors, and int8 codes widened to bf16 in shared memory) but the zoo's,
+# whose ragged widths (the router's 60 experts) and fp32 gradients take
+# the WMMA core where gemm_route sends them (printed, not forced)
+WGMMA_PATHS = tuple(k for k in PATH_KERNELS if k not in ZOO_PATHS)
 # the SMW kernels: one persistent launch each, bound by bytes
 SMW_KERNELS = ("fused_smw", "fused_block_smw", "fused_smw[int8]",
                "fused_block_smw[int8]")
@@ -391,6 +431,35 @@ ELASTIC_KILL_CHAOS = f"kill_shard@{ELASTIC_KILL_AT}:1,drop_collective@4"
 ELASTIC_KILL_KW = dict(staleness=1, health=True, inv_freq=3)
 # p3: the second runner's peak reserved memory over the first runner's
 REBUILD_SLACK_GIB = 1.0
+# path q, the model zoo at full width (random weights from seed 0, batch 8
+# x 128 text tokens, mkor(lamb(1e-3)) at rank 1, inv_freq 3, through the
+# kernels).  q1: qwen2-moe-a2.7b cut to two layers (n_repeats 2: its dense
+# buckets keep their stack dim), 6 eager steps, then captured.  q2: every
+# other assigned config, cut in depth only to two pattern periods, but
+# mixtral-8x22b (one layer: two are 5.4 B params, over 65 GB with their
+# gradients and LAMB's moments), jamba-v0.1-52b (.reduced(n_layers=16):
+# one full-width period holds four 2.8 B-param MoE layers) and whisper-base
+# (whole); step 0 against the plain route, step 1 run twice for bits.
+ZOO_Q1 = "qwen2-moe-a2.7b"
+# the backend under MKOR: LAMB, but for mixtral at one layer, whose 2.9 B
+# params give LAMB 23 GB of fp32 moments, held twice in a step (the old
+# and the new), beside its gradients and MKOR's: that step does not fit
+# the 80 GB card, so mixtral's MKOR steps run over SGD (no state)
+ZOO_BACKEND = {"mixtral-8x22b": "sgd"}
+ZOO_STEPS = 6
+ZOO_BATCH, ZOO_TEXT = 8, 128
+ZOO_CUTS = {"minicpm-2b": {"n_layers": 2}, "stablelm-12b": {"n_layers": 2},
+            "starcoder2-15b": {"n_layers": 2}, "pixtral-12b": {"n_layers": 2},
+            "rwkv6-3b": {"n_layers": 2}, "gemma2-9b": {"n_layers": 4},
+            "whisper-base": {}, "mixtral-8x22b": {"n_layers": 1},
+            "jamba-v0.1-52b": {"reduced": 16},
+            ZOO_Q1: {"n_layers": 2}}
+# phase 3 at the zoo's factor dims: (bank, d) for the SMW kernels, the
+# largest (starcoder2's 24576, mixtral's 16384, gemma2's and pixtral's
+# 14336) and a ragged one (rwkv6's 8960); (bank, d_in, d_out) for
+# fused_precond and matmul (starcoder2's MLP, both ways, and gemma2's in)
+ZOO_SMW_DIMS = ((2, 24576), (2, 16384), (2, 14336), (2, 8960))
+ZOO_GEMM_DIMS = ((2, 6144, 24576), (2, 24576, 6144), (2, 3584, 14336))
 # each path's numbers for the closing summary lines
 SUMMARY = collections.defaultdict(dict)
 
@@ -837,6 +906,151 @@ def check_fused_block_smw(torch, rows):
             row.other_ms["r=1"] += ms1
             row.other_ms["r=1 bound"] += bms1
         del j, v, vt
+
+
+def check_zoo_dims(torch, rows):
+    """The SMW bodies (bf16 and int8, rank 1 and block rank 4) at the
+    zoo's factor dims (ZOO_SMW_DIMS) and fused_precond and matmul at its
+    widest GEMMs (ZOO_GEMM_DIMS), each against its plain version with the
+    bound of its bert-large check, a second call for the same bits, and
+    its time beside its bound, the plain version's and, for matmul,
+    torch.bmm's.  Kept apart from the bert-large sums (``further_ms`` of
+    the kernel line, per shape)."""
+    from repro_torch.core.mkor import block_weights
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import precond as pc
+    from repro_torch.kernels import rank1_smw as rk
+    gen = torch.Generator(device="cuda").manual_seed(29)
+
+    def report(name, shape, fn, plain, n_bytes, n_ops, reps=3, lib=None):
+        row = rows[name]
+        ms = time_ms(torch, fn, reps=reps, warmup=1)
+        p_ms = time_ms(torch, plain, reps=1, warmup=0)
+        bms, by = row.bound(n_bytes, n_ops)
+        line = (f"{name} {shape}: {ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                f"{bms:.4f} ms ({by})")
+        if lib is not None:
+            l_ms = time_ms(torch, lib[1], reps=reps, warmup=1)
+            line += f", {lib[0]} {l_ms:.4f} ms"
+            row.other_ms[f"{shape} {lib[0]}"] = l_ms
+        print(line + (f"; {stream_rate(n_bytes, ms, bms)}" if by == "bytes"
+                      else f"; {rate(n_ops, ms)}"))
+        row.other_ms[shape] = ms
+        row.other_ms[f"{shape} plain"] = p_ms
+        row.other_ms[f"{shape} bound"] = bms
+
+    def close(name, shape, got, want, rel, floor):
+        err, ratio = bf16_close(got, want, rel, floor)
+        print(f"{name} {shape}: max_abs_err {err:.3e}, worst |got-want| / "
+              f"({rel:.3g}|want| + {floor:g} max|want|) {ratio:.3f} (tol 1)")
+        require(math.isfinite(ratio) and ratio <= 1.0,
+                f"{name} {shape} disagrees with its plain version")
+        rows[name].add(err)
+
+    for b, d in ZOO_SMW_DIMS:
+        shape = f"{b}x{d}x{d}"
+        j = near_identity(torch, b, d, gen, torch.bfloat16)
+        v = torch.randn((b, d), generator=gen, device="cuda")
+        got = rk.fused_smw(j, v, gamma=0.9)
+        close("fused_smw", shape, got, rk.fused_smw_plain(j, v, gamma=0.9),
+              2.0 ** -7, 1e-5)
+        require_repeatable(torch, lambda: rk.fused_smw(j, v, gamma=0.9),
+                           got, f"fused_smw {shape}")
+        del got
+        report("fused_smw", shape, lambda: rk.fused_smw(j, v, gamma=0.9),
+               lambda: rk.fused_smw_plain(j, v, gamma=0.9),
+               b * (2 * d * d * 2 + d * 4), b * 4.0 * d * d)
+        r = 4
+        vr = torch.randn((b, r, d), generator=gen, device="cuda")
+        sq, gm = block_weights(torch.full((b,), r, device="cuda"), r, 0.9)
+        vt = (vr * sq[..., None]).contiguous()
+        del vr
+        got = rk.fused_block_smw(j, vt, gm)
+        close("fused_block_smw", f"{shape} r=4", got,
+              rk.fused_block_smw_plain(j, vt, gm), 2.0 ** -7, 1e-5)
+        require_repeatable(torch, lambda: rk.fused_block_smw(j, vt, gm),
+                           got, f"fused_block_smw {shape} r=4")
+        del got
+        report("fused_block_smw", f"{shape} r=4",
+               lambda: rk.fused_block_smw(j, vt, gm),
+               lambda: rk.fused_block_smw_plain(j, vt, gm),
+               b * (2 * d * d * 2 + r * d * 4 + 4),
+               b * ((4.0 * r + 1) * d * d + 4.0 * r * r * d))
+        del j
+        gc.collect()
+        torch.cuda.empty_cache()
+        q, sc = int8_bank(torch, b, d, gen)
+        got = rk.fused_smw(q, v, gamma=0.9, scale=sc)
+        close("fused_smw[int8]", shape, got,
+              rk.fused_smw_plain(q, v, gamma=0.9, scale=sc), 1e-5, 1e-6)
+        require_repeatable(torch, lambda: rk.fused_smw(
+            q, v, gamma=0.9, scale=sc), got, f"fused_smw[int8] {shape}")
+        del got
+        report("fused_smw[int8]", shape,
+               lambda: rk.fused_smw(q, v, gamma=0.9, scale=sc),
+               lambda: rk.fused_smw_plain(q, v, gamma=0.9, scale=sc),
+               b * (d * d * 1 + d * d * 4 + d * 4 + 4), b * 5.0 * d * d)
+        got = rk.fused_block_smw(q, vt, gm, scale=sc)
+        close("fused_block_smw[int8]", f"{shape} r=4", got,
+              rk.fused_block_smw_plain(q, vt, gm, scale=sc), 1e-5, 1e-6)
+        require_repeatable(torch, lambda: rk.fused_block_smw(
+            q, vt, gm, scale=sc), got, f"fused_block_smw[int8] {shape}")
+        del got
+        report("fused_block_smw[int8]", f"{shape} r=4",
+               lambda: rk.fused_block_smw(q, vt, gm, scale=sc),
+               lambda: rk.fused_block_smw_plain(q, vt, gm, scale=sc),
+               b * (d * d * 1 + d * d * 4 + r * d * 4 + 8),
+               b * ((4.0 * r + 2) * d * d + 4.0 * r * r * d))
+        del q, sc, v, vt
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for b, di, do in ZOO_GEMM_DIMS:
+        shape = f"{b}x{di}x{do}"
+        r = near_identity(torch, b, di, gen, torch.bfloat16)
+        l = near_identity(torch, b, do, gen, torch.bfloat16)
+        g = (torch.randn((b, di, do), generator=gen, device="cuda")
+             * 1e-2).to(torch.bfloat16)
+        got = pc.fused_precond(r, g, l)
+        want = pc.fused_precond_plain(r, g, l)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = 2e-4 * want.abs().max().item()
+        print(f"fused_precond {shape}: max_abs_err {err:.3e} (tol "
+              f"{tol:.3e}), route {pc.precond_route(r.dtype, g.dtype, l.dtype, di, do, r.data_ptr(), g.data_ptr(), l.data_ptr())}")
+        require(math.isfinite(err) and err <= tol,
+                f"fused_precond {shape} disagrees with its plain version")
+        require_repeatable(torch, lambda: pc.fused_precond(r, g, l), got,
+                           f"fused_precond {shape}")
+        rows["fused_precond"].add(err)
+        del got, want
+        report("fused_precond", shape, lambda: pc.fused_precond(r, g, l),
+               lambda: pc.fused_precond_plain(r, g, l),
+               b * ((di * di + do * do + di * do) * 2 + di * do * 4),
+               b * 2.0 * di * do * (di + do))
+        # matmul: fused_precond's first product at this shape (G L⁻¹ when
+        # d_out <= d_in, else R⁻¹ G)
+        a, w = (g, l) if do <= di else (r, g)
+        m, k, n = a.shape[1], a.shape[2], w.shape[2]
+        got = mm.matmul(a, w)
+        want = mm.matmul_plain(a, w)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = 1e-5 * want.abs().max().item() * math.sqrt(k)
+        print(f"matmul {b}x{m}x{k}x{n}: max_abs_err {err:.3e} (tol "
+              f"{tol:.3e}), route {mm.route_of(a, w)}")
+        require(math.isfinite(err) and err <= tol,
+                f"matmul {b}x{m}x{k}x{n} disagrees with its plain version")
+        rows["matmul"].add(err)
+        del got, want
+        lib_fn, lib_name = library_matmul(torch, a, w)
+        report("matmul", f"{b}x{m}x{k}x{n}", lambda: mm.matmul(a, w),
+               lambda: mm.matmul_plain(a, w),
+               b * ((m * k + k * n) * 2 + m * n * 4), b * 2.0 * m * k * n,
+               lib=(lib_name, lib_fn))
+        del r, l, g, a, w
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def check_poisoned_kernels(torch):
@@ -1788,7 +2002,7 @@ class PlainTee:
 
 
 def run_path(torch, dev, name, step_fn, opt, params, ds, steps,
-             skip_times=(), on_step=None):
+             skip_times=(), on_step=None, fallbacks_per_step=None):
     """One counted training path: launch counts and fallbacks set to 0
     just before it, read just after; fresh optimizer state.  The steps in
     ``skip_times`` hold the kernel route against the plain route, so the
@@ -1843,13 +2057,28 @@ def run_path(torch, dev, name, step_fn, opt, params, ds, steps,
     SUMMARY[name]["eager_ms"] = statistics.median(clean)
     SUMMARY[name]["eager_peak"] = (peak if last is None or last == steps - 1
                                    else peak_after / 2 ** 30)
-    require_path_kernels(name, counts, cores, fallbacks)
+    require_path_kernels(name, counts, cores, fallbacks,
+                         None if fallbacks_per_step is None else
+                         {k: v * steps for k, v in
+                          fallbacks_per_step.items()})
     return params, state, counts
 
 
-def require_path_kernels(name, counts, cores, fallbacks):
+def require_fallbacks(name, fallbacks, expected=None):
+    """A path's fallbacks: none, or on a zoo path only those of
+    ALLOWED_FALLBACKS, at ``expected`` counts when given."""
+    allowed = ALLOWED_FALLBACKS.get(name, ())
+    require(all(k in allowed for k in fallbacks),
+            f"{name}: fallbacks on the path: {fallbacks}")
+    if expected is not None:
+        require(fallbacks == {k: v for k, v in expected.items() if v},
+                f"{name}: fallbacks {fallbacks}, expected {expected}")
+
+
+def require_path_kernels(name, counts, cores, fallbacks, expected=None):
     """Print a path's launch and core counts and hold them to
-    PATH_KERNELS, with no fallback and every GEMM on the Hopper core."""
+    PATH_KERNELS, with no fallback (a zoo path: the expected ones) and
+    every GEMM on the Hopper core (but on a zoo path)."""
     print(f"[{name}] launch counts {counts}, GEMM cores {cores}, fallbacks "
           f"{fallbacks}")
     must, must_not = PATH_KERNELS[name]
@@ -1859,7 +2088,7 @@ def require_path_kernels(name, counts, cores, fallbacks):
     for k in must_not:
         require(counts.get(k, 0) == 0,
                 f"{name}: {k} was launched on the training path")
-    require(not fallbacks, f"{name}: fallbacks on the path: {fallbacks}")
+    require_fallbacks(name, fallbacks, expected)
     if name in WGMMA_PATHS:
         # every GEMM of matmul and fused_precond (two a launch: its first
         # product runs through matmul) on the Hopper core
@@ -2295,16 +2524,30 @@ def graph_path(torch, dev, name, step_fn, params, state, ds, start, n_keys):
                 f"{gname}: {k} was not launched under replay")
     for k in must_not:
         require(counts.get(k, 0) == 0, f"{gname}: {k} was launched")
-    require(not fallbacks, f"{gname}: fallbacks on the path: {fallbacks}")
-    gemms = sum(counts.get(k, 0) for k in GEMM_KERNELS)
-    require(cores.get("wmma", 0) == 0 and cores.get("wgmma", 0) == gemms,
-            f"{gname}: GEMM cores {cores}, expected all {gemms} on wgmma")
+    require_fallbacks(name, fallbacks)
+    if name in WGMMA_PATHS:
+        gemms = sum(counts.get(k, 0) for k in GEMM_KERNELS)
+        require(cores.get("wmma", 0) == 0 and
+                cores.get("wgmma", 0) == gemms,
+                f"{gname}: GEMM cores {cores}, expected all {gemms} on "
+                "wgmma")
     del runner._replay, check              # the runner's own replay again
     gc.collect()                           # the checks' copies go
+    params, state = replays_alone(torch, dev, name, runner, params, state,
+                                  ds, start + steps, n_keys)
+    return counts, params, state, runner
+
+
+def replays_alone(torch, dev, name, runner, params, state, ds, start,
+                  n_keys):
+    """2 x ``n_keys`` replays alone from count ``start`` (each a one-step
+    chunk with its metrics fetch): step times, peak memory allocated and
+    reserved (the static buffers, the graph pool), then a profiled
+    replay, into SUMMARY[name].  Returns (params, state)."""
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times, i = [], start + steps
+    times, i = [], start
     for _ in range(2 * n_keys):
         batch = _one_step(ds, i)
         t0 = time.perf_counter()
@@ -2314,7 +2557,7 @@ def graph_path(torch, dev, name, step_fn, params, state, ds, start, n_keys):
     alloc = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     reserved = torch.cuda.max_memory_reserved(dev) / 2 ** 30
     median = statistics.median(times)
-    print(f"[{gname}] replays alone, steps {start + steps}-{i - 1}: step ms "
+    print(f"[{name}[graph]] replays alone, steps {start}-{i - 1}: step ms "
           f"{[round(t, 3) for t in times]} (median {median:.3f} ms), peak "
           f"memory {alloc:.3f} GiB allocated, {reserved:.3f} GiB reserved "
           "(static buffers and the graph pool)")
@@ -2328,7 +2571,7 @@ def graph_path(torch, dev, name, step_fn, params, state, ds, start, n_keys):
     SUMMARY[name].update(graph_ms=median, graph_busy=busy,
                          graph_alloc=alloc, graph_reserved=reserved,
                          graphs=len(runner.graphs))
-    return counts, params, state, runner
+    return params, state
 
 
 def turns(torch, dev, name, step_fn, runner, params, state, ds, start):
@@ -2386,6 +2629,11 @@ def summary_lines():
             return "not measured"
         return f"{b[1]:.3f} of {b[0]:.3f} ms ({100 * b[1] / b[0]:.1f} %)"
     for name, v in SUMMARY.items():
+        if name.startswith("zoo "):
+            print(f"summary [{name}]: losses {v['losses']} (step 0, step "
+                  f"1), peak memory {v['peak']:.3f} GiB, fallbacks "
+                  f"{v['fallbacks']}, {v['seconds']:.1f} s")
+            continue
         if name == "elastic_p1":
             e, p = v["turn_elastic"], v["turn_plain"]
             (_, pa, pr), (eb, ea, er) = v["mem"]["plain"], v["mem"]["elastic"]
@@ -4774,11 +5022,339 @@ def elastic_path(torch, dev):
     return launches
 
 
+# ----------------------------------------------------------------------- #
+# Path q: the model zoo at full width
+# ----------------------------------------------------------------------- #
+def zoo_config(name):
+    """``name``'s config at full width, cut in depth as ZOO_CUTS says."""
+    import dataclasses
+    from repro_torch.configs import registry
+    cfg, cut = registry.get_config(name), ZOO_CUTS[name]
+    if "reduced" in cut:
+        return cfg.reduced(n_layers=cut["reduced"])
+    return dataclasses.replace(cfg, **cut) if cut else cfg
+
+
+def zoo_setup(dev, name):
+    """The config, random weights from seed 0, its synthetic data (batch 8
+    x 128 text tokens, after a VLM's patch prefix), a maker of host
+    batches (with an encoder-decoder model's frames, as the launcher makes
+    them) and a maker of mkor optimizers (over ZOO_BACKEND's) and their
+    steps."""
+    from repro_torch.core import firstorder
+    from repro_torch.core.mkor import MKORConfig, mkor
+    from repro_torch.data import pipeline
+    from repro_torch.models import model as model_lib
+    from repro_torch.training import loop as train_lib
+
+    cfg = zoo_config(name)
+    params = model_lib.init_params(cfg, seed=0, device=dev)
+    ds = pipeline.make_dataset(
+        cfg, global_batch=ZOO_BATCH,
+        seq_len=ZOO_TEXT + train_lib.text_prefix_len(cfg), seed=0)
+    print(f"{cfg.name}: {model_lib.param_count(params):,} params, "
+          f"{cfg.n_layers} layers ({cfg.n_repeats} x "
+          f"{[f'{p.kind}/{p.mlp}' for p in cfg.pattern]}), d_model "
+          f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}, cut {ZOO_CUTS[name] or 'none'}, mkor("
+          f"{ZOO_BACKEND.get(name, 'lamb')})")
+
+    def host_batch(step):
+        batch = pipeline.make_batch(ds, step)
+        if cfg.is_encoder_decoder:
+            batch["frontend_embeds"] = pipeline.encoder_frames(
+                cfg, ZOO_BATCH, step)
+        return batch
+
+    backend = {"lamb": firstorder.lamb,
+               "sgd": firstorder.sgd}[ZOO_BACKEND.get(name, "lamb")]
+
+    def make(use_kernels, **kw):
+        kw.setdefault("inv_freq", 3)
+        mcfg = MKORConfig(use_kernels=use_kernels, **kw)
+        opt = mkor(backend(1e-3), mcfg)
+        return opt, train_lib.make_train_step(cfg, opt), mcfg
+    return cfg, params, ds, host_batch, make
+
+
+def zoo_buckets(params, mcfg):
+    """The bucket manifest's PATH_KERNELS row ("zoo_extra" when every
+    bucket has extra dims), and the per-step fallbacks it implies: one
+    extra-dims route a step for each bucket with extra dims."""
+    from repro_torch.core.mkor import manifest_for
+    manifest = manifest_for(params, mcfg)
+    n_extra = sum(1 for b in manifest if b.extra)
+    print(f"{len(manifest)} buckets, {n_extra} with extra dims: " + ", ".join(
+        f"{b.bucket_id} x{b.n_slots}" for b in manifest))
+    row = "zoo_extra" if n_extra == len(manifest) else "zoo"
+    return row, {("fused_precond", "extra_dims"): n_extra}
+
+
+def zoo_step0(torch, dev, tag, cfg, params, batch0, make):
+    """Step 0 from the same state through the plain route and the kernels
+    (no stagger: every bucket inverts, every bank side goes through
+    fused_smw): banks in the bf16 bound, the parameter update and the loss
+    after the step as check_step0 holds them.  The plain route runs first;
+    its loss after the step is taken at once, and its banks and params
+    wait on the host, so that the card never holds two optimizer states.
+    Returns the kernel route's (params, state, metrics) and its optimizer
+    and step."""
+    from repro_torch.training import loop as train_lib
+    from repro_torch.tree import tree_leaves, tree_map
+
+    def to_host(tree):
+        return tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+    loss_fn = train_lib.make_loss_fn(cfg, collect_stats=False)
+    opt_p, step_p, _ = make(False, stagger=False)
+    pp, sp, _ = step_p(params, opt_p.init(params), batch0)
+    with torch.no_grad():
+        lp = float(loss_fn(pp, batch0)[0])
+    banks_p, pp = to_host(sp["factor_banks"]), to_host(pp)
+    del sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt_k, step_k, _ = make(True, stagger=False)
+    pk, sk, mk = step_k(params, opt_k.init(params), batch0)
+    with torch.no_grad():
+        lk = float(loss_fn(pk, batch0)[0])
+    compare_banks(f"[{tag}] step 0", sk["factor_banks"],
+                  tree_map(lambda t: t.to(dev), banks_p))
+    del banks_p
+    num = den = 0.0
+    for a, b, c in zip(tree_leaves(pk), tree_leaves(pp), tree_leaves(params)):
+        dk, dp = a.float() - c.float(), b.to(dev).float() - c.float()
+        num += float(torch.sum(torch.square(dk - dp)))
+        den += float(torch.sum(torch.square(dp)))
+        del dk, dp
+    del pp
+    rel = math.sqrt(num / max(den, 1e-30))
+    print(f"[{tag}] step 0 param update vs plain: relative Frobenius error "
+          f"{rel:.3e} (tol 2e-2)")
+    require(rel <= 2e-2, f"{tag}: step 0 parameter update differs")
+    l0 = float(mk["loss"])
+    # 5 % of what the step did to the loss, plus 1e-5 relative for bf16
+    # parameters that round the other way (check_step0)
+    tol = 0.05 * abs(lp - l0) + 1e-5 * abs(lp)
+    print(f"[{tag}] step 0 loss {l0:.6f}; after the step: kernels "
+          f"{lk:.6f}, plain {lp:.6f} (|diff| {abs(lk - lp):.3e}, tol "
+          f"{tol:.3e})")
+    require(math.isfinite(l0) and math.isfinite(lk) and
+            abs(lk - lp) <= tol, f"{tag}: loss after step 0 differs")
+    return (pk, sk, mk), opt_k, step_k
+
+
+def zoo_fingerprints(torch, tree):
+    return {"/".join(map(str, k)): fingerprint(torch, v)
+            for k, v in flat_paths(tree)}
+
+
+def zoo_repeat(torch, tag, step_fn, params, state, batch):
+    """The step twice from one state (the step is functional: its inputs
+    stay as they were), each result's every leaf fingerprinted
+    (:func:`fingerprint`); the two must agree leaf for leaf.  Returns the
+    second run's (params, state, metrics)."""
+    outs = []
+    for _ in range(2):
+        out = step_fn(params, state, batch)
+        outs.append(zoo_fingerprints(torch, {
+            "params": out[0], "state": out[1],
+            "metrics": {k: v.float() for k, v in out[2].items()}}))
+        if len(outs) == 1:
+            del out
+            gc.collect()
+    apart = [k for k in outs[0] if not torch.equal(outs[0][k], outs[1][k])]
+    print(f"[{tag}] the step twice from one state: {len(apart)} of "
+          f"{len(outs[0])} leaves apart" + (f" ({', '.join(apart[:6])})"
+                                              if apart else ""))
+    require(not apart, f"{tag}: the step run twice gave other bits")
+    return out
+
+
+def zoo_q1(torch, dev):
+    """q1: qwen2-moe-a2.7b at full width, 2 layers: step 0 against the
+    plain route, 6 eager steps (launches, the expert buckets' counted
+    extra-dims fallbacks), the step twice from one state, a profiled step
+    with phase times, then captured through the chunk runner (each replay
+    against the eager step), replays alone.  Returns the launch counts."""
+    name = "qwen2_moe"
+    cfg, params, ds, host_batch, make = zoo_setup(dev, ZOO_Q1)
+    from repro_torch.training import loop as train_lib
+    batch0 = train_lib.batch_to_device(host_batch(0), dev)
+    t0 = time.perf_counter()
+    zoo_step0(torch, dev, name, cfg, params, batch0, make)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{name}] step 0 checked in {time.perf_counter() - t0:.1f} s")
+    opt_k, step_k, mcfg = make(True)
+    row, per_step = zoo_buckets(params, mcfg)
+    require(row == "zoo", f"{name}: every bucket has extra dims")
+    params, state, counts = run_path(torch, dev, name, step_k, opt_k,
+                                     params, ds, ZOO_STEPS,
+                                     fallbacks_per_step=per_step)
+    batch = train_lib.batch_to_device(host_batch(ZOO_STEPS), dev)
+    zoo_repeat(torch, name, step_k, params, state, batch)
+    del batch
+    profile_and_phases(torch, dev, cfg, ds, step_k, opt_k, params, state,
+                       ZOO_STEPS, name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    g_counts, params, state, runner = zoo_graph(
+        torch, dev, name, step_k, params, state, ds, ZOO_STEPS,
+        mcfg.inv_freq)
+    del params, state, runner, step_k
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = collections.Counter(counts)
+    launches.update(g_counts)
+    return launches
+
+
+def zoo_graph(torch, dev, name, step_fn, params, state, ds, start, n_keys):
+    """q1 captured through the chunk runner from the eager run's final
+    state (count ``start``), 3 x ``n_keys`` steps in chunks of ``n_keys``:
+    each residue's first step runs eagerly before its capture, and its
+    graph then replays twice.  The card does not hold a second copy of the
+    state beside the graph pool, so each replay is held against its eager
+    step by fingerprints (:func:`fingerprint`, every leaf of params, state
+    and metrics): the eager run of the same steps from the same state goes
+    first (the state kept on the host meanwhile), and every replay's
+    result must equal the eager step's of its count leaf for leaf (the
+    eager step is deterministic: ``zoo_repeat``).  Launch counts set to 0
+    just before the runner, read just after; then replays alone.  Returns
+    (counts, params, state, runner)."""
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import build, ops
+    from repro_torch.training import loop as train_lib
+    from repro_torch.tree import tree_map
+    gname = f"{name}[graph]"
+    steps = 3 * n_keys
+    batches = [pipeline.make_batch(ds, start + i) for i in range(steps)]
+    devs = tree_map(lambda t: t.device, (params, state))
+    kept = tree_map(lambda t: t.detach().to("cpu", copy=True),
+                    (params, state))
+    want = {}
+    mark = build.count_mark()
+    for i, b in enumerate(batches):
+        params, state, m = step_fn(params, state,
+                                   train_lib.batch_to_device(b, dev))
+        want[start + i + 1] = zoo_fingerprints(torch, {
+            "params": params, "state": state,
+            "metrics": {k: v.float() for k, v in m.items()}})
+    build.rewind_counts(mark)
+    del params, state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, state = tree_map(lambda t, d: t.to(d), kept, devs)
+    del kept
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ops.reset_fallback_counts()
+    runner = train_lib.make_chunk_runner(step_fn)
+    replay, checked = runner._replay, []
+
+    def checked_replay(graph):
+        replay(graph)
+        p, s = runner._tree_at([h + d for h, d in zip(runner.host,
+                                                         graph.delta)])
+        got = zoo_fingerprints(torch, {
+            "params": p, "state": s,
+            "metrics": dict(zip(runner._keys, runner._metrics))})
+        ref = want[int(s["count"])]
+        apart = [k for k in ref if not torch.equal(ref[k], got[k])]
+        require(sorted(ref) == sorted(got) and not apart,
+                f"{gname}: the replay at count {int(s['count'])} differs "
+                f"from the eager step at {apart[:6]}")
+        checked.append(int(s["count"]))
+    runner._replay = checked_replay
+    params, state, hist = train_lib.train_epoch(
+        step_fn, params, state, batches, chunk=n_keys, runner=runner)
+    counts, cores = ops.launch_counts(), ops.gemm_core_counts()
+    fallbacks = ops.fallback_counts()
+    losses = [h["loss"] for h in hist]
+    print(f"[{gname}] train losses {losses}")
+    require(all(math.isfinite(x) for x in losses),
+            f"{gname}: non-finite loss")
+    require(len(runner.graphs) == n_keys and len(checked) == steps - n_keys,
+            f"{gname}: {len(runner.graphs)} graphs, {len(checked)} replays")
+    print(f"[{gname}] {len(checked)} replays at counts {checked}, each "
+          f"equal leaf for leaf ({len(want[checked[0]])} leaves) to the "
+          f"eager step of its count; {len(runner.graphs)} graphs; launch "
+          f"counts {counts}, GEMM cores {cores}, fallbacks {fallbacks}")
+    must, must_not = PATH_KERNELS[name]
+    for k in must:
+        require(counts.get(k, 0) > 0, f"{gname}: {k} was not launched")
+    for k in must_not:
+        require(counts.get(k, 0) == 0, f"{gname}: {k} was launched")
+    require_fallbacks(name, fallbacks)
+    del runner._replay
+    params, state = replays_alone(torch, dev, name, runner, params, state,
+                                  ds, start + steps, n_keys)
+    return counts, params, state, runner
+
+
+def zoo_q2(torch, dev, name):
+    """q2: one assigned config at full width, cut in depth (ZOO_CUTS): step
+    0 against the plain route, then step 1 twice from one state; launches,
+    fallbacks (counted: one a step for each bucket with extra dims, over
+    the three kernel steps), losses and peak memory.  Returns the launch
+    counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.training import loop as train_lib
+    tag = f"zoo {name}"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params, _, host_batch, make = zoo_setup(dev, name)
+    row, per_step = zoo_buckets(params, make(True)[2])
+    ops.reset_launch_counts()
+    ops.reset_fallback_counts()
+    (p1, s1, m0), opt_k, step_k = zoo_step0(
+        torch, dev, tag, cfg, params,
+        train_lib.batch_to_device(host_batch(0), dev), make)
+    del params
+    gc.collect()
+    batch1 = train_lib.batch_to_device(host_batch(1), dev)
+    _, _, m1 = zoo_repeat(torch, tag, step_k, p1, s1, batch1)
+    losses = [float(m0["loss"]), float(m1["loss"])]
+    counts, cores = ops.launch_counts(), ops.gemm_core_counts()
+    fallbacks = ops.fallback_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"[{tag}] losses {losses}, moe_aux "
+          f"{[float(m0['moe_aux']), float(m1['moe_aux'])]}, peak memory "
+          f"{peak:.3f} GiB, {time.perf_counter() - t0:.1f} s")
+    require(all(math.isfinite(x) for x in losses), f"{tag}: non-finite loss")
+    require_path_kernels(row, counts, cores, fallbacks,
+                         {k: 3 * v for k, v in per_step.items()})
+    SUMMARY[f"zoo {name}"] = {"losses": losses, "peak": peak,
+                              "fallbacks": dict(fallbacks),
+                              "seconds": time.perf_counter() - t0}
+    del p1, s1, m0, m1, batch1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return collections.Counter(counts)
+
+
+def zoo_path(torch, dev):
+    """Path q: q1, then q2 over the other assigned configs."""
+    from repro_torch.configs import registry
+    t0 = time.perf_counter()
+    launches = zoo_q1(torch, dev)
+    print(f"[q1] path done in {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    for name in registry.ASSIGNED:
+        if name != ZOO_Q1:
+            launches.update(zoo_q2(torch, dev, name))
+    print(f"[q2] path done in {time.perf_counter() - t1:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def train_paths(torch, dev, setup):
-    """Phases 4 and 5: each path's eager run, then its captured version
-    from the eager run's final state (its count, and the residues of its
-    inv_freq); rank 1 and LAMB alone also in turns.  Returns the launch
-    counts summed over the paths."""
+    """Phases 4 and 5: path q (the model zoo), then each bert-large path's
+    eager run and its captured version from the eager run's final state
+    (its count, and the residues of its inv_freq); rank 1 and LAMB alone
+    also in turns.  Returns the launch counts summed over the paths."""
     paths = {"rank1": (train_rank1, TRAIN_STEPS, 3),
              "rank4": (train_rank4, RANK4_STEPS, 4),
              "staleness1": (train_staleness1, STALE_STEPS, 3),
@@ -4786,7 +5362,13 @@ def train_paths(torch, dev, setup):
              "int8_rank4": (train_int8_rank4, RANK4_STEPS, 4),
              "int8_staleness1": (train_int8_staleness1, STALE_STEPS, 3),
              "lamb": (train_lamb, LAMB_STEPS, 1)}
-    launches = collections.Counter()
+    # path q first, on an empty card: q1's captured step needs the card
+    # but for the graph pool and one state
+    t0 = time.perf_counter()
+    launches = zoo_path(torch, dev)
+    print(f"[zoo] path done in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.3f} GiB still "
+          "allocated")
     eager = {}
     for name, (fn, start, n_keys) in paths.items():
         t0 = time.perf_counter()
@@ -4888,6 +5470,10 @@ def main() -> int:
     check_poisoned_kernels(torch)
     check_non_pd_pivot(torch)
     check_owned_chunks(torch)
+    t0 = time.perf_counter()
+    check_zoo_dims(torch, rows)
+    print(f"kernels at the zoo's dims checked in "
+          f"{time.perf_counter() - t0:.1f} s")
     for name in GEMM_KERNELS:
         r = rows[name]
         b_ms, b_by = r.bound(r.bytes, r.ops)

@@ -181,6 +181,7 @@ off (the step then has no phase branch).
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -442,13 +443,22 @@ def precondition(l_inv: torch.Tensor, r_inv: torch.Tensor,
     """ΔW = R⁻¹ G L⁻¹ in fp32.  Factors (*lead, d, d) and g_w (*lead,
     *extra, d_in, d_out): the factors broadcast over the extra dims
     (experts under shared factors), as in the reference."""
-    n_extra = g_w.ndim - r_inv.ndim
-
-    def bcast(f):
-        return f.float().reshape(tuple(f.shape[:-2]) + (1,) * n_extra
-                                 + tuple(f.shape[-2:]))
-    return torch.matmul(torch.matmul(bcast(r_inv), g_w.float()),
-                        bcast(l_inv))
+    if g_w.ndim == r_inv.ndim:
+        return torch.matmul(torch.matmul(r_inv.float(), g_w.float()),
+                            l_inv.float())
+    # extra dims: a slice at a time, its factors 2-D operands over the
+    # slice's extra dims (a broadcast batch would copy each factor once
+    # for each expert)
+    lead = tuple(r_inv.shape[:-2])
+    n = math.prod(lead)
+    rf = r_inv.reshape((n,) + tuple(r_inv.shape[-2:]))
+    lf = l_inv.reshape((n,) + tuple(l_inv.shape[-2:]))
+    gf = g_w.reshape((n, -1) + tuple(g_w.shape[-2:]))
+    out = torch.empty(gf.shape, dtype=torch.float32, device=g_w.device)
+    for i in range(n):
+        out[i] = torch.matmul(torch.matmul(rf[i].float(), gf[i].float()),
+                              lf[i].float())
+    return out.reshape(g_w.shape)
 
 
 # ----------------------------------------------------------------------- #
@@ -553,7 +563,13 @@ def mkor(backend: GradientTransformation,
         d).  bf16 / fp32: stabilize, then update.  int8: update the codes
         (fp32 out), stabilize, requantize with the error feedback, or under
         dist encode the owned chunk at the wire (the error feedback stays
-        zero)."""
+        zero).  Stats (*lead, r, d) chain r rank-1 updates, as the
+        reference's ``smw_update_maybe_rank_r``: a layer stacked once
+        (``n_repeats == 1``) records ā as (1, d) beside a stack of ()."""
+        if v.ndim == side[0].ndim:
+            for i in range(v.shape[-2]):
+                side = side_rank1(side, v[..., i, :])
+            return side
         if not quant8:
             return ((owner_map(rank1_bank, side[0], v) if dist_on
                      else rank1_bank(side[0], v)),)

@@ -1,7 +1,7 @@
 """Deterministic synthetic data pipeline — the port's own numpy copy of
 ``repro/data/pipeline.py``, batch for batch identical to it for the same
-seed, with the reference's resume cursor (the encoder frames arrive with
-the encoder-decoder models).
+seed, with the reference's resume cursor and the stub frame embeddings of
+the encoder-decoder models (:func:`encoder_frames`).
 
 The original corpora (Wikipedia/BookCorpus, GLUE, ImageNet) are unavailable
 offline (DESIGN.md §7), so the pipeline generates *learnable* token streams:
@@ -169,3 +169,14 @@ def make_dataset(model_cfg, *, global_batch: int, seq_len: int, seed: int = 0,
         cfg = dataclasses.replace(
             cfg, frontend_len=0)
     return cfg
+
+
+def encoder_frames(model_cfg, global_batch: int, step: int, seed: int = 0
+                   ) -> Optional[np.ndarray]:
+    """Stub frame embeddings for encoder-decoder models (whisper)."""
+    if not model_cfg.is_encoder_decoder:
+        return None
+    rng = np.random.default_rng((seed, step, 31_337))
+    fd = model_cfg.frontend_dim or model_cfg.d_model
+    return rng.standard_normal(
+        (global_batch, model_cfg.encoder.n_positions, fd)).astype("float32")

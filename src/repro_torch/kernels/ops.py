@@ -260,20 +260,21 @@ def fused_precondition_banked(l_inv: torch.Tensor, r_inv: torch.Tensor,
     gf = g_w.reshape((lf.shape[0],) + tuple(g_w.shape[len(lead):]))
     ls, rs = _flat_scale(l_scale, lead), _flat_scale(r_scale, lead)
     if gf.ndim > 3:
-        # extra broadcast dims: the unfused path with the factors expanded
-        # over them (int8 factors decoded first), and a rescale spanning
-        # the whole slice
+        # extra broadcast dims: the unfused path, a slice at a time, its
+        # factors (int8 decoded first) broadcast as 2-D operands over the
+        # slice's extra dims (no copy of a factor for each expert), and a
+        # rescale spanning the whole slice
         _note_fallback("fused_precond", "extra_dims",
                        f"g_w shape {tuple(g_w.shape)}")
-        n_e = gf[0, ..., 0, 0].numel()
+        g4 = gf.reshape((gf.shape[0], -1) + tuple(gf.shape[-2:]))
+        delta = torch.empty(gf.shape, dtype=torch.float32, device=gf.device)
 
-        def expand(f, sc):
-            f = f if sc is None else dequant_ref(f, sc)
-            return f[:, None].expand((-1, n_e) + tuple(f.shape[-2:])) \
-                .reshape((-1,) + tuple(f.shape[-2:]))
-        delta = two_sided_precondition(expand(lf, ls), expand(rf, rs),
-                                       gf.reshape((-1,) + tuple(
-                                           gf.shape[-2:]))).reshape(gf.shape)
+        def factor(f, sc, i):
+            return f[i] if sc is None else dequant_ref(f[i], sc[i])
+        for i in range(gf.shape[0]):
+            delta[i] = two_sided_precondition(
+                factor(lf, ls, i), factor(rf, rs, i), g4[i]).reshape(
+                    delta.shape[1:])
         if rescale:
             delta = pc.rescale_update(delta, gf, n_lead=1)
         return delta.reshape(g_w.shape)

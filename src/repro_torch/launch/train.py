@@ -1,6 +1,6 @@
 """Training launcher of the port (counterpart of ``repro/launch/train.py``):
 
-    python -m repro_torch.launch.train --arch bert-large [--reduced] \\
+    python -m repro_torch.launch.train --arch ARCH [--reduced] \\
         --optimizer mkor|mkor_h|eva|lamb|sgd|adamw --steps N \\
         --global-batch B --seq-len S --inv-freq F [--rank R] \\
         [--staleness 0|1] [--quant none|bf16|int8] [--use-kernels] \\
@@ -9,8 +9,12 @@
         [--log-json FILE] [--device cpu] \\
         [--dist [--dist-devices W] [--dist-backend nccl|gloo]]
 
-Runs on the GPU unless ``--device cpu`` is given (and raises when there is
-no GPU).  ``--rank`` and ``--staleness`` select block rank-r updates and
+``--arch`` takes every name of ``configs/registry.py`` (the ten assigned
+configs and bert-large; ``--reduced`` for the smoke-scale variant).  An
+encoder-decoder model (whisper-base) gets its stub encoder frames with
+each batch (``data/pipeline.py`` ``encoder_frames``), a prefix VLM
+(pixtral-12b) its stub patch embeddings from the pipeline.  Runs on the
+GPU unless ``--device cpu`` is given (and raises when there is no GPU).  ``--rank`` and ``--staleness`` select block rank-r updates and
 the double-buffered inverse banks (defaults 1 and 0, as in the
 reference).  ``--optimizer`` builds what the reference's launcher builds:
 ``mkor`` and ``mkor_h`` (MKOR-H, the sticky switch to first order) and
@@ -445,7 +449,11 @@ def _train(args: argparse.Namespace, rank: int, world: int) -> float:
                 f"gnorm={m['grad_norm']:.3f} ({m['wall_s']:.1f}s)")
 
     def make_batch(step: int):
-        return pipeline.make_batch(ds, step)
+        batch = pipeline.make_batch(ds, step)
+        if run.cfg.is_encoder_decoder:
+            batch["frontend_embeds"] = pipeline.encoder_frames(
+                run.cfg, args.global_batch, step, args.seed)
+        return batch
 
     preempted = False
     if args.elastic:

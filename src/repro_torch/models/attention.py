@@ -5,8 +5,9 @@ The reference is plain jnp, not a Pallas kernel, so the port is plain
 torch in the reference's order: q/k/v projections (with stat capture),
 RoPE, scores in float32 from the working-dtype inputs, an additive mask,
 a float32 softmax, and the value product.  GQA and sliding windows are
-kept; cross-attention and the KV-cache decode path arrive with the
-encoder-decoder models and serving.
+kept, and cross-attention (``kv_source``: the encoder-decoder models'
+decoder reads the encoder's output, without RoPE and without a mask).
+The KV-cache decode path arrives with serving.
 """
 from __future__ import annotations
 
@@ -43,16 +44,21 @@ def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
 
 def full_seq_attention(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                        spec: LayerSpec, positions: torch.Tensor, *,
+                       kv_source: Optional[torch.Tensor] = None,
                        causal: bool = True,
                        stats: Optional[dict] = None) -> torch.Tensor:
-    """x: (B, S, D); positions: (B, S) int.  Returns (B, S, D)."""
+    """x: (B, S, D); positions: (B, S) int; ``kv_source`` (B, T, D): the
+    encoder output a cross-attention reads its keys and values from (then
+    no RoPE and no mask).  Returns (B, S, D)."""
     h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = h // hk
+    xs = kv_source if kv_source is not None else x
     q = _split_heads(layers.dense(p["q"], x, stats=stats, name="q"), h)
-    k = _split_heads(layers.dense(p["k"], x, stats=stats, name="k"), hk)
-    v = _split_heads(layers.dense(p["v"], x, stats=stats, name="v"), hk)
-    q = layers.rope(q, positions, cfg.rope_theta)
-    k = layers.rope(k, positions, cfg.rope_theta)
+    k = _split_heads(layers.dense(p["k"], xs, stats=stats, name="k"), hk)
+    v = _split_heads(layers.dense(p["v"], xs, stats=stats, name="v"), hk)
+    if kv_source is None:
+        q = layers.rope(q, positions, cfg.rope_theta)
+        k = layers.rope(k, positions, cfg.rope_theta)
     dt = x.dtype
     q, k, v = q.to(dt), k.to(dt), v.to(dt)
 
@@ -67,16 +73,18 @@ def full_seq_attention(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     scores = torch.einsum("bshg,bth->bhgst", q_sum, k_sum)
     scores = layers.softcap(scores, cfg.attn_softcap)
 
-    qi = positions[:, None, None, :, None]
-    ki = positions[:, None, None, None, :]
-    s = x.shape[1]
-    mask = torch.ones((1, 1, 1, s, s), dtype=torch.bool, device=x.device)
-    if causal:
-        mask = mask & (ki <= qi)
-    if spec.window is not None:
-        mask = mask & (ki > qi - spec.window)
-    bias = torch.where(mask, 0.0, NEG_INF).to(scores.dtype)
-    probs = torch.softmax((scores + bias).float(), dim=-1)
+    if kv_source is None:
+        qi = positions[:, None, None, :, None]
+        ki = positions[:, None, None, None, :]
+        s = x.shape[1]
+        mask = torch.ones((1, 1, 1, s, s), dtype=torch.bool,
+                          device=x.device)
+        if causal:
+            mask = mask & (ki <= qi)
+        if spec.window is not None:
+            mask = mask & (ki > qi - spec.window)
+        scores = scores + torch.where(mask, 0.0, NEG_INF).to(scores.dtype)
+    probs = torch.softmax(scores.float(), dim=-1)
     out = torch.einsum("bhgst,bthd->bshgd", probs, v.float())
     out = out.to(dt).reshape(*x.shape[:-1], h * dh)
     return layers.dense(p["o"], out, stats=stats, name="o")

@@ -54,10 +54,42 @@ def dense(p: Params, x: torch.Tensor, *, stats: Optional[dict] = None,
     if stats is not None:
         flat = x.detach().reshape(-1, x.shape[-1])
         stats[name] = {"a": flat.float().mean(dim=0)}
-    y = torch.matmul(x, p["w"])
+    w = p["w"]
+    # jnp.einsum promotes mixed operands (float32 frames into a bf16
+    # frontend projection) to the wider type; torch.matmul refuses them
+    dt = torch.promote_types(x.dtype, w.dtype)
+    y = torch.matmul(x.to(dt), w.to(dt))
     if "b" in p:
         y = y + p["b"]
     return y + p["probe"].to(y.dtype)
+
+
+def grouped_dense(p: Params, x: torch.Tensor, *,
+                  stats: Optional[dict] = None, name: str = "",
+                  per_expert_stats: bool = False) -> torch.Tensor:
+    """Expert-parallel dense: x (E, C, d_in), W (E, d_in, d_out).
+
+    With shared factors (default) E[a] is the mean over all dispatched rows
+    (DESIGN.md §4); with ``per_expert_stats`` a per-expert (E, d_in) mean.
+    """
+    if stats is not None:
+        xf = x.detach().float()
+        stats[name] = {"a": xf.mean(dim=1) if per_expert_stats
+                       else xf.reshape(-1, x.shape[-1]).mean(dim=0)}
+    y = torch.bmm(x, p["w"])
+    if "b" in p:
+        y = y + p["b"][:, None, :]
+    return y + p["probe"].to(y.dtype)
+
+
+def grouped_dense_init(gen: torch.Generator, n_experts: int, d_in: int,
+                       d_out: int, *, dtype, device,
+                       per_expert_probe: bool = False) -> Params:
+    w = _randn(gen, (n_experts, d_in, d_out), device)
+    probe_shape = (n_experts, 1, d_out) if per_expert_probe else (d_out,)
+    return {"w": (w / math.sqrt(d_in)).to(dtype),
+            "probe": torch.zeros(probe_shape, dtype=torch.float32,
+                                 device=device)}
 
 
 # ----------------------------------------------------------------------- #
@@ -82,6 +114,17 @@ def apply_norm(p: Params, x: torch.Tensor, *, kind: str = "rmsnorm",
         mu = torch.mean(xf, dim=-1, keepdim=True)
         var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
         y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return y.to(x.dtype)
+
+
+def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 64e-5) -> torch.Tensor:
+    """Per-head group norm (RWKV-6 wkv output): over the last dim, in
+    float32, cast back to x's dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * scale + bias
     return y.to(x.dtype)
 
 

@@ -14,9 +14,9 @@ chunk; on the CPU it runs the same steps eagerly.  What a graph would
 freeze lives on the host: the optimizer's ``plan(state)`` gives the key
 of the step's host branches (MKOR's ``count % inv_freq``) and its
 per-step scalars (LAMB's learning rate and bias corrections).  The runner
-captures one graph per key, the first time the key comes up, writes the
-scalars into device buffers before each replay, and advances the state's
-host counts itself.
+runs a key's first step eagerly, captures one graph per key the second
+time the key comes up, writes the scalars into device buffers before
+each replay, and advances the state's host counts itself.
 
 An optimizer that branches on device state (MKOR-H's sticky switch) has
 ``observe(state)``, a device read of that state into a host *view*.  The
@@ -88,14 +88,25 @@ def batch_to_device(batch: Dict[str, np.ndarray],
     return {k: _as_tensor(v).to(device) for k, v in batch.items()}
 
 
+def text_prefix_len(cfg: ModelConfig) -> int:
+    """Positions occupied by the multimodal prefix in decoder-only VLMs."""
+    if cfg.frontend != "none" and not cfg.is_encoder_decoder:
+        return cfg.frontend_len
+    return 0
+
+
 def make_loss_fn(cfg: ModelConfig, *, collect_stats: bool = True) -> Callable:
+    n_prefix = text_prefix_len(cfg)
+
     def loss_fn(params, batch):
         logits, aux = model_lib.forward(params, cfg, batch,
                                         collect_stats=collect_stats)
-        loss_lm = lm_loss(logits, batch["labels"])
+        # a VLM's labels cover its text positions only
+        text_logits = logits[:, n_prefix:] if n_prefix else logits
+        loss_lm = lm_loss(text_logits, batch["labels"])
         loss = loss_lm + aux["moe_aux"]
         return loss, {"stats": aux["stats"], "loss_lm": loss_lm,
-                      "moe_aux": aux["moe_aux"]}
+                      "moe_aux": aux["moe_aux"].detach()}
     return loss_fn
 
 
@@ -318,10 +329,12 @@ class ChunkRunner:
     stay on the host.  With ``step_fn.observe`` it reads the host view
     once, at the chunk's start (module docstring).  For each step it
     copies the step's batch into the static batch, writes the scalars of
-    ``step_fn.plan`` and replays the graph of the plan's key.  The first time a key comes up, the step runs
-    eagerly on a side stream (the warm-up a capture needs; its result is
-    the step's) and is then captured, into one memory pool that every
-    key's graph shares: replays run one at a time on one stream, and the
+    ``step_fn.plan`` and replays the graph of the plan's key.  The first
+    time a key comes up, the step runs eagerly on a side stream (the
+    warm-up a capture needs; its result is the step's); the second time,
+    it is captured and then replayed, so that no eager step runs beside a
+    pool that has grown to hold a graph.  Every key's graph is captured
+    into one memory pool: replays run one at a time on one stream, and the
     graph writes every result into the static buffers, so no pool block
     outlives a replay.  The buffers that the runner writes or reads
     outside a graph are allocated outside the pool.  A capture that fails
@@ -342,6 +355,7 @@ class ChunkRunner:
                  capture: bool = True):
         self.step_fn, self.donate, self.capture = step_fn, donate, capture
         self.graphs: Dict = {}
+        self._warmed: Dict = {}        # keys warmed up, not yet captured
         self.pool = None
         self.host: List[int] = []      # the state's host counts, as it runs
         self._template = None
@@ -360,6 +374,7 @@ class ChunkRunner:
         to the device (``torch.cuda.empty_cache``).  A later call binds and
         captures anew."""
         self.graphs.clear()
+        self._warmed.clear()
         self.pool = None
         self.host, self._template, self._view = [], None, {}
         for name in ("_static", "_storages", "_batch", "_scalars", "_keys",
@@ -471,10 +486,10 @@ class ChunkRunner:
         for k, t in self._scalars.items():
             t.fill_(float(values[k]))
 
-    def _first_step(self, key, host_values, device) -> _Graph:
-        """The first step of ``key``: run it eagerly on a side stream (its
-        result is the step's, written into the static buffers), then
-        capture it from the same host state."""
+    def _warm_up(self, host_values, device) -> List[int]:
+        """The first step of a key: run it eagerly on a side stream (the
+        warm-up a capture needs; its result is the step's, written into the
+        static buffers).  Returns its change of the host counts."""
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(current)
@@ -489,7 +504,16 @@ class ChunkRunner:
             delta = [o - h for o, h in zip(self._write_back(*out),
                                            host_values)]
         current.wait_stream(side)
-        del out
+        return delta
+
+    def _capture(self, host_values, delta) -> _Graph:
+        """Capture the step of a key whose warm-up ran before (its host
+        counts' change ``delta``), from the host state at hand; the capture
+        runs nothing, so the static buffers stay as they were.  The cached
+        blocks of the eager steps go back to the device first: a capture
+        cannot free cached memory when it runs short."""
+        current = torch.cuda.current_stream()
+        torch.cuda.empty_cache()
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
@@ -532,11 +556,15 @@ class ChunkRunner:
                 buf.copy_(batches[name][k])
             self._write_scalars(values, device)
             g = self.graphs.get(key)
+            if g is None and key in self._warmed:
+                g = self.graphs[key] = self._capture(host,
+                                                     self._warmed.pop(key))
             if g is None:
-                g = self.graphs[key] = self._first_step(key, host, device)
+                delta = self._warmed[key] = self._warm_up(host, device)
             else:
                 self._replay(g)
-            host = self.host = [h + d for h, d in zip(host, g.delta)]
+                delta = g.delta
+            host = self.host = [h + d for h, d in zip(host, delta)]
             if rows is None:
                 rows = torch.empty((n, len(self._keys)), dtype=torch.float32,
                                    device=device)

@@ -1256,3 +1256,101 @@ def test_cuda_health_replays_through_a_trip_equal_eager(cuda_device, case):
     assert len(runner.graphs) == 3 and len(trips) == 6
     assert all(torch.isfinite(torch.tensor(h["loss"])) for h in hist)
     assert trips[4] == 1 and trips[5] == 2 and trips[8] == 2, trips
+
+
+# ----------------------------------------------------------------------- #
+# The model zoo: the SMW bodies at the widest factor dim (starcoder2's
+# 24576: a bf16 row is 48 KB, over the bulk path's 32 KB tile, so the
+# kernel loads it element by element), and the MoE layer's bits
+# ----------------------------------------------------------------------- #
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", SMW_KINDS)
+def test_cuda_smw_at_the_widest_zoo_dim(cuda_device, kind):
+    """fused_smw and fused_block_smw (r = 4, full and empty windows) on a
+    (2, 24576, 24576) bank against their plain versions, each a second
+    time for the same bits."""
+    b, d = 2, 24576
+    gen = torch.Generator(device=cuda_device).manual_seed(29)
+    if kind == "int8":
+        j, sc = _int8_bank(b, d, gen, cuda_device)
+    else:
+        j = torch.eye(d, device=cuda_device, dtype=getattr(torch, kind))
+        j = j.expand(b, d, d).contiguous()
+        noise = 0.01 * torch.randn((d, d), generator=gen,
+                                   device=cuda_device)
+        j[0] += noise.to(j.dtype)
+        del noise
+        sc = None
+    rel, floor = _smw_tol(kind)
+    v = torch.randn((b, d), generator=gen, device=cuda_device)
+    got = t_rk.fused_smw(j, v, gamma=0.9, scale=sc)
+    assert _within(got, t_rk.fused_smw_plain(j, v, gamma=0.9, scale=sc),
+                   rel, floor)
+    assert torch.equal(t_rk.fused_smw(j, v, gamma=0.9, scale=sc), got)
+    del got
+    r = 4
+    n = torch.tensor([r, 0], device=cuda_device)
+    sq, gm = block_weights(n, r, 0.9)
+    vt = (torch.randn((b, r, d), generator=gen, device=cuda_device)
+          * sq[..., None]).contiguous()
+    got = t_rk.fused_block_smw(j, vt, gm, scale=sc)
+    assert _within(got, t_rk.fused_block_smw_plain(j, vt, gm, scale=sc),
+                   rel, floor)
+    base = j[1] if sc is None else j[1].float() * sc[1]
+    assert torch.equal(got[1], base)              # the empty window
+    assert torch.equal(t_rk.fused_block_smw(j, vt, gm, scale=sc), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_expert", [False, True])
+def test_cuda_moe_layer_repeats_bit_for_bit(cuda_device, per_expert):
+    """The MoE layer's forward and backward twice from one state give the
+    same bits (the dispatch's backward and the combine add in a fixed
+    order: models/moe.py), at qwen2-moe's width (60 experts, top 4, 4
+    shared) in bf16, with capacity drops."""
+    import dataclasses
+    from repro_torch.configs import qwen2_moe_a2_7b
+    from repro_torch.models import moe
+    cfg = qwen2_moe_a2_7b.CONFIG
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, per_expert_factors=per_expert))
+    gen = torch.Generator(device=cuda_device).manual_seed(30)
+    p = moe.moe_init(gen, cfg, dtype=torch.bfloat16, device=cuda_device)
+    x0 = torch.randn((4, 128, cfg.d_model), generator=gen,
+                     device=cuda_device).to(torch.bfloat16)
+    ct = torch.randn(x0.shape, generator=gen, device=cuda_device)
+    runs = []
+    for _ in range(2):
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in _flat_params(p).items()}
+        x = x0.clone().requires_grad_(True)
+        stats = {}
+        y, aux = moe.moe_apply(_unflat(leaves), x, cfg, stats=stats)
+        (torch.sum(y.float() * ct) + aux).backward()
+        runs.append([y, aux, x.grad] + [leaves[k].grad for k in
+                                        sorted(leaves)]
+                    + [v for _, v in sorted(_flat_params(stats).items())])
+    assert len(runs[0]) == len(runs[1]) > 10
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def _flat_params(tree, pre=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_params(v, f"{pre}{k}/"))
+        else:
+            out[f"{pre}{k}"] = v
+    return out
+
+
+def _unflat(flat):
+    out = {}
+    for key, v in flat.items():
+        node = out
+        *path, last = key.split("/")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return out

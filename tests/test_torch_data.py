@@ -48,8 +48,11 @@ def test_bert_large_config_and_reduced_match(overrides):
         _config_tuple(j_bert.CONFIG.reduced(**overrides))
     assert t_bert.CONFIG.padded_vocab == j_bert.CONFIG.padded_vocab == 30720
     assert t_registry.get_config("bert-large") is t_bert.CONFIG
+    # every assigned config resolves since the model zoo was ported; a
+    # name that no registry has raises
     with pytest.raises(KeyError):
-        t_registry.get_config("gemma2-9b")
+        t_registry.get_config("no-such-arch")
+    assert t_registry.get_config("gemma2-9b").name == "gemma2-9b"
 
 
 @pytest.mark.parametrize("seq_len,batch,seed", [(16, 2, 0), (33, 3, 7),

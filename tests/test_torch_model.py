@@ -140,9 +140,21 @@ def test_bf16_forward_close():
 
 
 def test_unsupported_blocks_raise():
+    """A Mamba block (once refused here, before the model zoo was ported)
+    builds, and its forward, stats and gradients match JAX's at
+    tests/test_torch_zoo_check.py's tolerances."""
+    import test_torch_zoo_check as zoo
+    from repro.models import config as j_config
     cfg = t_config.ModelConfig(
         name="m", arch_type="ssm", n_layers=2, d_model=16, n_heads=2,
         n_kv_heads=2, d_ff=32, vocab_size=32,
         pattern=(t_config.LayerSpec(kind="mamba"),))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_model.init_params(cfg, device="cpu")
+    params = t_model.init_params(cfg, device="cpu")
+    assert params["blocks"][0]["mixer"]["A_log"].shape == (2, 32, 16)
+    jcfg = j_config.ModelConfig(
+        name="m", arch_type="ssm", n_layers=2, d_model=16, n_heads=2,
+        n_kv_heads=2, d_ff=32, vocab_size=32,
+        pattern=(j_config.LayerSpec(kind="mamba"),), dtype="float32",
+        vocab_pad_multiple=1)
+    assert zoo.port_cfg(jcfg).pattern == cfg.pattern
+    zoo.forward_matches(jcfg)

@@ -57,6 +57,32 @@ def test_block_plan_invariants(plan_lib, batch, d, rank, item, resident):
     smw_plan_check.check_plan(plan_lib, batch, d, rank, item, resident)
 
 
+# every factor dim of the model zoo: qwen2-moe's experts (1408), d_model
+# (2048) and shared experts (5632), rwkv6's 8960, stablelm's 13824,
+# gemma2's and pixtral's 14336, mixtral's 16384, starcoder2's 24576 and
+# qwen2-moe's router (60 experts: ragged)
+ZOO_DIMS = [1408, 2048, 5632, 8960, 13824, 14336, 16384, 24576, 60]
+
+
+@pytest.mark.parametrize("d", ZOO_DIMS)
+@pytest.mark.parametrize("item", [2, 1, 4])
+@pytest.mark.parametrize("rank", [1, 4])
+def test_block_plan_invariants_at_zoo_dims(plan_lib, d, item, rank):
+    """The plan at each zoo dim, for bf16, int8 and fp32 banks, rank 1 and
+    4, a stack of 2 on an H100's two blocks an SM: the invariants of
+    :func:`smw_plan_check.check_plan`; a tile is whole rows within the
+    32 KB buffer, or one row when a row alone is wider (a bf16 row of
+    24576 is 48 KB: the kernel then loads J element by element), and the
+    kernel's per-run staging (32 rows of Vt and W) holds every run."""
+    p = smw_plan_check.check_plan(plan_lib, 2, d, rank, item, 264)
+    if d * item > smw_plan_check.TILE_BYTES:
+        assert p["rows"] == 1
+    else:
+        assert p["rows"] * d * item <= smw_plan_check.TILE_BYTES
+    assert p["run"] * p["rows"] <= smw_plan_check.MAX_TILE_ROWS
+    assert p["tiles"] * p["rows"] >= d
+
+
 def test_block_plan_tiles_shrink_with_width(plan_lib):
     """Tiles hold whole rows, at most TILE_BYTES of J (the kernel's shared
     buffer): more rows at d = 1024 than at d = 4096, where a run of tiles
