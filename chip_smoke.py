@@ -198,6 +198,30 @@ Phases (each prints its own lines; any failure exits non-zero):
         gradients; jamba-v0.1-52b .reduced(n_layers=16); whisper-base
         whole), step 0 against the plain route and step 1 twice from one
         state, its fallbacks counted, losses and peak memory;
+     r. serving (training/serving.py, launch/serve.py; no kernel of
+        REPLACES runs, checked), right after q: r1, gemma2-9b whole (42
+        layers, 9.24 B params, bf16, random weights from seed 0): (a) a
+        2 x 4100-token prompt (past the 4096 window: the local rings
+        wrap) prefilled, then 8 teacher-forced decode steps: each
+        layer's decode step, fed the full forward's input to the layer,
+        within SERVE_LAYER_RTOL of the full forward's output, and the
+        logits of the prefill and of each step against one full forward
+        over all 4108 tokens (max abs, norm-relative within
+        SERVE_LOGITS_RTOL; top-1 equal where the top-1/top-2 gap exceeds
+        twice the max abs difference), beside the bf16 GEMMs' rounding
+        at few rows and the full forward on one token alone; (b) batch 8
+        x 512-token prompts, 64 greedy tokens: prefill ms, decode ms a
+        token (median), tokens/s, peak memory, cache bytes and the
+        per-token bound (params and cache read once over 3.35 TB/s), then
+        one decode step under torch.cuda.set_sync_debug_mode("error") and
+        one profiled (device busy share, kernel launches); r2,
+        its widths at 2 layers, (a) in fp32 within SERVE_RTOL_FP32 and
+        in bf16 within SERVE_RTOL; r3, every other decoder config of the
+        registry at ZOO_CUTS (MoE at capacity factor 64: drop-free),
+        a 2 x 64-token prompt (pixtral's patch prefix, whisper's encoder
+        frames) and 4 steps, (a)'s rules on the logits (bert-large is
+        left out: causal=False); r4, ``launch/serve.py --arch rwkv6-3b``
+        whole as a process of its own (exit 0, its timing lines);
      each profiled step also lists the host's waits on the device; on
      every path but q's every GEMM of matmul and fused_precond (and of
      their int8 variants) must run on the Hopper core (per-core counts;
@@ -230,7 +254,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      the sentinel (path b's, path d's): on, off, off, on;
   6. a summary line per path (eager against captured; MKOR-H also before
      and after the flip, in turns, and its checkpoint; paths i and j the
-     sentinel against none, in turns; q2 a line a config), one JSON line
+     sentinel against none, in turns; q2 a line a config; r its checks
+     and r1 (b)'s times), one JSON line
      listing every kernel (launches summed over phases 4 and 5), the
      card's name and power limit, and, last, ``{"ok": true, "device":
      {...}}``.
@@ -2629,6 +2654,28 @@ def summary_lines():
             return "not measured"
         return f"{b[1]:.3f} of {b[0]:.3f} ms ({100 * b[1] / b[0]:.1f} %)"
     for name, v in SUMMARY.items():
+        if name == "serve":
+            (rel, mx, sure, rows), bt = v["check"], v["batch"]
+            zoo = "; ".join(f"{k} {r:.3e}" for k, (r, *_) in v["zoo"].items())
+            print(f"summary [serve]: {SERVE_ARCH} full width and depth: "
+                  f"decode against the full forward (prompt "
+                  f"{SERVE_CHECK[1]}, {SERVE_CHECK[2]} steps) layer by "
+                  f"layer worst norm-relative {v['layerwise'][0]:.3e} "
+                  f"(bound {SERVE_LAYER_RTOL:g}), logits {rel:.3e} (bound "
+                  f"{SERVE_LOGITS_RTOL:g}), max abs {mx:.3e}, top-1 equal "
+                  f"in {sure} of {rows} rows with a margin; batch "
+                  f"{SERVE_BATCH[0]} x {SERVE_BATCH[1]}: prefill "
+                  f"{bt['prefill_ms']:.3f} ms, decode {bt['decode_ms']:.3f} "
+                  f"ms a token ({bt['tok_s']:.1f} tokens/s) against a bound "
+                  f"of {bt['bound_ms']:.3f} ms, a profiled step device "
+                  f"busy {busy(bt['busy'])}, peak {bt['peak']:.3f} GiB, "
+                  f"cache {bt['cache_bytes']:,} bytes; 2 layers fp32 "
+                  f"{v['r2']['float32'][0]:.3e}, bf16 "
+                  f"{v['r2']['bfloat16'][0]:.3e}; r3 worst norm-relative: "
+                  f"{zoo}; r4 "
+                  f"{v['launch'][0]} ({v['launch'][1]:.1f} s); "
+                  f"{v['seconds']:.1f} s")
+            continue
         if name.startswith("zoo "):
             print(f"summary [{name}]: losses {v['losses']} (step 0, step "
                   f"1), peak memory {v['peak']:.3f} GiB, fallbacks "
@@ -2766,7 +2813,8 @@ def profile_step(torch, fn):
     t_gemm = sum(v[0] for n, v in by_name.items() if is_gemm(n))
     t_all = sum(v[0] for v in by_name.values())
     print(f"profiled step: wall {wall:.3f} ms, device busy {busy:.3f} ms "
-          f"({100 * busy / wall:.1f}%), port kernels {t_port:.3f} ms, "
+          f"({100 * busy / wall:.1f}%) in {len(kernels)} kernel launches, "
+          f"port kernels {t_port:.3f} ms, "
           f"library GEMMs {t_gemm:.3f} ms, other kernels "
           f"{t_all - t_port - t_gemm:.3f} ms")
     for n, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
@@ -4488,10 +4536,12 @@ def dist_world2_path(torch):
 # Path p: elastic fault tolerance (training/resilience.py, the launcher's
 # --elastic)
 # ----------------------------------------------------------------------- #
-def _launch(argv, tag, sigterm_after=None):
-    """``python -m repro_torch.launch.train argv`` in a process of its own
-    (a session of its own: the ranks it spawns write to the same pipe and
-    are stopped with it), every line printed with ``tag``.  With
+def _launch(argv, tag, sigterm_after=None,
+            module="repro_torch.launch.train"):
+    """``python -m module argv`` (the training launcher by default) in a
+    process of its own (a session of its own: the ranks it spawns write to
+    the same pipe and are stopped with it), every line printed with
+    ``tag``.  With
     ``sigterm_after`` (a line prefix) the launcher gets SIGTERM as soon as
     such a line comes.  Returns (exit code, lines, seconds)."""
     import signal
@@ -4501,7 +4551,7 @@ def _launch(argv, tag, sigterm_after=None):
                                if os.environ.get("PYTHONPATH") else [])))
     t0 = time.perf_counter()
     proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.train", *argv],
+        [sys.executable, "-m", module, *argv],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
         cwd=ROOT, start_new_session=True)
 
@@ -5350,6 +5400,346 @@ def zoo_path(torch, dev):
     return launches
 
 
+# ----------------------------------------------------------------------- #
+# Path r: serving (training/serving.py, launch/serve.py)
+# ----------------------------------------------------------------------- #
+SERVE_ARCH = "gemma2-9b"
+# r1 (a) and r2: batch x prompt tokens, then teacher-forced decode steps;
+# the prompt passes gemma2's 4096-token window, so the local layers'
+# rings wrap
+SERVE_CHECK = (2, 4100, 8)
+SERVE_BATCH = (8, 512, 64)        # r1 (b): batch x prompt, greedy tokens
+SERVE_RTOL = 2e-2                 # norm-relative: tests/test_serving.py:63
+SERVE_RTOL_FP32 = 1e-4            # r2, in fp32
+# r1 (a) at 42 bf16 layers: the full forward does not equal itself to
+# SERVE_RTOL when it runs one token alone (the card's GEMMs round the k/v
+# projection and the MLP's 14336-deep down projection otherwise at 2 rows
+# than at 8216, serve_rounding, and 42 random layers amplify it).  So
+# r1 (a) holds each layer's decode step, fed the full forward's input to
+# that layer, to SERVE_LAYER_RTOL against the full forward's output of
+# the layer, and the logits to SERVE_LOGITS_RTOL: each bound lies between
+# the sound reading at this config and the readings of faults planted
+# there (PERF.md section 6).  r2 holds the ring to SERVE_RTOL_FP32 in
+# fp32 and to SERVE_RTOL in bf16 at 2 layers.
+SERVE_LAYER_RTOL = 5e-3
+SERVE_LOGITS_RTOL = 0.1
+SERVE_ZOO = (2, 64, 4)            # r3: batch x prompt, decode steps
+SERVE_LAUNCH = ["--arch", "rwkv6-3b", "--batch", "4", "--prompt-len", "64",
+                "--n-tokens", "32"]
+
+
+def serve_inputs(torch, dev, cfg, batch, n_text, seed=0):
+    """Random tokens (B, n_text) from ``seed`` on the card, and a prefix
+    VLM's patch embeddings or an encoder-decoder model's frames (fp32, as
+    the pipeline makes them)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, n_text),
+                                   generator=gen, device=dev,
+                                   dtype=torch.int32)}
+    if cfg.frontend != "none":
+        n = cfg.encoder.n_positions if cfg.is_encoder_decoder \
+            else cfg.frontend_len
+        out["frontend_embeds"] = 0.1 * torch.randn(
+            (batch, n, cfg.frontend_dim or cfg.d_model), generator=gen,
+            device=dev)
+    return out
+
+
+def norm_rel(got, want):
+    return float((got - want).norm() / want.norm())
+
+
+def decode_against_full(torch, tag, cfg, params, inputs, n_prompt, steps,
+                        rtol):
+    """Prefill on the first ``n_prompt`` tokens, then ``steps``
+    teacher-forced decode steps; the prefill's and each step's logits
+    against one full forward over all the tokens, at that position: the
+    norm-relative difference at most ``rtol``, and the top-1 tokens equal
+    in every row where the full forward's top-1/top-2 gap exceeds twice
+    the max abs difference.  Returns (worst norm-relative, worst max abs,
+    rows with such a margin, rows)."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.training import serving
+    tokens = inputs["tokens"]
+    with torch.inference_mode():
+        full, _ = model_lib.forward(params, cfg, inputs)
+        n_prefix = full.shape[1] - tokens.shape[1]
+        want = full[:, n_prefix + n_prompt - 1:].float()
+        del full
+    step = serving.make_serve_step(cfg)
+    logits, cache = serving.make_prefill_step(cfg, cache_extra=steps)(
+        params, dict(inputs, tokens=tokens[:, :n_prompt]))
+    got = [logits]
+    for i in range(n_prompt, n_prompt + steps):
+        _, logits, cache = step(params, cache, tokens[:, i:i + 1])
+        got.append(logits)
+    got = torch.cat(got, dim=1).float()
+    require(int(cache["pos"]) == n_prefix + n_prompt + steps,
+            f"{tag}: cache position {int(cache['pos'])}")
+    del cache
+    worst_rel = worst_abs = 0.0
+    sure_rows = rows = 0
+    for j in range(steps + 1):
+        g, w = got[:, j], want[:, j]
+        mx = float((g - w).abs().max())
+        rel = norm_rel(g, w)
+        top = torch.topk(w, 2, dim=-1)
+        sure = (top.values[:, 0] - top.values[:, 1]) > 2 * mx
+        agree = torch.argmax(g, dim=-1) == top.indices[:, 0]
+        at = "prefill" if j == 0 else f"decode step {j}"
+        print(f"[{tag}] position {n_prefix + n_prompt - 1 + j} ({at}): max "
+              f"abs {mx:.4e}, norm-relative {rel:.4e}; top-1 equal in "
+              f"{int((agree & sure).sum())} of {int(sure.sum())} rows with "
+              f"a margin ({int(agree.sum())} of {agree.numel()} in all)")
+        require(math.isfinite(rel) and rel <= rtol,
+                f"{tag}: {at} norm-relative {rel:.3e} over {rtol:g}")
+        require(bool(agree[sure].all()),
+                f"{tag}: {at} top-1 differs where the margin allows")
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, mx)
+        sure_rows += int(sure.sum())
+        rows += sure.numel()
+    return worst_rel, worst_abs, sure_rows, rows
+
+
+def serve_rounding(torch, dev, cfg, params, tokens):
+    """How far the full forward moves from itself with the number of rows
+    it runs: the bf16 GEMMs at ``cfg``'s products (q, k/v, o, the MLP's
+    up and down, the unembedding), how many outputs of the first M rows
+    (M = 1, 2, 8, 64, 256) of a (B x S)-row product differ from the same
+    rows computed alone (decode runs B-row products); then the full
+    forward on ``tokens``' first token alone against the whole run at
+    position 0."""
+    from repro_torch.models import model as model_lib
+    m_full = tokens.numel()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    d, hd = cfg.d_model, cfg.head_dim
+    for k, n in ((d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
+                 (cfg.n_heads * hd, d), (d, cfg.d_ff), (cfg.d_ff, d),
+                 (d, cfg.vocab_size)):
+        w = (torch.randn(k, n, generator=gen, device=dev) / k ** 0.5) \
+            .bfloat16()
+        x = torch.randn(m_full, k, generator=gen, device=dev).bfloat16()
+        big = x @ w
+        print(f"[r1 a] bf16 GEMM {k} x {n}: outputs of the first M rows "
+              f"that differ from the {m_full}-row product: " + ", ".join(
+                  f"M={m} {int(((x[:m] @ w) != big[:m]).sum())} of {m * n}"
+                  for m in (1, 2, 8, 64, 256)))
+        del w, x, big
+    with torch.inference_mode():
+        first = model_lib.forward(params, cfg, {"tokens": tokens})[0][:, 0]
+        one = model_lib.forward(params, cfg, {"tokens": tokens[:, :1]})[0]
+    print(f"[r1 a] the full forward on the first token alone against the "
+          f"whole {tokens.shape[1]}-token run at position 0: "
+          f"{norm_rel(one[:, 0].float(), first.float()):.4e} norm-relative")
+
+
+def layerwise_against_full(torch, tag, cfg, params, tokens, n_prompt,
+                           steps, rtol):
+    """Each layer's decode step against the full forward, layer by layer:
+    prefill on the first ``n_prompt`` tokens, then for each of ``steps``
+    positions every block's ``_block_decode`` fed the full forward's input
+    to that block (so no error carries from one layer to the next), its
+    output against the full forward's, at most ``rtol`` norm-relative.
+    Returns the worst (norm-relative, layer, step)."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.training import serving
+    order = [(r, i, spec) for r in range(cfg.n_repeats)
+             for i, spec in enumerate(cfg.pattern)]
+    blocks = [model_lib._unbind_layers(bp, cfg.n_repeats)
+              for bp in params["blocks"]]
+    with torch.inference_mode():
+        x, enc_out = model_lib._embed_inputs(params, cfg,
+                                             {"tokens": tokens}, stats=None)
+        positions = model_lib._positions(x)
+        xs = [x[:, n_prompt:].clone()]
+        for r, i, spec in order:
+            x, _, _, _ = model_lib._block_apply_full(
+                blocks[i][r], x, cfg, spec, positions, enc_out=enc_out,
+                causal=cfg.causal, stats=None)
+            xs.append(x[:, n_prompt:].clone())
+        del x
+    _, cache = serving.make_prefill_step(cfg, cache_extra=steps)(
+        params, {"tokens": tokens[:, :n_prompt]})
+    caches = [model_lib._unbind_layers(bc, cfg.n_repeats)
+              for bc in cache["blocks"]]
+    worst = (0.0, 0, 0)
+    with torch.inference_mode():
+        for j in range(steps):
+            for li, (r, i, spec) in enumerate(order):
+                out, new = model_lib._block_decode(
+                    blocks[i][r], xs[li][:, j:j + 1], cfg, spec,
+                    cache["pos"], caches[i][r])
+                model_lib._write_back(caches[i][r], new)
+                rel = norm_rel(out.float(), xs[li + 1][:, j:j + 1].float())
+                worst = max(worst, (rel, li, j + 1))
+            cache["pos"].add_(1)
+    print(f"[{tag}] every layer's decode step fed the full forward's input, "
+          f"{steps} steps x {len(order)} layers: worst norm-relative "
+          f"{worst[0]:.4e} (layer {worst[1]}, step {worst[2]}), bound "
+          f"{rtol:g}")
+    require(worst[0] <= rtol, f"{tag}: layer {worst[1]} step {worst[2]} "
+            f"norm-relative {worst[0]:.3e} over {rtol:g}")
+    return worst
+
+
+def serve_batch_run(torch, dev, cfg, params):
+    """r1 (b): batch 8 x 512-token prompts, 64 greedy tokens: prefill ms
+    (after a warm-up prefill), decode ms a token (median of the steps,
+    each to a synchronize), tokens/s, peak allocated memory, cache bytes
+    and the per-token bound (params and cache read once over the HBM
+    rate); then one more decode step under the sync debug mode "error"
+    (no host sync in a step), and one profiled (device busy share, kernel
+    launches)."""
+    from repro_torch.training import serving
+    from repro_torch.tree import tree_bytes
+    b, n_prompt, n_tokens = SERVE_BATCH
+    inputs = serve_inputs(torch, dev, cfg, b, n_prompt, seed=1)
+    # room for the timed steps and the two after them
+    prefill = serving.make_prefill_step(cfg, cache_extra=n_tokens + 1)
+    step = serving.make_serve_step(cfg)
+    prefill(params, inputs)                    # warm-up
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, inputs)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    outs, step_ms = [tok], []
+    for _ in range(n_tokens - 1):
+        t0 = time.perf_counter()
+        tok, logits, cache = step(params, cache, tok)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        outs.append(tok)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    require(bool(torch.isfinite(logits).all()), "r1 (b): non-finite logits")
+    gen = torch.cat(outs, dim=1).cpu()
+    require(gen.shape == (b, n_tokens) and int(gen.min()) >= 0 and
+            int(gen.max()) < cfg.vocab_size, f"r1 (b): tokens {gen.shape}")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tok, logits, cache = step(params, cache, tok)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    require(bool(torch.isfinite(logits).all()), "r1 (b): non-finite logits")
+    print("[r1 b] one decode step, profiled:")
+    busy = profile_step(torch, lambda: step(params, cache, tok))
+    cache_bytes, param_bytes = tree_bytes(cache), tree_bytes(params)
+    med = statistics.median(step_ms)
+    bound = 1e3 * (param_bytes + cache_bytes) / PEAK_BYTES_PER_S
+    out = {"prefill_ms": prefill_ms, "decode_ms": med,
+           "tok_s": b * 1e3 / med, "peak": peak, "cache_bytes": cache_bytes,
+           "bound_ms": bound, "busy": busy}
+    print(f"[r1 b] batch {b} x {n_prompt}-token prompts, {n_tokens} greedy "
+          f"tokens: prefill {prefill_ms:.3f} ms; decode {med:.3f} ms a token "
+          f"(median of {len(step_ms)} steps, min {min(step_ms):.3f}, max "
+          f"{max(step_ms):.3f}), {out['tok_s']:.1f} tokens/s; peak allocated "
+          f"{peak:.3f} GiB; cache {cache_bytes:,} bytes; params "
+          f"{param_bytes:,} bytes; per-token bound {bound:.3f} ms (params "
+          f"and cache read once at 3.35 TB/s), {med / bound:.2f}x of it; a "
+          f"decode step under sync debug mode 'error' ran with no host sync")
+    print(f"[r1 b] sample: {gen[0, :24].tolist()}")
+    return out
+
+
+def serve_path(torch, dev):
+    """Path r: r1 gemma2-9b at full width and depth (a: prefill past the
+    window and teacher-forced decode against the full forward; b: a served
+    batch, timed); r2 its widths at 2 layers in fp32, (a) again; r3 every
+    other decoder config of the registry, cut in depth as ZOO_CUTS; r4
+    ``launch/serve.py`` as a user runs it.  No kernel of REPLACES runs."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_lib
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    cfg = registry.get_config(SERVE_ARCH)
+    params = model_lib.init_params(cfg, seed=0, device=dev)
+    print(f"[r1] {cfg.name}: {model_lib.param_count(params):,} params, "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}, "
+          f"windows {[p.window for p in cfg.pattern]}")
+    b, n_prompt, steps = SERVE_CHECK
+    inputs = serve_inputs(torch, dev, cfg, b, n_prompt + steps)
+    serve_rounding(torch, dev, cfg, params, inputs["tokens"])
+    layerwise = layerwise_against_full(torch, "r1 a", cfg, params,
+                                       inputs["tokens"], n_prompt, steps,
+                                       SERVE_LAYER_RTOL)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check = decode_against_full(torch, "r1 a", cfg, params, inputs,
+                                n_prompt, steps, SERVE_LOGITS_RTOL)
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = serve_batch_run(torch, dev, cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[r1] done in {time.perf_counter() - t0:.1f} s")
+
+    t1 = time.perf_counter()
+    shallow = {}
+    for dtype, rtol in (("float32", SERVE_RTOL_FP32),
+                        ("bfloat16", SERVE_RTOL)):
+        cfg2 = dataclasses.replace(cfg, n_layers=2, dtype=dtype)
+        params = model_lib.init_params(cfg2, seed=0, device=dev)
+        shallow[dtype] = decode_against_full(
+            torch, f"r2 {dtype}", cfg2, params,
+            serve_inputs(torch, dev, cfg2, b, n_prompt + steps), n_prompt,
+            steps, rtol)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[r2] done in {time.perf_counter() - t1:.1f} s")
+
+    t1 = time.perf_counter()
+    zoo = {}
+    zb, zp, zs = SERVE_ZOO
+    for name in registry.ASSIGNED:
+        if name == SERVE_ARCH:
+            continue
+        t2 = time.perf_counter()
+        zc = zoo_config(name)
+        if zc.moe is not None:       # drop-free: prefill and decode agree
+            zc = dataclasses.replace(zc, moe=dataclasses.replace(
+                zc.moe, capacity_factor=64.0))
+        params = model_lib.init_params(zc, seed=0, device=dev)
+        zoo[name] = decode_against_full(
+            torch, f"r3 {name}", zc, params,
+            serve_inputs(torch, dev, zc, zb, zp + zs), zp, zs, SERVE_RTOL)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[r3 {name}] {time.perf_counter() - t2:.1f} s")
+    print("[r3 bert-large] not served: causal=False "
+          "(src/repro/configs/bert_large.py:18), so a decode step, which "
+          "sees only the tokens before it, cannot equal its bidirectional "
+          "forward")
+    print(f"[r3] done in {time.perf_counter() - t1:.1f} s")
+    counts = ops.launch_counts()
+    require(not any(counts.values()),
+            f"path r launched kernels of REPLACES: {counts}")
+
+    t1 = time.perf_counter()
+    rc, lines, sec = _launch(SERVE_LAUNCH, "r4 serve",
+                             module="repro_torch.launch.serve")
+    require(rc == 0, f"r4: launch/serve.py exit code {rc}")
+    timing = [ln for ln in lines if ln.startswith("prefill ")]
+    require(len(timing) == 1 and "tok/s" in timing[0] and
+            any(ln.startswith("sample: ") for ln in lines),
+            "r4: no timing or sample line")
+    print(f"[r4] done in {time.perf_counter() - t1:.1f} s")
+    SUMMARY["serve"] = {"check": check, "layerwise": layerwise,
+                        "batch": batch, "r2": shallow,
+                        "zoo": zoo, "launch": (timing[0], sec),
+                        "seconds": time.perf_counter() - t0}
+
+
 def train_paths(torch, dev, setup):
     """Phases 4 and 5: path q (the model zoo), then each bert-large path's
     eager run and its captured version from the eager run's final state
@@ -5369,6 +5759,9 @@ def train_paths(torch, dev, setup):
     print(f"[zoo] path done in {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.3f} GiB still "
           "allocated")
+    t0 = time.perf_counter()
+    serve_path(torch, dev)
+    print(f"[serve] path done in {time.perf_counter() - t0:.1f} s")
     eager = {}
     for name, (fn, start, n_keys) in paths.items():
         t0 = time.perf_counter()

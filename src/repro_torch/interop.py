@@ -2,9 +2,10 @@
 
 The caller turns a JAX tree into numpy first (``jax.tree.map(np.asarray,
 tree)``, done in the tests, never here: the port does not import JAX) and
-hands the numpy tree to :func:`params_from_numpy`, or a whole optimizer
+hands the numpy tree to :func:`params_from_numpy`, a whole optimizer
 state to :func:`opt_state_from_numpy` (:func:`opt_state_to_numpy` is its
-inverse).  The trees keep their structure exactly: dicts,
+inverse), or a serving cache to :func:`cache_from_numpy` (inverse
+:func:`cache_to_numpy`).  The trees keep their structure exactly: dicts,
 lists (``params["blocks"]``), the ``probe`` leaves and the stacked leading
 layer dim of ``scan_layers=True``.
 
@@ -112,12 +113,11 @@ def _count_from_numpy(x) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True))
 
 
-def opt_state_to_numpy(state: Any) -> Any:
-    """The inverse of :func:`opt_state_from_numpy`: every leaf to numpy on
-    the host, copied, with its dtype -- bf16 leaves as ``ml_dtypes.bfloat16``
-    arrays (the numpy dtype JAX uses), bit for bit -- ready for
-    ``jax.tree.map(jnp.asarray, ...)``."""
-    import ml_dtypes     # JAX's numpy dtypes: the state goes back to JAX
+def _tree_to_jax_numpy(tree: Any) -> Any:
+    """Every leaf to numpy on the host, copied, with its dtype -- bf16
+    leaves as ``ml_dtypes.bfloat16`` arrays (the numpy dtype JAX uses), bit
+    for bit."""
+    import ml_dtypes     # JAX's numpy dtypes: the tree goes back to JAX
 
     def leaf(t):
         t = t.detach().cpu()
@@ -125,4 +125,31 @@ def opt_state_to_numpy(state: Any) -> Any:
             return np.array(t.view(torch.int16).numpy().view(
                 ml_dtypes.bfloat16), copy=True)
         return np.array(t.numpy(), copy=True)
-    return tree_map(leaf, state)
+    return tree_map(leaf, tree)
+
+
+def opt_state_to_numpy(state: Any) -> Any:
+    """The inverse of :func:`opt_state_from_numpy`: every leaf to numpy on
+    the host (:func:`_tree_to_jax_numpy`), ready for
+    ``jax.tree.map(jnp.asarray, ...)``."""
+    return _tree_to_jax_numpy(state)
+
+
+def cache_from_numpy(cache: Any, device: DeviceLike = None) -> Any:
+    """A JAX serving cache (as numpy: ``{"blocks": [...], "pos"[,
+    "enc_out"]}``, from the reference's prefill, decode step or
+    ``init_decode_cache``) → the port's cache on ``device``, key for key,
+    every leaf copied with its dtype (bf16 bit-exact); ``pos`` a 0-d int32
+    tensor on ``device``, as the port's decode step keeps it."""
+    pos = np.asarray(cache["pos"])
+    if pos.shape != () or pos.dtype != np.int32:
+        raise ValueError(f"a cache position is a 0-d int32 scalar, got "
+                         f"{pos.dtype} {pos.shape}")
+    return tree_from_numpy(cache, device)
+
+
+def cache_to_numpy(cache: Any) -> Any:
+    """The inverse of :func:`cache_from_numpy`: the port's cache as numpy
+    (:func:`_tree_to_jax_numpy`), ready for ``jax.tree.map(jnp.asarray,
+    ...)`` and the reference's ``decode_step``."""
+    return _tree_to_jax_numpy(cache)

@@ -1,5 +1,6 @@
-"""Attention-free sequence mixers for training: RWKV-6 ("Finch") and Mamba
-(for Jamba), the full-sequence half of ``repro/models/ssm.py``.
+"""Attention-free sequence mixers: RWKV-6 ("Finch") and Mamba (for
+Jamba), full-sequence (training, prefill) and one-token decode (port of
+``repro/models/ssm.py``).
 
 RWKV-6 (arXiv:2404.05892): token shift with data-dependent ("ddlerp")
 mixing through a low-rank MLP, per-channel data-dependent decay
@@ -16,8 +17,14 @@ reference's order of operations.  The projections (r/k/v/g/o, the
 channel mix, in/x/dt/out) are ordinary dense layers and get MKOR's
 second-order preconditioning; the recurrence parameters (``maa*``,
 ``decay*``, ``bonus``, ``ln_x_*``, ``conv_*``, ``A_log``, ``D``) are plain
-tensors that take the first-order update (DESIGN.md §4).  The one-token
-decode steps arrive with serving.
+tensors that take the first-order update (DESIGN.md §4).
+
+The full-sequence paths also return the final state that decode carries:
+RWKV-6's wkv state and last token (``{"wkv", "x_last"}``; the channel
+mix's last token beside the output), Mamba's scan state and the conv's
+last ``d_conv - 1`` inputs (``{"h", "conv"}``).  The decode steps
+(:func:`rwkv_time_mix_decode`, :func:`mamba_decode`) advance that state
+by one token, O(1) in the sequence length.
 """
 from __future__ import annotations
 
@@ -145,10 +152,29 @@ def rwkv_time_mix(p, x, cfg: ModelConfig, *,
     return out, {"wkv": state, "x_last": x[:, -1]}
 
 
-def rwkv_channel_mix(p, x, *, stats: Optional[dict] = None
+def rwkv_time_mix_decode(p, x, cfg: ModelConfig, cache: Dict
+                         ) -> Tuple[torch.Tensor, Dict]:
+    """One-token decode.  x: (B, 1, d); cache: ``{"wkv": (B, H, N, N),
+    "x_last": (B, d)}``.  Returns (y, the new ``{"wkv", "x_last"}``)."""
+    b, _, d = x.shape
+    r, k, v, g, w = _rwkv_projections(p, x, cache["x_last"][:, None, :],
+                                      cfg, None)
+    state, y = _wkv_step(cache["wkv"], r[:, 0].float(), k[:, 0].float(),
+                         v[:, 0].float(), w[:, 0].float(), p["bonus"])
+    y = layers.group_norm(y[:, None], p["ln_x_scale"], p["ln_x_bias"])
+    y = y.reshape(b, 1, d).to(x.dtype) * g
+    return layers.dense(p["o"], y), {"wkv": state, "x_last": x[:, 0]}
+
+
+def rwkv_channel_mix(p, x, *, x_prev: Optional[torch.Tensor] = None,
+                     stats: Optional[dict] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """relu² channel mix with token shift.  Returns (y, x_last)."""
-    xx = _token_shift(x) - x
+    """relu² channel mix with token shift (``x_prev``: the previous
+    tokens' x, (B, S, d); by default x shifted by one, zeros first).
+    Returns (y, x_last)."""
+    if x_prev is None:
+        x_prev = _token_shift(x)
+    xx = x_prev - x
     xk = x + xx * p["maa_k"].to(x.dtype)
     xr = x + xx * p["maa_r"].to(x.dtype)
     kk = layers.activation(layers.dense(p["key"], xk, stats=stats,
@@ -205,16 +231,25 @@ def _mamba_ssm_inputs(p, xc, cfg: ModelConfig, stats):
     return da, dbx, cmat.float()
 
 
-def _causal_conv(p, x, cfg: ModelConfig) -> torch.Tensor:
-    """Depthwise causal conv over (B, S, di), then SiLU."""
+def _causal_conv(p, x, cfg: ModelConfig, *,
+                 buf: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv over (B, S, di), then SiLU.  ``buf`` (B,
+    d_conv - 1, di): the inputs before x (zeros by default).  Returns
+    (out, the last d_conv - 1 inputs: the next call's ``buf``)."""
     mc = cfg.mamba
-    pad = torch.zeros((x.shape[0], mc.d_conv - 1, x.shape[-1]),
-                      dtype=x.dtype, device=x.device)
+    if buf is None:
+        pad = torch.zeros((x.shape[0], mc.d_conv - 1, x.shape[-1]),
+                          dtype=x.dtype, device=x.device)
+    else:
+        pad = buf.to(x.dtype)
     xe = torch.cat([pad, x], dim=1)
     out = xe[:, 0:x.shape[1]] * p["conv_w"][0].to(x.dtype)
     for i in range(1, mc.d_conv):
         out = out + xe[:, i:i + x.shape[1]] * p["conv_w"][i].to(x.dtype)
-    return F.silu(out + p["conv_b"].to(x.dtype))
+    new_buf = xe[:, xe.shape[1] - (mc.d_conv - 1):] if mc.d_conv > 1 \
+        else pad
+    return F.silu(out + p["conv_b"].to(x.dtype)), new_buf
 
 
 def mamba_apply(p, x, cfg: ModelConfig, *, stats: Optional[dict] = None
@@ -225,7 +260,7 @@ def mamba_apply(p, x, cfg: ModelConfig, *, stats: Optional[dict] = None
     di = mc.expand * cfg.d_model
     xz = layers.dense(p["in"], x, stats=stats, name="in")
     x1, z = torch.split(xz, di, dim=-1)
-    xc = _causal_conv(p, x1, cfg)
+    xc, conv_buf = _causal_conv(p, x1, cfg)
     da, dbx, cmat = _mamba_ssm_inputs(p, xc, cfg, stats)
     hs = torch.zeros((b, di, mc.d_state), dtype=torch.float32,
                      device=x.device)
@@ -237,4 +272,19 @@ def mamba_apply(p, x, cfg: ModelConfig, *, stats: Optional[dict] = None
     y = y + p["D"] * xc.float()
     y = y.to(x.dtype) * F.silu(z)
     out = layers.dense(p["out"], y, stats=stats, name="out")
-    return out, {"h": hs}
+    return out, {"h": hs, "conv": conv_buf}
+
+
+def mamba_decode(p, x, cfg: ModelConfig, cache: Dict
+                 ) -> Tuple[torch.Tensor, Dict]:
+    """One-token step.  x: (B, 1, d); cache: ``{"h": (B, di, n), "conv":
+    (B, d_conv - 1, di)}``.  Returns (y, the new ``{"h", "conv"}``)."""
+    di = cfg.mamba.expand * cfg.d_model
+    x1, z = torch.split(layers.dense(p["in"], x), di, dim=-1)
+    xc, conv_buf = _causal_conv(p, x1, cfg, buf=cache["conv"])
+    da, dbx, cmat = _mamba_ssm_inputs(p, xc, cfg, None)
+    hs = da[:, 0] * cache["h"] + dbx[:, 0]
+    y = torch.einsum("bdn,bn->bd", hs, cmat[:, 0])[:, None]
+    y = y + p["D"] * xc.float()
+    y = y.to(x.dtype) * F.silu(z)
+    return layers.dense(p["out"], y), {"h": hs, "conv": conv_buf}

@@ -1,1 +1,2 @@
-"""The train step: loss, gradients, stat plumbing, optimizer glue."""
+"""The train step (loss, gradients, stat plumbing, optimizer glue), the
+chunk runner, chaos, resilience, and serving (prefill and decode)."""

@@ -25,3 +25,8 @@ def tree_leaves(tree) -> List[Any]:
     out: List[Any] = []
     tree_map(out.append, tree)
     return out
+
+
+def tree_bytes(tree) -> int:
+    """Bytes held by the tensor leaves of ``tree``."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))

@@ -101,6 +101,7 @@ def test_mixer_matches(mixer):
         _close(jstate["x_last"], tstate["x_last"].detach(), "x_last")
     elif mixer == "mamba_apply":
         _close(jstate["h"], tstate["h"].detach(), "h state")
+        _close(jstate["conv"], tstate["conv"].detach(), "conv buffer")
     else:
         _close(jstate, tstate.detach(), "x_last")
     js, ts = zoo.flat(jst), zoo.flat(interop.tree_to_numpy(st))
@@ -112,7 +113,8 @@ def test_mixer_matches(mixer):
 
 
 def test_causal_conv_matches():
-    """The depthwise causal conv alone: output and gradients."""
+    """The depthwise causal conv alone: output, the buffer it returns for
+    the next call, and gradients."""
     jc, tc = _cfg(j_config), zoo.port_cfg(_cfg(j_config))
     rng = np.random.default_rng(11)
     p = {"conv_w": rng.standard_normal((4, 64)).astype(np.float32),
@@ -121,20 +123,21 @@ def test_causal_conv_matches():
     ct = rng.standard_normal((2, 7, 64)).astype(np.float32)
 
     def j_run(p, x):
-        y, _ = j_ssm._causal_conv(p, x, jc)
-        return jnp.sum(y * ct), y
-    (_, jy), jg = jax.value_and_grad(j_run, argnums=(0, 1),
-                                     has_aux=True)(p, x)
+        y, buf = j_ssm._causal_conv(p, x, jc)
+        return jnp.sum(y * ct), (y, buf)
+    (_, (jy, jbuf)), jg = jax.value_and_grad(j_run, argnums=(0, 1),
+                                             has_aux=True)(p, x)
     tp = {k: torch.tensor(v, requires_grad=True) for k, v in p.items()}
     tx = torch.tensor(x, requires_grad=True)
-    ty = t_ssm._causal_conv(tp, tx, tc)
+    ty, tbuf = t_ssm._causal_conv(tp, tx, tc)
     torch.sum(ty * torch.tensor(ct)).backward()
     _close(jy, ty.detach(), "y")
+    _close(jbuf, tbuf.detach(), "buf")
     zoo.assert_grads_close(jg, ({k: v.grad for k, v in tp.items()},
                                 tx.grad))
     # causal: the first output depends on the first input only
-    grad0 = torch.autograd.grad(t_ssm._causal_conv(tp, tx, tc)[:, 0].sum(),
-                                tx)[0]
+    grad0 = torch.autograd.grad(
+        t_ssm._causal_conv(tp, tx, tc)[0][:, 0].sum(), tx)[0]
     assert torch.all(grad0[:, 1:] == 0) and torch.any(grad0[:, 0] != 0)
 
 
