@@ -487,6 +487,34 @@ ZOO_SMW_DIMS = ((2, 24576), (2, 16384), (2, 14336), (2, 8960))
 ZOO_GEMM_DIMS = ((2, 6144, 24576), (2, 24576, 6144), (2, 3584, 14336))
 # each path's numbers for the closing summary lines
 SUMMARY = collections.defaultdict(dict)
+# path s (tooling): each counted path's launches, GEMM cores, fallbacks and
+# steps (run_path), the SMW tile path or GEMM cores each of check_zoo_dims's
+# launches reported, the wire checks of o1 (eager and captured) and o2, and
+# the card's name and power limit every figure carries
+COUNTED = {}
+ZOO_ROUTES = {}
+WIRE = {}
+SMI = ""
+# path s (b): the counted paths the kernel plans are held to: the bert-large
+# or zoo config, MKOR's config and the steps counted (run_path)
+PLAN_PATHS = {"rank1": ("bert-large", {"inv_freq": 3}, TRAIN_STEPS),
+              "rank4": ("bert-large", {"rank": 4, "inv_freq": 4},
+                        RANK4_STEPS),
+              "int8_rank1": ("bert-large", {"inv_freq": 3,
+                                            "factor_quant": "int8"},
+                             TRAIN_STEPS),
+              "qwen2_moe": (ZOO_Q1, {"inv_freq": 3}, ZOO_STEPS)}
+# path s (e): the three examples on the card (their own configs), the
+# 100M-parameter one cut to 20 steps
+EXAMPLE_RUNS = (("torch_quickstart", []), ("torch_mkor_h_switching", []),
+                ("torch_train_lm_100m", ["--steps", "20"]))
+# path s (a): the configs of the dry run (train_4k on meta), its MKOR
+# settings (quant, staleness), and the config whose state is allocated
+DRYRUN_CONFIGS = ("minicpm-2b", "mixtral-8x22b", "qwen2-moe-a2.7b",
+                  "whisper-base", "stablelm-12b", "rwkv6-3b", "gemma2-9b",
+                  "starcoder2-15b", "jamba-v0.1-52b", "pixtral-12b",
+                  "bert-large")
+DRYRUN_SETTINGS = (("none", 0), ("none", 1), ("int8", 0), ("int8", 1))
 
 
 class SmokeFailure(RuntimeError):
@@ -942,6 +970,7 @@ def check_zoo_dims(torch, rows):
     torch.bmm's.  Kept apart from the bert-large sums (``further_ms`` of
     the kernel line, per shape)."""
     from repro_torch.core.mkor import block_weights
+    from repro_torch.kernels import build
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import precond as pc
     from repro_torch.kernels import rank1_smw as rk
@@ -972,11 +1001,20 @@ def check_zoo_dims(torch, rows):
                 f"{name} {shape} disagrees with its plain version")
         rows[name].add(err)
 
+    def taken(key, fn, counts):
+        """Call ``fn`` once and keep what its launch reported taking: the
+        SMW tile path or the GEMM cores (``counts``), for path s (c)."""
+        before = collections.Counter(counts())
+        out = fn()
+        ZOO_ROUTES[key] = dict(collections.Counter(counts()) - before)
+        return out
+
     for b, d in ZOO_SMW_DIMS:
         shape = f"{b}x{d}x{d}"
         j = near_identity(torch, b, d, gen, torch.bfloat16)
         v = torch.randn((b, d), generator=gen, device="cuda")
-        got = rk.fused_smw(j, v, gamma=0.9)
+        got = taken(("smw", b, d, 2, 1), lambda: rk.fused_smw(
+            j, v, gamma=0.9), build.smw_path_counts)
         close("fused_smw", shape, got, rk.fused_smw_plain(j, v, gamma=0.9),
               2.0 ** -7, 1e-5)
         require_repeatable(torch, lambda: rk.fused_smw(j, v, gamma=0.9),
@@ -990,7 +1028,8 @@ def check_zoo_dims(torch, rows):
         sq, gm = block_weights(torch.full((b,), r, device="cuda"), r, 0.9)
         vt = (vr * sq[..., None]).contiguous()
         del vr
-        got = rk.fused_block_smw(j, vt, gm)
+        got = taken(("smw", b, d, 2, r), lambda: rk.fused_block_smw(
+            j, vt, gm), build.smw_path_counts)
         close("fused_block_smw", f"{shape} r=4", got,
               rk.fused_block_smw_plain(j, vt, gm), 2.0 ** -7, 1e-5)
         require_repeatable(torch, lambda: rk.fused_block_smw(j, vt, gm),
@@ -1005,7 +1044,8 @@ def check_zoo_dims(torch, rows):
         gc.collect()
         torch.cuda.empty_cache()
         q, sc = int8_bank(torch, b, d, gen)
-        got = rk.fused_smw(q, v, gamma=0.9, scale=sc)
+        got = taken(("smw", b, d, 1, 1), lambda: rk.fused_smw(
+            q, v, gamma=0.9, scale=sc), build.smw_path_counts)
         close("fused_smw[int8]", shape, got,
               rk.fused_smw_plain(q, v, gamma=0.9, scale=sc), 1e-5, 1e-6)
         require_repeatable(torch, lambda: rk.fused_smw(
@@ -1015,7 +1055,8 @@ def check_zoo_dims(torch, rows):
                lambda: rk.fused_smw(q, v, gamma=0.9, scale=sc),
                lambda: rk.fused_smw_plain(q, v, gamma=0.9, scale=sc),
                b * (d * d * 1 + d * d * 4 + d * 4 + 4), b * 5.0 * d * d)
-        got = rk.fused_block_smw(q, vt, gm, scale=sc)
+        got = taken(("smw", b, d, 1, r), lambda: rk.fused_block_smw(
+            q, vt, gm, scale=sc), build.smw_path_counts)
         close("fused_block_smw[int8]", f"{shape} r=4", got,
               rk.fused_block_smw_plain(q, vt, gm, scale=sc), 1e-5, 1e-6)
         require_repeatable(torch, lambda: rk.fused_block_smw(
@@ -1036,7 +1077,8 @@ def check_zoo_dims(torch, rows):
         l = near_identity(torch, b, do, gen, torch.bfloat16)
         g = (torch.randn((b, di, do), generator=gen, device="cuda")
              * 1e-2).to(torch.bfloat16)
-        got = pc.fused_precond(r, g, l)
+        got = taken(("precond", b, di, do), lambda: pc.fused_precond(
+            r, g, l), build.gemm_core_counts)
         want = pc.fused_precond_plain(r, g, l)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
@@ -2061,6 +2103,7 @@ def run_path(torch, dev, name, step_fn, opt, params, ds, steps,
     counts = ops.launch_counts()
     cores = ops.gemm_core_counts()
     fallbacks = ops.fallback_counts()
+    COUNTED[name] = (counts, cores, fallbacks, steps)
     peak_after = torch.cuda.max_memory_allocated(dev)
     peak = max(peak_to_last, peak_after) / 2 ** 30
     if last is None:
@@ -4039,7 +4082,9 @@ def dist_world1_path(torch, dev, setup):
     from repro_torch.core import firstorder
     from repro_torch.core.mkor import MKORConfig, mkor
     from repro_torch.data import pipeline
+    from repro_torch.analysis import contracts
     from repro_torch.kernels import build, ops
+    from repro_torch.sharding import collectives
     from repro_torch.training import loop as train_lib
     cfg, params, ds, make = setup
     launches = collections.Counter()
@@ -4108,9 +4153,18 @@ def dist_world1_path(torch, dev, setup):
             launches.update(counts)
 
             opt_b, step_b = dist_step("bfloat16")
-            _, _, counts = run_path(torch, dev, "dist_w1_bf16", step_b,
-                                    opt_b, params, ds, DIST_STEPS)
+            with collectives.wire_log(dev) as wire:
+                _, state_b, counts = run_path(torch, dev, "dist_w1_bf16",
+                                              step_b, opt_b, params, ds,
+                                              DIST_STEPS)
             launches.update(counts)
+            meta = contracts.target_meta(
+                params, state_b, MKORConfig(inv_freq=3, dist=dist), 1,
+                n_means=3, inexact_stats=wire.inexact_stats())
+            del state_b
+            WIRE["o1"] = check_wire(
+                "dist_w1_bf16", [contracts.Target("dist_w1_bf16", wire.steps(),
+                                                  meta)])
             gc.collect()
             torch.cuda.empty_cache()
             g_counts, p, s, runner = graph_path(
@@ -4428,8 +4482,10 @@ def dist_world2_run(torch, dev, setup, name, kw, steps, rank, log):
     print(f"[{name}] rank {rank}: losses {losses}; step ms "
           f"{[round(t, 3) for t in times]}; peak {peak:.3f} GiB; held "
           f"{dict(held)}", flush=True)
+    f64 = ["/".join(map(str, k)) for k, t in flat_paths({"state": s})
+           if t.dtype == torch.float64]
     return {"counts": counts, "held": dict(held), "losses": losses,
-            "step_ms": times, "peak_gib": peak}
+            "step_ms": times, "peak_gib": peak, "f64_leaves": f64}
 
 
 def dist_child(rank: int, store: str, out: str) -> int:
@@ -4453,11 +4509,24 @@ def dist_child(rank: int, store: str, out: str) -> int:
             bert_large.CONFIG, n_layers=TWO_RANK_LAYERS))
         log = ChunkLog(ops)
         results = {}
+        from repro_torch.analysis import contracts
+        from repro_torch.core.mkor import MKORConfig
+        from repro_torch.sharding import collectives
         for name, (kw, steps) in DIST_RUNS.items():
             t0 = time.perf_counter()
-            results[name] = dist_world2_run(torch, dev, setup, name, kw,
-                                            steps, rank, log)
+            with collectives.wire_log(dev) as wire:
+                results[name] = dist_world2_run(torch, dev, setup, name, kw,
+                                                steps, rank, log)
             results[name]["seconds"] = time.perf_counter() - t0
+            meta = contracts.target_meta(
+                setup[1], {}, MKORConfig(**{"inv_freq": 3, **kw},
+                                         dist=(("data", 2),)), 2,
+                n_means=3, inexact_stats=wire.inexact_stats(),
+                stats_payload=None)
+            meta["f64_paths"] = results[name].pop("f64_leaves")
+            results[name]["wire"] = {
+                "records": [dataclasses.astuple(r) for r in wire.records],
+                "meta": meta}
             gc.collect()
             torch.cuda.empty_cache()
     finally:
@@ -4511,8 +4580,24 @@ def dist_world2_path(torch):
     """Path o2: two processes on the one card over gloo (the launcher's
     --dist --dist-backend gloo, eager), each running DIST_RUNS; rank 0's
     output is printed.  Returns the launch counts of both ranks."""
+    from repro_torch.analysis import contracts
+    from repro_torch.sharding import collectives
     launches = collections.Counter()
     res = _two_ranks("--dist-rank", "dist_w2", DIST_TIMEOUT)
+    targets = {}
+    for name in DIST_RUNS:
+        for r in range(2):
+            w = res[r][name]["wire"]
+            log = collectives.WireLog()
+            log.records = [collectives.WireRecord(
+                op, dt, tuple(shape), *rest)
+                for op, dt, shape, *rest in w["records"]]
+            targets[(name, r)] = contracts.Target(
+                f"{name}/rank{r}", log.steps(), w["meta"])
+    for r in range(2):        # staleness 1 against its staleness-0 twin
+        contracts.attach_baseline(targets[("dist_w2_staleness1", r)],
+                                  targets[("dist_w2_rank1", r)], "sync")
+    WIRE["o2"] = check_wire("dist_w2", list(targets.values()))
     for name in DIST_RUNS:
         r0, r1 = res[0][name], res[1][name]
         require(r0["losses"] == r1["losses"], f"{name}: losses differ")
@@ -5740,6 +5825,294 @@ def serve_path(torch, dev):
                         "seconds": time.perf_counter() - t0}
 
 
+# ----------------------------------------------------------------------- #
+# Path s: the tooling (launch/dryrun.py, the kernel plans of
+# kernels/ops.py, the wire log of sharding/collectives.py with the
+# contracts of analysis/contracts.py, the three examples)
+# ----------------------------------------------------------------------- #
+def check_wire(tag, targets):
+    """The wire log of a data-parallel run held to its contracts (no
+    diagnostic) and each step after the first to the analytic ungated
+    bytes at the port's wire width (the first adds the 4-byte warm-up
+    mean).  Returns the per-step bytes, the analytic count and the
+    reference's bf16 budget of the factored layers' stats."""
+    from repro_torch.analysis import contracts
+    report = contracts.run_checkers(targets)
+    print(f"[{tag}] ({SMI}) wire contracts: " + report.render().replace(
+        "\n", "; "))
+    require(not report.diagnostics, f"{tag}: wire contracts tripped")
+    out = {}
+    for t in targets:
+        want = t.meta["analytic_step_bytes"]
+        got = [contracts.bytes_by_what(contracts.ungated(st))
+               for st in t.steps]
+        for i, g in enumerate(got):
+            require(g == {**want, "mean": want["mean"] + 4 * (i == 0)},
+                    f"{t.name} step {i}: ungated bytes {g}, analytic {want}")
+        comm = t.meta["bucket_comm"].values()
+        port = sum(c["rank1_stats_bytes_per_step"] for c in comm)
+        phase = [sum(r.nbytes for r in st if r.phase) for st in t.steps]
+        print(f"[{tag}] ({SMI}) {t.name}: ungated bytes a step {got[-1]} "
+              f"= the analytic count {want} at every step after the first "
+              f"({len(got)} steps); phase-step bytes {phase}; the factored "
+              f"layers' ā+ḡ {port:,} B a step at the port's 4 B, the "
+              f"reference's bf16 budget {port // 2:,} B (bucket_comm_cost)")
+        out[t.name] = (got[-1], want, port, port // 2, phase)
+    return out
+
+
+def wire_graph_path(torch, dev):
+    """s (d) under capture: o1's bf16 dist step at world 1 (NCCL, inv_freq
+    3), 3 eager steps from a fresh state, then 3 x 3 steps through a fresh
+    chunk runner with the wire log open, so each key's first step runs
+    eagerly and its graph is captured with the log's exactness count and
+    then replayed twice.  Every replay's records (op, what, dtype, shape,
+    bytes, phase) must equal those of its key's eager step, every step's
+    ungated bytes the analytic count, and the contracts report no
+    diagnostic (the exactness count, replays included, read once after
+    the run).  Run in path s, after every timed run and memory check: its
+    graphs carry the count's kernels, and its side streams and graph pool
+    would shift the allocator's state under the later paths.  Returns
+    (the wire line, launch counts)."""
+    import tempfile
+    import torch.distributed as tdist
+    from repro_torch.analysis import contracts
+    from repro_torch.core import firstorder
+    from repro_torch.core.mkor import MKORConfig, mkor
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.sharding import collectives
+    from repro_torch.training import loop as train_lib
+    gname = "dist_w1_bf16[graph]"
+    cfg, params, ds, _ = bert_large_setup(dev)
+    dist = (("data", 1),)
+    mcfg = MKORConfig(use_kernels=True, inv_freq=3, dist=dist)
+    with tempfile.TemporaryDirectory() as tmp:
+        tdist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                 rank=0, world_size=1)
+        try:
+            opt = mkor(firstorder.lamb(1e-3), mcfg)
+            step_fn = train_lib.make_dist_train_step(
+                cfg, opt, dist, stats_payload_dtype="bfloat16")
+            state = opt.init(params)
+            for i in range(3):
+                params, state, _ = step_fn(params, state,
+                                           train_lib.batch_to_device(
+                                               pipeline.make_batch(ds, i),
+                                               dev))
+            batches = [pipeline.make_batch(ds, 3 + i) for i in range(9)]
+            ops.reset_launch_counts()
+            runner = train_lib.make_chunk_runner(step_fn)
+            with collectives.wire_log(dev) as wire:
+                params, state, _ = train_lib.train_epoch(
+                    step_fn, params, state, batches, chunk=3, runner=runner)
+                inexact = wire.inexact_stats()
+            counts = ops.launch_counts()
+            runner.release()
+            del runner
+        finally:
+            tdist.destroy_process_group()
+    steps, replayed = wire.steps(), wire.replayed()
+    print(f"[{gname}] ({SMI}) wire log: {len(steps)} steps, replays "
+          f"{[i for i, r in enumerate(replayed) if r]}, {inexact} stat "
+          "payloads not bf16-exact")
+    require(replayed == [False] * 3 + [True] * 6,
+            f"{gname}: eager and replayed steps {replayed}")
+
+    def sig(step):
+        return [(r.op, r.what, r.dtype, r.shape, r.nbytes, r.phase)
+                for r in step]
+    for i in range(3, 9):
+        require(sig(steps[i]) == sig(steps[i % 3]),
+                f"{gname}: replay step {i} records differ from its key's "
+                "eager step")
+    want = contracts.target_meta(params, state, mcfg, 1, n_means=3,
+                                 inexact_stats=inexact)
+    target = contracts.Target(gname, steps, want)
+    report = contracts.run_checkers([target])
+    print(f"[{gname}] ({SMI}) wire contracts: " + report.render().replace(
+        "\n", "; "))
+    require(not report.diagnostics, f"{gname}: wire contracts tripped")
+    a = want["analytic_step_bytes"]
+    got = [contracts.bytes_by_what(contracts.ungated(st)) for st in steps]
+    require(all(g == a for g in got),
+            f"{gname}: ungated bytes {got}, analytic {a}")
+    n_coll = [len(contracts.ungated(st)) for st in steps]
+    port = sum(c["rank1_stats_bytes_per_step"]
+               for c in want["bucket_comm"].values())
+    phase = [sum(r.nbytes for r in st if r.phase) for st in steps]
+    print(f"[{gname}] ({SMI}) each of the 6 replays: the records of its "
+          f"key's eager step; ungated bytes a step {got[-1]} = the analytic "
+          f"count, ungated collectives a step {n_coll}; phase-step bytes "
+          f"{phase}")
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {gname: (got[-1], a, port, port // 2, phase)}, counts
+
+
+def dryrun_path(torch, dev):
+    """s (a): the dry run on meta (train_4k) for DRYRUN_CONFIGS at each of
+    DRYRUN_SETTINGS: every row's MKOR state bytes equal the analytic
+    columns plus the pinned unmodelled bytes (window counts; int8 at
+    staleness 1: the pending error feedback); then bert-large's rank-1
+    state allocated on the card, its memory_allocated delta against
+    state_bytes within the allocator's 512-byte rounding of each leaf."""
+    from repro_torch.configs import registry
+    from repro_torch.core.mkor import MKORConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import INPUT_SHAPES
+    rows = {}
+    t0 = time.perf_counter()
+    for quant, st in DRYRUN_SETTINGS:
+        mcfg = MKORConfig(factor_quant=quant, staleness=st)
+        for name in DRYRUN_CONFIGS:
+            rec = dryrun.dry_one(registry.get_config(name),
+                                 INPUT_SHAPES["train_4k"], mcfg=mcfg)
+            require(rec["state_minus_analytic"] == rec["unmodelled_bytes"],
+                    f"dryrun {name} {quant} s{st}: state - analytic "
+                    f"{rec['state_minus_analytic']}, pinned "
+                    f"{rec['unmodelled_bytes']}")
+            rows[(name, quant, st)] = rec
+    for (name, quant, st), rec in rows.items():
+        print(f"[dryrun] {name} train_4k quant={quant} staleness={st}: MKOR "
+              f"state {rec['mkor_state_bytes']:,} B, analytic columns "
+              f"{rec['analytic_bytes']:,} B, difference "
+              f"{rec['state_minus_analytic']:,} B (pinned)")
+    print(f"[dryrun] {len(rows)} rows on meta in "
+          f"{time.perf_counter() - t0:.1f} s")
+    cfg = registry.get_config("bert-large")
+    mcfg = MKORConfig(inv_freq=3)
+    rec = dryrun.dry_one(cfg, INPUT_SHAPES["train_4k"], mcfg=mcfg)
+    from repro_torch.models import model as model_lib
+    from repro_torch.tree import tree_leaves
+    n_leaves = len(tree_leaves(dryrun.make_optimizer("mkor", cfg, mcfg).init(
+        model_lib.init_params(cfg, device="meta"))))
+    gc.collect()
+    torch.cuda.empty_cache()
+    alloc = dryrun.allocated_state_bytes(
+        cfg, dryrun.make_optimizer("mkor", cfg, mcfg), dev)
+    want = sum(rec["state_bytes"].values())
+    print(f"[dryrun] ({SMI}) bert-large rank 1: the state on the card "
+          f"allocated {alloc:,} B against state_bytes {want:,} B "
+          f"({alloc - want:+,} B over {n_leaves} leaves)")
+    require(abs(alloc - want) <= 512 * n_leaves,
+            "dryrun: the allocated state is not state_bytes")
+    return rows, (alloc, want)
+
+
+def plans_path(torch, dev):
+    """s (b), (c): the kernel plans (with the card's libraries) against the
+    launches, GEMM cores and fallbacks counted on paths a, b, d and q1; at
+    the zoo's SMW dims and GEMMs, against the tile path each SMW launch of
+    check_zoo_dims reported taking (starcoder2's bf16 rows of 24576 on the
+    element path) and the GEMM cores each fused_precond launch counted."""
+    from repro_torch.configs import bert_large
+    from repro_torch.core import stats as statlib
+    from repro_torch.core.mkor import MKORConfig, manifest_for
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_lib
+    libs = ops.card_libraries()
+    out = {}
+    for name, (arch, kw, steps) in PLAN_PATHS.items():
+        counts, cores, fallbacks, n = COUNTED[name]
+        require(n == steps, f"plans: {name} counted {n} steps")
+        cfg = zoo_config(arch) if arch == ZOO_Q1 else bert_large.CONFIG
+        params = model_lib.init_params(cfg, device="meta")
+        mcfg = MKORConfig(**kw)
+        manifest = manifest_for(params, mcfg)
+        plans = ops.manifest_kernel_plans(
+            manifest, mcfg, ops.grad_dtypes(params, manifest), libs=libs)
+        want = ops.planned_counts(
+            plans, statlib.bucket_phases(manifest, mcfg.inv_freq),
+            mcfg.inv_freq, steps)
+        print(f"[plans] ({SMI}) {name}: planned launches {want[0]}, GEMM "
+              f"cores {want[1]}, fallbacks {want[2]}; counted {counts}, "
+              f"{cores}, {fallbacks}")
+        require((want[0], want[1], want[2]) == (
+            {k: v for k, v in counts.items() if v},
+            {k: v for k, v in cores.items() if v}, fallbacks),
+            f"plans: {name} planned against counted differ")
+        out[name] = (want, (counts, cores, fallbacks))
+    for (kind, b, *dims), taken in ZOO_ROUTES.items():
+        if kind == "smw":
+            d, item, rank = dims
+            p = ops.bucket_kernel_plans(
+                d, d, rank=rank, batch=b, libs=libs,
+                factor_quant="int8" if item == 1 else "none")[0]
+            path = "bulk" if p.bulk else "element"
+            print(f"[plans] ({SMI}) {p.kernel} {b}x{d}x{d} rank {rank}: "
+                  f"plan {p.plan}, {p.resident} blocks resident, {path} "
+                  f"path, scratch {p.scratch_bytes:,} B; the launch "
+                  f"reported {taken}")
+            require(taken == {(p.kernel, path): 1},
+                    f"plans: {p.kernel} {d} planned the {path} path, the "
+                    f"launch reported {taken}")
+        else:
+            di, do = dims
+            p = ops.bucket_kernel_plans(di, do, batch=b, libs=libs)[2]
+            print(f"[plans] ({SMI}) fused_precond {b}x{di}x{do}: plan GEMM "
+                  f"cores {p.gemms}, scratch {p.scratch_bytes} B; the "
+                  f"launch counted {taken}")
+            require(taken == dict(p.gemms),
+                    f"plans: fused_precond {di}x{do} cores")
+    return out
+
+
+def examples_path(torch):
+    """s (e): the three examples on the card as a user runs them (their
+    main), launch counts set to 0 before each, read after."""
+    import importlib.util
+    from repro_torch.kernels import ops
+    launches = collections.Counter()
+    out = {}
+    for name, argv in EXAMPLE_RUNS:
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = mod.main(argv)
+        sec = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        launches.update(counts)
+        print(f"[examples] ({SMI}) {name} {' '.join(argv)}: {sec:.1f} s, "
+              f"launch counts {counts}")
+        out[name] = (res, sec, counts)
+        gc.collect()
+        torch.cuda.empty_cache()
+    losses = out["torch_train_lm_100m"][0]
+    require(all(math.isfinite(x) for x in losses), "examples: 100m loss")
+    for k in ("fused_smw", "fused_precond", "matmul"):
+        require(out["torch_train_lm_100m"][2].get(k, 0) > 0,
+                f"examples: torch_train_lm_100m launched no {k}")
+    print(f"[examples] ({SMI}) MKOR-H switched at step "
+          f"{out['torch_mkor_h_switching'][0]}")
+    return launches, out
+
+
+def tooling_path(torch, dev):
+    """Path s: (a) the dry run, (b)-(c) the kernel plans, (d) the wire
+    checks of o1 and o2 (made there) and of o1's captured step
+    (:func:`wire_graph_path`), (e) the examples.  Returns the launch
+    counts of (d) under capture and (e)."""
+    t0 = time.perf_counter()
+    dryrun_path(torch, dev)
+    plans_path(torch, dev)
+    WIRE["o1 graph"], launches = wire_graph_path(torch, dev)
+    require(set(WIRE) == {"o1", "o1 graph", "o2"},
+            f"tooling: wire checks {set(WIRE)}")
+    for k, v in WIRE.items():
+        for t, (got, want, port, ref, _) in v.items():
+            print(f"summary [wire {k}] ({SMI}) {t}: {got} a step, analytic "
+                  f"{want}; stats of the factored layers {port:,} B at 4 B, "
+                  f"{ref:,} B at the reference's bf16")
+    ex_launches, _ = examples_path(torch)
+    print(f"[tooling] path s done in {time.perf_counter() - t0:.1f} s")
+    return collections.Counter(launches) + ex_launches
+
+
 def train_paths(torch, dev, setup):
     """Phases 4 and 5: path q (the model zoo), then each bert-large path's
     eager run and its captured version from the eager run's final state
@@ -5821,6 +6194,7 @@ def train_paths(torch, dev, setup):
     t0 = time.perf_counter()
     launches.update(elastic_path(torch, dev))
     print(f"[elastic] path done in {time.perf_counter() - t0:.1f} s")
+    launches.update(tooling_path(torch, dev))
     return launches
 
 
@@ -5837,6 +6211,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    global SMI
+    SMI = smi
     print(smi)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")

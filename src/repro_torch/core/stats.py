@@ -343,6 +343,13 @@ def factor_storage_dtype(factor_dtype: str,
     return _TORCH_DTYPES[factor_dtype]
 
 
+def factor_itemsize(factor_dtype: str, factor_quant: str = "none") -> int:
+    """Bytes a resident bank element: the one place the dry run, the
+    kernel plans and the contract checks take factor widths from the
+    config."""
+    return factor_storage_dtype(factor_dtype, factor_quant).itemsize
+
+
 def _expand(scale: torch.Tensor, axes: int) -> torch.Tensor:
     return scale.reshape(tuple(scale.shape) + (1,) * axes)
 
@@ -418,3 +425,88 @@ def zero_probes(tree):
             return tuple(walk(v) for v in node)
         return node
     return walk(tree)
+
+
+# ----------------------------------------------------------------------- #
+# The analytic cost model (the reference's ``bucket_cost`` and
+# ``bucket_comm_cost``, key for key).  It is the reference's function, with
+# its properties: at ``staleness >= 1`` with int8 banks the pending bank's
+# fp32 error feedback and scales are left out of ``pending_factor_bytes``
+# (the state tree holds them; ``launch/dryrun.py`` prints the difference).
+# ----------------------------------------------------------------------- #
+def bucket_cost(bucket: FactorBucket, factor_bytes: int,
+                rank: int = 1, staleness: int = 0,
+                health: bool = False,
+                factor_quant: str = "none") -> Dict[str, Any]:
+    """Per-bucket factor FLOPs and bytes.  Slices are bank slots x stacked
+    repeats, each with a (d_out, d_out) L⁻¹ and a (d_in, d_in) R⁻¹; the
+    phase-step inversion is one block-Woodbury update a factor, the
+    precondition two products a step over the extra dims.  ``factor_bytes``
+    is :func:`factor_itemsize` of the config."""
+    n = bucket_slices(bucket)
+    b = 1
+    for d in bucket.extra:
+        b *= d
+    di, do = bucket.d_in, bucket.d_out
+    r = max(rank, 1)
+    smw_flops = n * sum(
+        (4 * r + 1) * d * d + 2 * r * r * d + 2 * r ** 3
+        for d in (di, do))
+    precond_flops = n * b * 2 * di * do * (di + do)
+    factor_mem = n * (di * di + do * do) * factor_bytes
+    win_elem = 4 if factor_quant == "none" else factor_bytes
+    has_window = r > 1 or staleness
+    window_mem = n * r * (di + do) * win_elem if has_window else 0
+    pending_mem = factor_mem if staleness else 0
+    scale_mem = ef_mem = 0
+    if factor_quant == "int8":
+        scale_mem = n * 2 * 4 * (2 if staleness else 1)
+        if has_window:
+            scale_mem += n * r * 2 * 4
+        ef_mem = n * (di * di + do * do) * 4
+    return {
+        "bucket_id": bucket.bucket_id,
+        "n_layers": bucket.n_slots,
+        "stack": list(bucket.stack),
+        "extra": list(bucket.extra),
+        "d_in": di,
+        "d_out": do,
+        "slices": n,
+        "rank": r,
+        "factor_bytes": factor_mem,
+        "window_bytes": window_mem,
+        "pending_factor_bytes": pending_mem,
+        "quant_scale_bytes": scale_mem,
+        "quant_ef_bytes": ef_mem,
+        "health_state_bytes": 8 if health else 0,
+        "smw_flops_per_inv": smw_flops,
+        "precond_flops_per_step": precond_flops,
+        "hbm_bytes_per_inv": 3 * factor_mem + 2 * window_mem,
+    }
+
+
+def bucket_comm_cost(bucket: FactorBucket, world_size: int,
+                     factor_bytes: int,
+                     stats_bytes: int, rank: int = 1,
+                     factor_quant: str = "none") -> Dict[str, Any]:
+    """Per-bucket collective payload bytes a worker a step: the rank-1
+    stats every step (O(d), rank-independent), the window they add up to,
+    the KFAC-style full factor payload an inversion, and the owner gather
+    of the updated inverse chunk on the bucket's phase step (int8: codes
+    plus one fp32 scale a slice side).  ``stats_bytes`` is the stat
+    payload's wire width: the reference's bf16 (2), or the port's fp32
+    sum of bf16-rounded values (4, ``sharding/collectives.py``)."""
+    n = bucket_slices(bucket)
+    di, do = bucket.d_in, bucket.d_out
+    factor_mem = n * (di * di + do * do) * factor_bytes
+    chunk = -(-n // max(world_size, 1))
+    step_bytes = n * (di + do) * stats_bytes
+    scale_bytes = chunk * 2 * 4 if factor_quant == "int8" else 0
+    return {
+        "rank1_stats_bytes_per_step": step_bytes,
+        "rank_window_bytes_per_inv": max(rank, 1) * step_bytes,
+        "kfac_factor_bytes_per_inv": factor_mem,
+        "owner_gather_bytes_per_phase_step":
+            factor_mem * chunk // n + scale_bytes,
+        "owner_gather_scale_bytes_per_phase_step": scale_bytes,
+    }

@@ -851,38 +851,42 @@ int launch(Args a, cudaStream_t stream, long long* resident) {
 
 template <typename T, typename TO, int R>
 int dispatch_path(const Args& a, int vec, cudaStream_t stream,
-                  long long* resident) {
+                  long long* resident, int* path) {
   Args b = a;
   b.groups = 1;                     // 1, 2, 4 or 8 row groups
   while (b.groups * Rows<R>::MAX < b.rows) b.groups *= 2;
   // the bulk path needs 16-byte rows and a tile that fits its buffer
-  const bool bulk = vec && (long long)a.rows * a.d * sizeof(T) <= kTileBytes;
+  const bool bulk = mkor_smw::bulk_tiles(a.rows, a.d, (int)sizeof(T), vec);
+  if (path) *path = bulk ? 1 : 0;
   return bulk ? launch<T, TO, R, true>(b, stream, resident)
               : launch<T, TO, R, false>(b, stream, resident);
 }
 
 template <typename T, typename TO>
 int dispatch(int rank, const Args& a, int vec, cudaStream_t stream,
-             long long* resident) {
+             long long* resident, int* path) {
   switch (rank) {
-    case 1: return dispatch_path<T, TO, 1>(a, vec, stream, resident);
-    case 2: return dispatch_path<T, TO, 2>(a, vec, stream, resident);
-    case 4: return dispatch_path<T, TO, 4>(a, vec, stream, resident);
-    case 8: return dispatch_path<T, TO, 8>(a, vec, stream, resident);
-    case 16: return dispatch_path<T, TO, 16>(a, vec, stream, resident);
+    case 1: return dispatch_path<T, TO, 1>(a, vec, stream, resident, path);
+    case 2: return dispatch_path<T, TO, 2>(a, vec, stream, resident, path);
+    case 4: return dispatch_path<T, TO, 4>(a, vec, stream, resident, path);
+    case 8: return dispatch_path<T, TO, 8>(a, vec, stream, resident, path);
+    case 16:
+      return dispatch_path<T, TO, 16>(a, vec, stream, resident, path);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-long long padded(int d) { return (d + 31) / 32 * 32; }
+long long padded(int d) { return mkor_smw::padded_cols(d); }
 
 // Plans the launch over the bank and launches the kernel on `stream` or,
 // with `resident` non-null, writes there the blocks the card holds at once.
+// `path`, where non-null, receives the tile path taken: 1 bulk, 0 element.
 int plan_and_launch(const void* j, const float* vt, const float* gm,
                     float gm_all, float vweight, const float* scale,
                     void* out, float* work, int* sync, float* piv, int d,
                     int batch, int rank, int r_real, int j_type, int vec,
-                    int variant, void* stream, long long* resident) {
+                    int variant, void* stream, long long* resident,
+                    int* path) {
   static const int kItemsize[3] = {2, 4, 1};
   if (d < 1 || batch < 1 || rank < 1 || j_type < 0 || j_type > 2)
     return (int)cudaErrorInvalidValue;
@@ -902,24 +906,14 @@ int plan_and_launch(const void* j, const float* vt, const float* gm,
   switch (j_type) {
     case 0:
       return dispatch<__nv_bfloat16, __nv_bfloat16>(rank, a, vec, s,
-                                                    resident);
-    case 1: return dispatch<float, float>(rank, a, vec, s, resident);
-    default: return dispatch<int8_t, float>(rank, a, vec, s, resident);
+                                                    resident, path);
+    case 1: return dispatch<float, float>(rank, a, vec, s, resident, path);
+    default:
+      return dispatch<int8_t, float>(rank, a, vec, s, resident, path);
   }
 }
 
 }  // namespace
-
-// Floats of scratch one call needs: Ut (batch, rank, dp), the S partials
-// (batch, runs, rank^2) and M (batch, rank^2), with dp = d rounded up to
-// 32 (each slice's rows of Ut start on a 128-byte line) and runs from the
-// plan of a bank of itemsize-byte elements (mkor_smw::make_plan).
-extern "C" long long mkor_block_smw_work(int d, int batch, int rank,
-                                         int itemsize) {
-  if (d < 1 || rank < 1 || itemsize < 1) return 0;
-  const long long runs = mkor_smw::make_plan(d, rank, itemsize).runs;
-  return (long long)batch * rank * (padded(d) + runs * rank + rank);
-}
 
 // j: (batch, d, d) of type j_type (0 bf16, 1 fp32, 2 int8); out: the same
 // shape in j's type, or fp32 for int8 (then scale is the (batch,) fp32
@@ -932,16 +926,19 @@ extern "C" long long mkor_block_smw_work(int d, int batch, int rank,
 // multiples on 16-byte bases and vt is 16-byte aligned.  variant: 0 =
 // paper, 1 = exact_smw.  The tiles and runs come from mkor_smw::make_plan,
 // the lag from mkor_smw::plan_lag and the blocks the card holds at once.
+// *path receives the tile path the launch took: 1 when J's tiles arrive by
+// bulk copies, 0 when they are loaded element by element
+// (mkor_smw::bulk_tiles).
 extern "C" int mkor_fused_block_smw(const void* j, const float* vt,
                                     const float* gm, float gm_all,
                                     float vweight, const float* scale,
                                     void* out, float* work, int* sync,
                                     float* piv, int d, int batch, int rank,
                                     int r_real, int j_type, int vec,
-                                    int variant, void* stream) {
+                                    int variant, void* stream, int* path) {
   return plan_and_launch(j, vt, gm, gm_all, vweight, scale, out, work, sync,
                          piv, d, batch, rank, r_real, j_type, vec, variant,
-                         stream, nullptr);
+                         stream, nullptr, path);
 }
 
 // The blocks of a launch of mkor_fused_block_smw with these arguments that
@@ -951,5 +948,5 @@ extern "C" int mkor_block_smw_resident(int d, int batch, int rank,
                                        int j_type, int vec, long long* out) {
   return plan_and_launch(nullptr, nullptr, nullptr, 1.0f, 1.0f, nullptr,
                          nullptr, nullptr, nullptr, nullptr, d, batch, rank,
-                         rank, j_type, vec, 0, nullptr, out);
+                         rank, j_type, vec, 0, nullptr, out, nullptr);
 }

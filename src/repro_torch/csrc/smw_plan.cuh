@@ -3,8 +3,9 @@
 // the order in which the tickets name the runs.  It is plain C++ (host and
 // device code under nvcc), so a host compiler builds it too: with
 // MKOR_SMW_PLAN_ENTRIES defined it also defines the C entries
-// mkor_block_smw_plan and mkor_block_smw_ticket, which block_smw.cu's
-// library exports and the CPU tests build from this file alone
+// mkor_block_smw_plan, mkor_block_smw_ticket, mkor_block_smw_work and
+// mkor_block_smw_bulk, which block_smw.cu's library exports and the CPU
+// tests (and the kernel plans of kernels/ops.py) build from this file alone
 // (g++ -x c++ -shared -fPIC -DMKOR_SMW_PLAN_ENTRIES smw_plan.cuh).
 #ifndef MKOR_SMW_PLAN_CUH
 #define MKOR_SMW_PLAN_CUH
@@ -65,6 +66,25 @@ inline Plan make_plan(int d, int rank, int itemsize) {
   return p;
 }
 
+// Columns of a slice's rows of Ut in the scratch: d rounded up to 32, so
+// that each slice's rows start on a 128-byte line.
+inline long long padded_cols(int d) { return (d + 31) / 32 * 32; }
+
+// Floats of scratch one launch needs: Ut (batch, rank, dp), the S partials
+// (batch, runs, rank^2) and M (batch, rank^2).
+inline long long work_floats(int d, int batch, int rank, int itemsize) {
+  const long long runs = make_plan(d, rank, itemsize).runs;
+  return (long long)batch * rank * (padded_cols(d) + runs * rank + rank);
+}
+
+// A tile arrives by one bulk copy when J's rows are 16-byte multiples on
+// 16-byte bases (vec) and the tile fits its buffer; otherwise the kernel
+// loads J element by element (a bf16 row wider than 16384 elements alone
+// overfills the buffer).
+inline bool bulk_tiles(int rows, int d, int itemsize, int vec) {
+  return vec && (long long)rows * d * itemsize <= kTileBytes;
+}
+
 // Pass-1 runs before the first write run, for `resident` blocks on the
 // card: a slice's writes come more tickets after its pass 1 than the
 // blocks hold at once, so that its M is formed before they are taken and
@@ -113,6 +133,20 @@ extern "C" void mkor_block_smw_plan(int d, int batch, int rank, int itemsize,
   const mkor_smw::Plan p = mkor_smw::make_plan(d, rank, itemsize);
   out[0] = p.rows; out[1] = p.tiles; out[2] = p.run; out[3] = p.runs;
   out[4] = mkor_smw::plan_lag(batch, p.runs, resident);
+}
+
+// Floats of scratch a launch of mkor_fused_block_smw needs (work_floats).
+extern "C" long long mkor_block_smw_work(int d, int batch, int rank,
+                                         int itemsize) {
+  if (d < 1 || rank < 1 || itemsize < 1) return 0;
+  return mkor_smw::work_floats(d, batch, rank, itemsize);
+}
+
+// 1 when a launch on a (d, d) bank of itemsize-byte elements at kernel rank
+// `rank` copies its tiles in bulk, 0 when it loads J element by element.
+extern "C" int mkor_block_smw_bulk(int d, int rank, int itemsize, int vec) {
+  const mkor_smw::Plan p = mkor_smw::make_plan(d, rank, itemsize);
+  return mkor_smw::bulk_tiles(p.rows, d, itemsize, vec) ? 1 : 0;
 }
 
 // The run ticket t names, as the kernel decodes it: out[0..2] = pass,

@@ -34,7 +34,7 @@ import subprocess
 import time
 from collections import Counter
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -55,11 +55,12 @@ _SIGNATURES = {
     },
     "block_smw": {
         "mkor_fused_block_smw": [_P, _P, _P, _F, _F, _P, _P, _P, _P, _P, _I,
-                                 _I, _I, _I, _I, _I, _I, _P],
+                                 _I, _I, _I, _I, _I, _I, _P, _P],
         "mkor_block_smw_work": [_I, _I, _I, _I],
         "mkor_block_smw_resident": [_I, _I, _I, _I, _I, _P],
         "mkor_block_smw_plan": [_I, _I, _I, _I, _LL, _P],
         "mkor_block_smw_ticket": [_I, _I, _I, _I, _P],
+        "mkor_block_smw_bulk": [_I, _I, _I, _I],
     },
     "matmul": {
         "mkor_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _LL,
@@ -83,6 +84,8 @@ _RESTYPES = {"mkor_block_smw_work": _LL, "mkor_fused_precond_scratch": _LL,
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LAUNCHES: Counter = Counter()
 _GEMM_CORES: Counter = Counter()
+_SMW_PATHS: Counter = Counter()
+_COUNTS = (_LAUNCHES, _GEMM_CORES, _SMW_PATHS)
 GEMM_CORES = ("wgmma", "wmma")
 
 
@@ -96,6 +99,12 @@ def note_gemm(core: str) -> None:
     _GEMM_CORES[core] += 1
 
 
+def note_smw_path(kernel: str, bulk: bool) -> None:
+    """One SMW launch of ``kernel`` on the tile path the library reports
+    it took: "bulk" (J's tiles by bulk copies) or "element"."""
+    _SMW_PATHS[(kernel, "bulk" if bulk else "element")] += 1
+
+
 def launch_counts() -> Dict[str, int]:
     return dict(_LAUNCHES)
 
@@ -106,10 +115,15 @@ def gemm_core_counts() -> Dict[str, int]:
     return dict(_GEMM_CORES)
 
 
+def smw_path_counts() -> Dict[Tuple[str, str], int]:
+    """SMW launches since the last reset by (kernel, tile path)."""
+    return dict(_SMW_PATHS)
+
+
 def count_mark():
-    """A copy of the launch and per-core GEMM counts, for
+    """A copy of the launch, per-core GEMM and SMW tile-path counts, for
     :func:`rewind_counts`."""
-    return Counter(_LAUNCHES), Counter(_GEMM_CORES)
+    return tuple(Counter(c) for c in _COUNTS)
 
 
 def rewind_counts(mark):
@@ -117,24 +131,25 @@ def rewind_counts(mark):
     A CUDA graph capture runs the wrappers, which count, but launches
     nothing: the chunk runner rewinds the capture's counts and credits
     them to each replay (:func:`credit_counts`)."""
-    added = _LAUNCHES - mark[0], _GEMM_CORES - mark[1]
-    for live, kept in zip((_LAUNCHES, _GEMM_CORES), mark):
+    added = tuple(live - kept for live, kept in zip(_COUNTS, mark))
+    for live, kept in zip(_COUNTS, mark):
         live.clear()
         live.update(kept)
     return added
 
 
 def credit_counts(added) -> None:
-    """Count one replay of a captured graph: the launches (and GEMM cores)
-    that its capture recorded."""
-    _LAUNCHES.update(added[0])
-    _GEMM_CORES.update(added[1])
+    """Count one replay of a captured graph: the launches (GEMM cores and
+    SMW tile paths) that its capture recorded."""
+    for live, more in zip(_COUNTS, added):
+        live.update(more)
 
 
 def reset_launch_counts() -> None:
-    """Set the kernel launch counts and the per-core GEMM counts to 0."""
-    _LAUNCHES.clear()
-    _GEMM_CORES.clear()
+    """Set the kernel launch counts, the per-core GEMM counts and the SMW
+    tile-path counts to 0."""
+    for live in _COUNTS:
+        live.clear()
 
 
 def nvcc_path() -> str:

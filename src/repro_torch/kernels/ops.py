@@ -20,13 +20,19 @@ MKOR's per-layer layout calls the reference's per-layer entries,
 reference's ``pallas_matmul``) launches ``matmul``.  Launches count under
 the kernels' own names.
 
-There is no counterpart of the TPU plan (``KernelPlan``, ``_pick_block``
-and the 12 MiB VMEM budget): the kernels mask ragged edges themselves, so
-nothing is padded, and the fused precondition keeps its first product in
-device memory rather than in on-chip scratch, so it has no size limit and
-takes every 2-D slice.  Tile and shared-memory sizes live in the CUDA
-sources alone (the wrapper asks the library for the one scratch size it
-needs).  Only a gradient with extra broadcast dims (experts under shared
+The TPU plan (``_pick_block`` and the 12 MiB VMEM budget) has no
+counterpart: the kernels mask ragged edges themselves, so nothing is
+padded, and the fused precondition keeps its first product in device
+memory rather than in on-chip scratch, so it has no size limit and takes
+every 2-D slice.  :class:`KernelPlan` and :func:`bucket_kernel_plans` are
+the reference's dispatch report with the card's fields: each SMW plan is
+read from the C entries of ``csrc/smw_plan.cuh`` (tiles, runs, lag,
+scratch, and whether J arrives by bulk copies or element by element), the
+precondition's GEMM core from ``kernels/matmul.py:gemm_route`` and its
+scratch from the precondition library.  The plan takes the libraries as
+an argument (:func:`card_libraries` on the card; the CPU tests pass
+``smw_plan.cuh`` built by the host compiler) and never re-derives them in
+Python.  Only a gradient with extra broadcast dims (experts under shared
 factors) falls back to :func:`two_sided_precondition` (two ``matmul``
 launches plus a rescale); that fallback is counted in
 :func:`fallback_counts` and warned about.
@@ -41,9 +47,11 @@ to requantize.
 """
 from __future__ import annotations
 
+import ctypes
 import warnings
 from collections import Counter
-from typing import Dict, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -281,3 +289,183 @@ def fused_precondition_banked(l_inv: torch.Tensor, r_inv: torch.Tensor,
     out = pc.fused_precond(rf.contiguous(), gf.contiguous(), lf.contiguous(),
                            rescale=rescale, r_scale=rs, l_scale=ls)
     return out.reshape(g_w.shape)
+
+
+# ----------------------------------------------------------------------- #
+# Kernel plans (the reference's ``KernelPlan`` / ``bucket_kernel_plans``)
+# ----------------------------------------------------------------------- #
+_PLAN_FIELDS = ("rows", "tiles", "run", "runs", "lag")
+
+
+@dataclass(frozen=True)
+class KernelPlan:
+    """One launch a bucket implies, as the card runs it.
+
+    ``kernel`` is the launch count's name; ``dims`` the logical factor
+    dims; ``rank`` the kernel instance (the window rank ``window_rank``
+    padded up to one of ``rank1_smw.BLOCK_RANKS``; 1 for ``fused_smw``);
+    ``batch`` the slices one launch covers.  SMW plans carry the C plan
+    (``rows``, ``tiles``, ``run``, ``runs``, ``lag`` for ``resident``
+    blocks) and ``bulk`` (False: J is loaded element by element); the
+    precondition carries its GEMM ``core``.  ``scratch_bytes`` is the
+    device scratch the C entry asks for (None for a precondition planned
+    without its library).  ``per_step`` are the launches of every step,
+    ``per_phase_step`` those the bucket's phase step adds; ``gemms`` the
+    GEMMs a step runs on each core; ``fallback`` the counted fallback of
+    the extra-dims route."""
+    kernel: str
+    dims: Tuple[int, ...]
+    rank: int
+    window_rank: int
+    batch: int
+    per_step: Mapping[str, int] = field(default_factory=dict)
+    per_phase_step: Mapping[str, int] = field(default_factory=dict)
+    gemms: Mapping[str, int] = field(default_factory=dict)
+    plan: Optional[Mapping[str, int]] = None
+    resident: Optional[int] = None
+    bulk: Optional[bool] = None
+    core: Optional[str] = None
+    scratch_bytes: Optional[int] = None
+    fallback: Optional[Tuple[str, str]] = None
+
+
+def card_libraries() -> Dict[str, object]:
+    """The kernel libraries the plans read on the card (built first if
+    needed)."""
+    return {"block_smw": build.library("block_smw"),
+            "precond": build.library("precond")}
+
+
+def _smw_plan(lib, d: int, batch: int, window: int, staleness: int,
+              store: torch.dtype, resident: Optional[int]) -> KernelPlan:
+    if lib is None:
+        raise RuntimeError("an SMW plan reads the C plan of "
+                           "csrc/smw_plan.cuh: pass its library")
+    block = window > 1 or staleness > 0
+    rank = next((k for k in rk.BLOCK_RANKS if k >= window), None) \
+        if block else 1
+    if rank is None:
+        raise ValueError(f"no block SMW instance takes rank {window}")
+    item = torch.empty((), dtype=store).element_size()
+    if resident is None:
+        if not hasattr(lib, "mkor_block_smw_resident"):
+            raise RuntimeError("the blocks resident on the card come from "
+                               "the kernel library; pass resident= to plan "
+                               "with the plan header alone")
+        out = ctypes.c_longlong()
+        build.check(lib.mkor_block_smw_resident(
+            d, batch, rank, build.DTYPE_CODES[store], 1,
+            ctypes.byref(out)), "fused_block_smw")
+        resident = int(out.value)
+    res = (ctypes.c_int * 5)()
+    lib.mkor_block_smw_plan(d, batch, rank, item, resident, res)
+    name = ("fused_block_smw" if block else "fused_smw") + \
+        ("[int8]" if store == torch.int8 else "")
+    return KernelPlan(
+        kernel=name, dims=(d,), rank=rank, window_rank=max(window, 1),
+        batch=batch, per_phase_step={name: 1},
+        plan=dict(zip(_PLAN_FIELDS, res)), resident=resident,
+        bulk=bool(lib.mkor_block_smw_bulk(d, rank, item, 1)),
+        scratch_bytes=4 * sum(rk.scratch_sizes(lib, d, batch, rank, item)))
+
+
+def _precond_plan(lib, d_in: int, d_out: int, batch: int,
+                  extra: Tuple[int, ...], store: torch.dtype,
+                  grad_dtype: torch.dtype) -> KernelPlan:
+    first = "matmul[int8 operand]" if store == torch.int8 else "matmul"
+    if extra:
+        # the extra-dims route: per slice, R⁻¹G over the slice's extra
+        # dims (int8 factors decoded to fp32 first), then T L⁻¹ on the
+        # fp32 intermediate; both 2-D factor operands broadcast
+        e = 1
+        for x in extra:
+            e *= x
+        f = torch.float32 if store == torch.int8 else store
+        cores = Counter({mm.gemm_route(f, grad_dtype, d_in, d_out, 0, 0, 0,
+                                       d_in * d_out): batch,
+                         mm.gemm_route(torch.float32, f, d_out, d_out, 0, 0,
+                                       d_in * d_out, 0): batch})
+        return KernelPlan(
+            kernel="fused_precond", dims=(d_in, d_out), rank=1,
+            window_rank=1, batch=batch, per_step={"matmul": 2 * batch},
+            gemms=dict(cores), fallback=("fused_precond", "extra_dims"))
+    core = pc.precond_route(store, grad_dtype, store, d_in, d_out, 0, 0, 0)
+    scratch = None if lib is None else 4 * pc.scratch_floats(
+        lib, d_in, d_out, batch, tma=core == "wgmma",
+        quant=store == torch.int8)
+    name = "fused_precond" + ("[int8]" if store == torch.int8 else "")
+    return KernelPlan(
+        kernel=name, dims=(d_in, d_out), rank=1, window_rank=1, batch=batch,
+        per_step={name: 1, first: 1}, gemms={core: 2}, core=core,
+        scratch_bytes=scratch)
+
+
+def bucket_kernel_plans(d_in: int, d_out: int, *, rank: int = 1,
+                        factor_dtype="bfloat16", factor_quant: str = "none",
+                        staleness: int = 0, batch: int = 1,
+                        extra: Tuple[int, ...] = (),
+                        grad_dtype: torch.dtype = torch.bfloat16,
+                        libs: Optional[Mapping[str, object]] = None,
+                        resident: Optional[int] = None
+                        ) -> Tuple[KernelPlan, ...]:
+    """Every kernel dispatch one factor bucket implies, in the reference's
+    order: one SMW update a factor dim (d_in, then d_out), then the
+    precondition over the (d_in, d_out) slice.  ``batch`` is the bucket's
+    slices (one launch covers them all), ``extra`` its extra dims (then
+    the precondition takes the counted extra-dims route), ``grad_dtype``
+    the gradient's dtype.  ``libs``: ``"block_smw"`` (required: the C plan)
+    and ``"precond"`` (the precondition's scratch); ``resident``: the
+    blocks the card holds at once (default: asked of the kernel library)."""
+    from repro_torch.core import stats as statlib
+    libs = libs or {}
+    store = statlib.factor_storage_dtype(factor_dtype, factor_quant)
+    smw = tuple(_smw_plan(libs.get("block_smw"), d, batch, rank, staleness,
+                          store, resident) for d in (d_in, d_out))
+    return smw + (_precond_plan(libs.get("precond"), d_in, d_out, batch,
+                                tuple(extra), store, grad_dtype),)
+
+
+def grad_dtypes(params, manifest) -> Dict[str, torch.dtype]:
+    """Each bucket's gradient dtype: its layers' weight dtype."""
+    from repro_torch.core import stats as statlib
+    return {b.bucket_id: statlib.tree_get(params, b.paths[0])["w"].dtype
+            for b in manifest}
+
+
+def manifest_kernel_plans(manifest, mcfg, grad_dtypes: Mapping[str, object],
+                          libs=None, resident=None
+                          ) -> Dict[str, Tuple[KernelPlan, ...]]:
+    """:func:`bucket_kernel_plans` of every bucket of ``manifest`` under
+    MKOR's config ``mcfg``; ``grad_dtypes``: each bucket's gradient
+    dtype, by bucket id."""
+    from repro_torch.core import stats as statlib
+    return {b.bucket_id: bucket_kernel_plans(
+        b.d_in, b.d_out, rank=mcfg.rank, factor_dtype=mcfg.factor_dtype,
+        factor_quant=mcfg.factor_quant, staleness=mcfg.staleness,
+        batch=statlib.bucket_slices(b), extra=b.extra,
+        grad_dtype=grad_dtypes[b.bucket_id], libs=libs, resident=resident)
+        for b in manifest}
+
+
+def planned_counts(plans: Mapping[str, Tuple[KernelPlan, ...]],
+                   phases: Mapping[str, int], inv_freq: int, steps: int,
+                   start: int = 0):
+    """The launches, GEMM cores and fallbacks that ``steps`` steps from
+    count ``start`` make by the plans: every step's launches, and each
+    bucket's phase-step launches at the counts ``c`` with ``c % inv_freq
+    == phases[bucket]``.  Returns three dicts, as ``launch_counts``,
+    ``gemm_core_counts`` and ``fallback_counts`` read them."""
+    launches, cores, fallbacks = Counter(), Counter(), Counter()
+    for bid, bucket_plans in plans.items():
+        n_phase = sum((c % max(inv_freq, 1)) == phases[bid]
+                      for c in range(start, start + steps))
+        for p in bucket_plans:
+            for k, v in p.per_step.items():
+                launches[k] += v * steps
+            for k, v in p.per_phase_step.items():
+                launches[k] += v * n_phase
+            for k, v in p.gemms.items():
+                cores[k] += v * steps
+            if p.fallback is not None:
+                fallbacks[p.fallback] += steps
+    return dict(launches), dict(cores), dict(fallbacks)

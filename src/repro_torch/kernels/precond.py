@@ -111,13 +111,23 @@ def precond_route(r_dtype: torch.dtype, g_dtype: torch.dtype,
     return "wgmma" if first == second == "wgmma" else "wmma"
 
 
+def scratch_floats(lib, m: int, n: int, batch: int, *, tma: bool = False,
+                   quant: bool = False) -> int:
+    """Floats of fp32 scratch one launch takes: the sums and their
+    partial-sum slots, as many as the C entry point says its tiles write.
+    On the wgmma core (``tma``) the first product crosses as a bf16 hi/lo
+    pair, the left operand of the second product when n < m; an int8 L⁻¹
+    (``quant``) is then its right operand."""
+    p_split = tma and n < m
+    return lib.mkor_fused_precond_scratch(m, n, batch, int(tma),
+                                          int(p_split), int(p_split and quant))
+
+
 def _scratch(lib, m: int, n: int, batch: int, device, *, tma=False,
-             p_split=False, q_int8=False) -> torch.Tensor:
-    """The fp32 scratch of one launch: the sums and their partial-sum
-    slots, as many as the C entry point says its tiles write."""
-    n_floats = lib.mkor_fused_precond_scratch(m, n, batch, int(tma),
-                                              int(p_split), int(q_int8))
-    return torch.empty((n_floats,), dtype=torch.float32, device=device)
+             quant=False) -> torch.Tensor:
+    return torch.empty((scratch_floats(lib, m, n, batch, tma=tma,
+                                       quant=quant),),
+                       dtype=torch.float32, device=device)
 
 
 def fused_precond(r_inv: torch.Tensor, g: torch.Tensor, l_inv: torch.Tensor,
@@ -183,8 +193,7 @@ def fused_precond(r_inv: torch.Tensor, g: torch.Tensor, l_inv: torch.Tensor,
                 r_inv, g, a_scale=r_scale), (l_inv, None)
             k, p_scale, q_scale = d_out, None, l_scale
         scratch = _scratch(lib, d_in, d_out, b, g.device, tma=True,
-                           p_split=p_lo is not None,
-                           q_int8=q_scale is not None)
+                           quant=quant)
         with torch.cuda.device(g.device):
             err = lib.mkor_fused_precond_tma(
                 p.data_ptr(), build.ptr(p_lo), q.data_ptr(), build.ptr(q_lo),

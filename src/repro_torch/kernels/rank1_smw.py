@@ -32,8 +32,9 @@ plain version.
 """
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -134,24 +135,34 @@ def _bulk_rows(d: int, j: torch.Tensor, out: torch.Tensor,
         vt.data_ptr() % 16 == 0
 
 
+def scratch_sizes(lib, d: int, batch: int, rank: int,
+                  itemsize: int) -> Tuple[int, int]:
+    """The device scratch one block launch takes: fp32 work floats (the C
+    entry ``mkor_block_smw_work``) and int32 sync words (the ticket
+    counter and two flags a slice)."""
+    return lib.mkor_block_smw_work(d, batch, rank, itemsize), 1 + 2 * batch
+
+
 def _launch_block(kernel, j, vt, gm, gm_all, vweight, scale, out, piv, rank,
                   r_real, variant):
     """One launch of the block kernel over the bank ``j`` (checked by the
-    caller); ``gm`` None applies ``gm_all`` to every slice."""
+    caller); ``gm`` None applies ``gm_all`` to every slice.  Counts the
+    launch and the tile path the library reports it took."""
     b, d = j.shape[0], j.shape[-1]
     lib = build.library("block_smw")
-    work = torch.empty((lib.mkor_block_smw_work(d, b, rank,
-                                                j.element_size()),),
-                       dtype=torch.float32, device=j.device)
-    sync = torch.zeros((1 + 2 * b,), dtype=torch.int32, device=j.device)
+    n_work, n_sync = scratch_sizes(lib, d, b, rank, j.element_size())
+    work = torch.empty((n_work,), dtype=torch.float32, device=j.device)
+    sync = torch.zeros((n_sync,), dtype=torch.int32, device=j.device)
+    bulk = ctypes.c_int(-1)
     err = lib.mkor_fused_block_smw(
         j.data_ptr(), vt.data_ptr(), build.ptr(gm), float(gm_all),
         float(vweight), build.ptr(scale), out.data_ptr(), work.data_ptr(),
         sync.data_ptr(), build.ptr(piv), d, b, rank, r_real,
         build.dtype_code(j), int(_bulk_rows(d, j, out, vt)), VARIANTS[variant],
-        build.stream_handle(j.device))
+        build.stream_handle(j.device), ctypes.byref(bulk))
     build.check(err, kernel)
     build.note_launch(kernel)
+    build.note_smw_path(kernel, bulk.value == 1)
 
 
 def solve_mid(mid: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

@@ -115,12 +115,16 @@ _ENCODER_SPEC = LayerSpec(kind="attn", window=None, mlp="dense")
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: DeviceLike = None) -> Params:
     """Seeded random parameters in the reference's tree layout (``None``
-    device means ``cuda``).  The numbers differ from JAX's init."""
+    device means ``cuda``).  The numbers differ from JAX's init.  On
+    ``"meta"`` it gives the shapes and dtypes alone and draws nothing, the
+    counterpart of the reference's ``jax.eval_shape(init_params)``."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None
+    if dev.type != "meta":          # a meta tensor has no generator
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     kw = dict(dtype=dtype, device=dev)
     params: Params = {
         "embed": layers.embed_init(gen, cfg.padded_vocab, cfg.d_model, **kw),

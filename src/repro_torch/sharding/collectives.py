@@ -37,10 +37,33 @@ exists so that several ranks can share one card; the kernels still run on
 the card, but a CUDA graph cannot hold the host copies.  Any other pair
 raises.  All three use ``reduce_scatter_tensor`` / ``all_gather_into_tensor``
 / ``all_reduce``, which torch 2.11 and later have for both backends.
+
+**Wire accounting** (:func:`wire_log`): while a caller holds a
+:class:`WireLog` open, every call through :func:`transport` is recorded
+(:class:`WireRecord`: op, dtype, shape, element count, bytes on the wire,
+what the payload is and whether it belongs to a bucket's phase-step
+inversion), and each data-parallel step marks where it starts
+(:func:`note_step`).  Bytes on the wire are the operand's: the full
+buffer of a reduce-scatter or an all-reduce, the local shard of an
+all-gather.  The stat payload is rounded to bf16 and summed as fp32, so
+4 bytes an element cross the wire, twice the reference's bf16 width
+(``core/stats.py`` ``bucket_comm_cost`` takes either).  Whether each fp32
+stat payload was bf16-exact when it left is counted on the payload's
+device, in the log's counter, with no host sync; the caller reads it once
+after the run (:meth:`WireLog.inexact_stats`).  The log changes no
+collective.  A CUDA graph capture records what the step would send and
+captures the exactness count with the step; the chunk runner moves the
+records to each replay (:func:`wire_mark`, :func:`wire_rewind`,
+:func:`wire_credit`), as it does the kernel launch counts, and each
+replay's step mark says it was replayed.  A log open across a capture
+needs its counter on the device before the capture
+(``wire_log(device)``).  ``analysis/contracts.py`` reads the log.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import contextlib
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as tdist
@@ -125,19 +148,185 @@ class _HostStaged(_Native):
         out.copy_(host)
 
 
+@dataclass(frozen=True)
+class WireRecord:
+    """One collective as it crossed the wire.  ``op``: ``all_reduce``,
+    ``reduce_scatter``, ``all_gather`` (or ``step``, the start of a step,
+    with ``what`` ``replay`` where the step was captured and replayed);
+    ``what``: ``stats`` (the rank-1 stat payload), ``grad`` (the flat
+    gradient halves), ``mean`` (a scalar or metric mean),
+    ``owner_gather`` (recombined inversion chunks), ``agree`` (the elastic
+    span agreement); ``phase``: made by a bucket's phase-step
+    inversion."""
+    op: str
+    dtype: str = ""
+    shape: Tuple[int, ...] = ()
+    numel: int = 0
+    nbytes: int = 0
+    what: str = ""
+    phase: bool = False
+
+
+class WireLog:
+    """The records of every collective since the log was opened, and, on
+    each device, the count of fp32 stat payloads that were not
+    bf16-exact."""
+
+    def __init__(self, device=None):
+        self.records: List[WireRecord] = []
+        self._inexact: Dict[torch.device, torch.Tensor] = {}
+        if device is not None:
+            self._counter(torch.device(device))
+
+    def _counter(self, device: torch.device) -> torch.Tensor:
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if device not in self._inexact:
+            if device.type == "cuda" and \
+                    torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "a wire log open across a CUDA graph capture counts on "
+                    f"{device}: open it with wire_log({device!s})")
+            self._inexact[device] = torch.zeros((), dtype=torch.int32,
+                                                device=device)
+        return self._inexact[device]
+
+    def inexact_stats(self) -> int:
+        """fp32 stat payloads that left not bf16-exact, replays included
+        (one host read a device)."""
+        return sum(int(t) for t in self._inexact.values())
+
+    def steps(self) -> List[List[WireRecord]]:
+        """The records split at each step mark; what came before the first
+        mark is dropped."""
+        out: List[List[WireRecord]] = []
+        for r in self.records:
+            if r.op == "step":
+                out.append([])
+            elif out:
+                out[-1].append(r)
+        return out
+
+    def replayed(self) -> List[bool]:
+        """For each of :meth:`steps`, whether it was a graph replay."""
+        return [r.what == "replay" for r in self.records if r.op == "step"]
+
+
+_LOGS: List[WireLog] = []
+_CONTEXT = [("", False)]            # (what, phase) of the calls being made
+
+
+@contextlib.contextmanager
+def wire_log(device=None):
+    """Record every collective made through :func:`transport` while the
+    block runs; yields the :class:`WireLog` (its exactness counter on
+    ``device`` made now, as a graph capture within the block needs)."""
+    log = WireLog(device)
+    _LOGS.append(log)
+    try:
+        yield log
+    finally:
+        _LOGS.remove(log)
+
+
+@contextlib.contextmanager
+def _wire(what: str, phase: Optional[bool] = None):
+    _CONTEXT.append((what, _CONTEXT[-1][1] if phase is None else phase))
+    try:
+        yield
+    finally:
+        _CONTEXT.pop()
+
+
+def wire_context() -> Tuple[str, bool]:
+    """(what, phase) of the collective being made (see
+    :class:`WireRecord`)."""
+    return _CONTEXT[-1]
+
+
+def note_step() -> None:
+    """Mark the start of a step in every open log (a step being captured
+    is marked as a replay: its records reach the log only by replays)."""
+    if not _LOGS:
+        return
+    captured = torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+    for log in _LOGS:
+        log.records.append(WireRecord("step",
+                                      what="replay" if captured else ""))
+
+
+def wire_mark() -> List[int]:
+    """The length of every open log, for :func:`wire_rewind`."""
+    return [len(log.records) for log in _LOGS]
+
+
+def wire_rewind(mark: List[int]):
+    """Drop what each open log recorded since ``mark`` and return it (a
+    graph capture's records)."""
+    added = []
+    for log, n in zip(_LOGS, mark):
+        added.append(log.records[n:])
+        del log.records[n:]
+    return added
+
+
+def wire_credit(added) -> None:
+    """Record one replay of a captured graph: its capture's records."""
+    for log, recs in zip(_LOGS, added):
+        log.records.extend(recs)
+
+
+def _record(op: str, x: torch.Tensor) -> None:
+    what, phase = _CONTEXT[-1]
+    if what == "stats" and x.dtype == torch.float32:
+        inexact = (x != x.to(torch.bfloat16).float()).any()
+        for log in _LOGS:
+            log._counter(x.device).add_(inexact)
+    rec = WireRecord(op, str(x.dtype).replace("torch.", ""),
+                     tuple(x.shape), x.numel(),
+                     x.numel() * x.element_size(), what, phase)
+    for log in _LOGS:
+        log.records.append(rec)
+
+
+class _Logged:
+    """A transport that records each call in the open logs, then makes
+    it unchanged."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def all_reduce(self, x, op=tdist.ReduceOp.SUM):
+        _record("all_reduce", x)
+        return self.inner.all_reduce(x, op=op)
+
+    def reduce_scatter(self, out, x):
+        _record("reduce_scatter", x)
+        self.inner.reduce_scatter(out, x)
+
+    def all_gather(self, out, x):
+        _record("all_gather", x)
+        self.inner.all_gather(out, x)
+
+
 def transport(device: torch.device):
     """The collectives for tensors on ``device``: NCCL on
     CUDA tensors and gloo on CPU tensors natively, gloo on CUDA tensors
-    staged through the host.  Any other backend and device raise."""
+    staged through the host.  Any other backend and device raise.  While a
+    :func:`wire_log` is open, each call is recorded first."""
     backend = str(tdist.get_backend())
     kind = torch.device(device).type
     if (backend, kind) in (("nccl", "cuda"), ("gloo", "cpu")):
-        return _Native()
-    if (backend, kind) == ("gloo", "cuda"):
-        return _HostStaged()
-    raise ValueError(f"no transport for {kind} tensors over a {backend} "
-                     "process group (NCCL takes CUDA tensors, gloo CPU "
-                     "tensors, or CUDA tensors staged through the host)")
+        inner = _Native()
+    elif (backend, kind) == ("gloo", "cuda"):
+        inner = _HostStaged()
+    else:
+        raise ValueError(
+            f"no transport for {kind} tensors over a {backend} process "
+            "group (NCCL takes CUDA tensors, gloo CPU tensors, or CUDA "
+            "tensors staged through the host)")
+    return _Logged(inner) if _LOGS else inner
 
 
 # --------------------------------------------------------------------- #
@@ -146,7 +335,8 @@ def transport(device: torch.device):
 def pmean(x: torch.Tensor, dist: DistSpec) -> torch.Tensor:
     """Mean over the data workers, accumulated in fp32 (ACCUM_DTYPE)."""
     acc = x.to(_DTYPES[ACCUM_DTYPE]).clone()
-    acc = transport(x.device).all_reduce(acc)
+    with _wire("mean"):
+        acc = transport(x.device).all_reduce(acc)
     return (acc / world_size(dist)).to(x.dtype)
 
 
@@ -154,7 +344,8 @@ def all_reduce_max(x: torch.Tensor) -> torch.Tensor:
     """The elementwise max of ``x`` over every rank of the group, in place
     (the elastic supervisor's span-boundary agreement,
     ``training/resilience.py``)."""
-    return transport(x.device).all_reduce(x, op=tdist.ReduceOp.MAX)
+    with _wire("agree"):
+        return transport(x.device).all_reduce(x, op=tdist.ReduceOp.MAX)
 
 
 def pmean_rank1_stats(stats, dist: DistSpec,
@@ -169,7 +360,8 @@ def pmean_rank1_stats(stats, dist: DistSpec,
     def reduce_a(a):
         payload = a.to(pd) if pd is not None else a
         acc = payload.to(_DTYPES[ACCUM_DTYPE]).clone()
-        acc = transport(a.device).all_reduce(acc)
+        with _wire("stats"):
+            acc = transport(a.device).all_reduce(acc)
         return (acc / world_size(dist)).to(a.dtype)
 
     def walk(node):
@@ -202,7 +394,8 @@ def flat_reduce_scatter_mean(tree, dist: DistSpec):
     if pad:
         flat = torch.cat([flat, flat.new_zeros(pad)])
     shard = flat.new_empty(flat.numel() // w)
-    transport(flat.device).reduce_scatter(shard, flat)
+    with _wire("grad"):
+        transport(flat.device).reduce_scatter(shard, flat)
     return shard.div_(w), spec
 
 
@@ -214,7 +407,8 @@ def flat_all_gather_tree(shard, spec, dist: DistSpec):
     if not metas:
         return tree
     full = shard.new_empty(shard.numel() * world_size(dist))
-    transport(shard.device).all_gather(full, shard)
+    with _wire("grad"):
+        transport(shard.device).all_gather(full, shard)
     out, off = [], 0
     for shape, dtype in metas:
         k = 1
@@ -305,13 +499,15 @@ def gather_shards(x: torch.Tensor, dist: DistSpec, n_slots: int,
     t = transport(x.device)
     if live is None and (nl - 1) * chunk <= 2 * n_slots:
         full = x.new_empty((nl * chunk,) + tuple(x.shape[1:]))
-        t.all_gather(full, x)
+        with _wire("owner_gather", phase=True):
+            t.all_gather(full, x)
         return full[:n_slots]
     buf = x.new_zeros((nl * chunk,) + tuple(x.shape[1:]))
     if mask[worker_index(dist)]:
         off = survivor_index(dist, mask) * chunk
         buf[off:off + chunk] = x
-    return t.all_reduce(buf[:n_slots].contiguous())
+    with _wire("owner_gather", phase=True):
+        return t.all_reduce(buf[:n_slots].contiguous())
 
 
 def owner_sharded_map(fn: Callable, arrays, dist: DistSpec, n_slots: int,

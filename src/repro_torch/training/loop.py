@@ -200,6 +200,7 @@ def make_dist_step_fn(grads_fn: Callable, optimizer: GradientTransformation,
                     f"{leaf.shape[0] if leaf.ndim else None} does not "
                     f"divide the data world size {world}")
         rank = collectives.worker_index(dist)
+        collectives.note_step()
         if not warm:
             # a collective before any graph capture: it sets up the
             # communicator, which a capture cannot do
@@ -308,11 +309,13 @@ def _host_leaf(t: torch.Tensor) -> bool:
 
 
 class _Graph:
-    """One captured step: the graph, the host counts' change per step, and
-    the kernel launches (and GEMM cores) its capture recorded."""
+    """One captured step: the graph, the host counts' change per step, the
+    kernel launches (and GEMM cores) and the wire records its capture
+    recorded."""
 
-    def __init__(self, graph, delta, counts):
+    def __init__(self, graph, delta, counts, wire=()):
         self.graph, self.delta, self.counts = graph, delta, counts
+        self.wire = wire
 
 
 class ChunkRunner:
@@ -518,6 +521,7 @@ class ChunkRunner:
             self.pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         mark = build.count_mark()
+        wire = collectives.wire_mark()
         try:
             with torch.cuda.graph(graph, pool=self.pool):
                 out = self.step_fn(*self._tree_at(host_values), self._batch,
@@ -528,6 +532,7 @@ class ChunkRunner:
             # a failed capture leaves the capture stream current
             torch.cuda.set_stream(current)
             build.rewind_counts(mark)
+            collectives.wire_rewind(wire)
             raise GraphCaptureError(_capture_failure(exc)) from exc
         del out
         counts = build.rewind_counts(mark)
@@ -535,11 +540,12 @@ class ChunkRunner:
             raise GraphCaptureError(
                 f"the captured step moves the host counts by {captured}, "
                 f"the eager step by {delta}")
-        return _Graph(graph, delta, counts)
+        return _Graph(graph, delta, counts, collectives.wire_rewind(wire))
 
     def _replay(self, g: _Graph) -> None:
         g.graph.replay()
         build.credit_counts(g.counts)
+        collectives.wire_credit(g.wire)
 
     def _graph_chunk(self, params, opt_state, stacked, n, device):
         plan = getattr(self.step_fn, "plan", None)
