@@ -26,6 +26,8 @@ import torch
 from repro_torch.core import stats as statlib
 from repro_torch.core.firstorder import GradientTransformation, step_count
 from repro_torch.kernels.precond import rescale_update
+from repro_torch.training import phases
+from repro_torch.tree import tree_leaves
 
 
 @dataclass(frozen=True)
@@ -101,6 +103,8 @@ def eva(backend: GradientTransformation,
         return backend.plan(state["backend"])
 
     def update(grads, state, params=None, stats=None, scalars=None, **_):
+        device = tree_leaves(grads)[0].device
+        phases.mark("second_order", device)
         layer_paths = {statlib.path_str(p): p
                        for p in statlib.iter_dense_layers(grads)}
         out = grads
@@ -125,6 +129,7 @@ def eva(backend: GradientTransformation,
                 out, path, {**statlib.tree_get(out, path), "w": delta})
 
         out = statlib.zero_probes(out)
+        phases.mark("first_order", device)
         updates, bstate = backend.update(out, state["backend"],
                                          params=params, scalars=scalars)
         updates = statlib.zero_probes(updates)

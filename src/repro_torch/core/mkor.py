@@ -195,6 +195,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.precond import rescale_update  # Alg. 1 line 10
 from repro_torch.kernels.rank1_smw import fused_block_smw_plain
 from repro_torch.sharding import collectives
+from repro_torch.training import phases
 from repro_torch.tree import tree_leaves
 
 
@@ -1271,6 +1272,8 @@ def mkor(backend: GradientTransformation,
                precomputed=False, scalars=None, view=None, **_):
         if cfg.hybrid and loss is None:
             raise ValueError("MKOR-H needs the loss for switching")
+        device = tree_leaves(grads)[0].device
+        phases.mark("second_order", device)
         off = cfg.hybrid and view is False
         if cfg.staleness and not precomputed:
             state = tick(state, params if params is not None else grads,
@@ -1290,6 +1293,7 @@ def mkor(backend: GradientTransformation,
         out, fstate = step(grads, state, params, stats, so_on, off)
         # probes are stat taps: never step them, keep backend moments clean
         out = statlib.zero_probes(out)
+        phases.mark("first_order", device)
         updates, backend_state = backend.update(
             out, state["backend"], params=params, scalars=scalars)
         updates = statlib.zero_probes(updates)

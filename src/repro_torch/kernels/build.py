@@ -43,6 +43,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 KERNEL_SOURCES = {"rank1_smw": "rank1_smw.cu", "block_smw": "block_smw.cu",
                   "matmul": "matmul.cu", "precond": "precond.cu"}
+# the train step's phase marks (``training/phases.py``): a library of their
+# own, hashed alone and left out of the kernel libraries' hash
+MARK_SOURCES = {"marks": "marks.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -75,6 +78,7 @@ _SIGNATURES = {
                                    _I, _I, _I, _I, _I, _P],
         "mkor_fused_precond_scratch": [_I, _I, _I, _I, _I, _I],
     },
+    "marks": {"repro_mark": [_I, _P]},
 }
 
 # entry points that return something other than a CUDA error code
@@ -165,7 +169,12 @@ def nvcc_path() -> str:
 
 def _library_path(name: str) -> Path:
     h = hashlib.sha256()
-    for f in sorted(CSRC.glob("*.cu*")):
+    if name in MARK_SOURCES:
+        sources = [CSRC / MARK_SOURCES[name]]
+    else:
+        sources = [f for f in sorted(CSRC.glob("*.cu*"))
+                   if f.name not in MARK_SOURCES.values()]
+    for f in sources:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -189,7 +198,7 @@ def build(names: Optional[Iterable[str]] = None,
         out = _library_path(n)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
-               str(CSRC / KERNEL_SOURCES[n])]
+               str(CSRC / {**KERNEL_SOURCES, **MARK_SOURCES}[n])]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, out)

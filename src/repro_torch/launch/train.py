@@ -6,7 +6,7 @@
         [--staleness 0|1] [--quant none|bf16|int8] [--use-kernels] \\
         [--chunk N] [--ckpt-dir D [--ckpt-every N]] [--health] \\
         [--chaos SPEC] [--elastic [--elastic-slow-factor X]] \\
-        [--log-json FILE] [--device cpu] \\
+        [--log-json FILE] [--trace-out FILE] [--device cpu] \\
         [--dist [--dist-devices W] [--dist-backend nccl|gloo]]
 
 ``--arch`` takes every name of ``configs/registry.py`` (the ten assigned
@@ -42,6 +42,16 @@ the host sites (``kill_shard``, ``delay_shard``, ``drop_collective``)
 need ``--elastic``.  Prints the logged steps' loss and ``done: final
 loss``; ``--log-json FILE`` also writes the logged steps' metrics there
 (``loss``, ``grad_norm``, ... , ``step``, ``wall_s``), as the reference.
+Once the chunk runner has captured graphs, the first chunk that
+captures nothing new prints its set-up counts (``runner:``, from
+``loop.runner_counts``: graphs, eager warm-ups, host seconds in warm-ups
+and captures, the graph pool's growth).  ``--trace-out FILE`` runs the
+last chunk under ``torch.profiler``, writes it to FILE as a Chrome trace
+(the phase marks and the runner's ranges show in Perfetto), and prints
+the milliseconds a step in each phase of the train step
+(``training/phases.py`` ``split``: the mark kernels on the GPU, the
+phase ranges on the CPU); give enough ``--steps`` that every graph key
+was captured before it (2 × ``--inv-freq`` under MKOR).
 
 ``--elastic`` (MKOR optimizers only) runs the steps under the elastic
 supervisor (``training/resilience.py`` ``elastic_train``): retries with
@@ -97,7 +107,7 @@ from repro_torch.models import model as model_lib
 from repro_torch.sharding import collectives
 from repro_torch.training import chaos as chaos_lib
 from repro_torch.training import loop as train_lib
-from repro_torch.training import resilience
+from repro_torch.training import phases, resilience
 
 
 def build_optimizer(name: str, lr, *, inv_freq: int = 10, rank: int = 1,
@@ -221,6 +231,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--log-json", default="",
                     help="write the logged steps' metrics to this JSON file "
                          "(rank 0)")
+    ap.add_argument("--trace-out", default="",
+                    help="profile the last chunk, write it to this Chrome "
+                         "trace file and print the ms a step in each phase "
+                         "of the train step (rank 0; not with --elastic)")
     return ap.parse_args(argv)
 
 
@@ -370,6 +384,9 @@ def setup(args: argparse.Namespace, rank: int = 0, world: int = 1) -> Run:
     if args.elastic and mcfg is None:
         raise SystemExit("--elastic needs an MKOR optimizer (failover "
                          "quarantines MKOR factor state)")
+    if args.elastic and args.trace_out:
+        raise SystemExit("--trace-out traces the chunk loop, which "
+                         "--elastic replaces")
     params = model_lib.init_params(cfg, seed=args.seed, device=device)
     say(f"arch={cfg.name} params={model_lib.param_count(params):,} "
         f"optimizer={args.optimizer} steps={args.steps} "
@@ -416,6 +433,42 @@ def setup(args: argparse.Namespace, rank: int = 0, world: int = 1) -> Run:
                 f"{start}{note})")
     return Run(args, rank, world, device, cfg, plan, mcfg, make_optimizer,
                make_runner, params, opt_state, ds, start, say)
+
+
+def _runner_line() -> str:
+    """The chunk runner's set-up counts, in total and by graph key."""
+    c = train_lib.runner_counts()
+    keys = "; ".join(
+        f"{k}: {v['capture_s']:.3f} s, {v['pool_bytes'] / 2 ** 30:.3f} GiB"
+        for k, v in train_lib.runner_counts(by_key=True).items())
+    return (f"runner: graphs={c['graphs']} warm_ups={c['warm_ups']} "
+            f"capture_s={c['capture_s']:.3f} "
+            f"pool_gib={c['pool_bytes'] / 2 ** 30:.3f} (by key: {keys})")
+
+
+def _traced_chunk(runner, params, opt_state, stacked, device, path, say):
+    """One chunk under ``torch.profiler``: the Chrome trace to ``path``,
+    and the ms a step in each phase (``phases.split``) printed."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    sync = torch.cuda.synchronize if device.type == "cuda" else \
+        (lambda: None)
+    n = len(next(iter(stacked.values())))
+    with profile(activities=acts) as prof:
+        sync()
+        t0 = time.perf_counter()
+        out = runner(params, opt_state, stacked)
+        sync()
+        window_s = time.perf_counter() - t0
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    prof.export_chrome_trace(path)
+    split = phases.split(phases.marks_of(prof), window_s, n)
+    say(f"trace: {path}, {n} steps, {window_s * 1e3 / n:.3f} ms a step; "
+        + ("phase ms a step: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in split.items()) if split else
+           "too few whole steps marked to split into phases"))
+    return out
 
 
 def _train(args: argparse.Namespace, rank: int, world: int) -> float:
@@ -474,10 +527,23 @@ def _train(args: argparse.Namespace, rank: int, world: int) -> float:
         # restored tensors
         runner = run.make_runner()
         i = start
-        for n in train_lib.chunk_schedule(args.steps - start, args.chunk):
+        sizes = train_lib.chunk_schedule(args.steps - start, args.chunk)
+        counts, said = train_lib.runner_counts(), False
+        for c, n in enumerate(sizes):
             stacked = train_lib.stack_batches(
                 [make_batch(i + k) for k in range(n)])
-            params, opt_state, metrics = runner(params, opt_state, stacked)
+            if args.trace_out and rank == 0 and c == len(sizes) - 1:
+                params, opt_state, metrics = _traced_chunk(
+                    runner, params, opt_state, stacked, run.device,
+                    args.trace_out, say)
+            else:
+                params, opt_state, metrics = runner(params, opt_state,
+                                                    stacked)
+            new = train_lib.runner_counts()
+            if not said and new["graphs"] and new == counts:
+                said = True
+                say(_runner_line())
+            counts = new
             for k in range(n):
                 log_step(i + k, {key: v[k] for key, v in metrics.items()})
             prev, i = i, i + n

@@ -45,6 +45,7 @@ the host, which a graph cannot hold.
 from __future__ import annotations
 
 import gc
+import time
 import traceback
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence
@@ -58,6 +59,7 @@ from repro_torch.kernels import build
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding import collectives
+from repro_torch.training import phases
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -118,6 +120,7 @@ def value_and_grad(loss_fn: Callable, params, batch):
     it = iter(live)
     p_req = tree_map(lambda _: next(it), params)
     loss, aux = loss_fn(p_req, batch)
+    phases.mark("backward", loss.device)
     grads = torch.autograd.grad(loss, live, allow_unused=True)
     it = iter(zip(grads, live))
 
@@ -125,6 +128,15 @@ def value_and_grad(loss_fn: Callable, params, batch):
         g, t = next(it)
         return torch.zeros_like(t) if g is None else g
     return (loss.detach(), aux), tree_map(fill, params)
+
+
+def _mark_first_order(opt_state, device) -> None:
+    """The ``first_order`` mark before a first-order optimizer's update.
+    An optimizer that carries a backend's state (MKOR, Eva) runs the
+    backend itself and marks ``second_order`` and ``first_order`` inside
+    its update."""
+    if not (isinstance(opt_state, dict) and "backend" in opt_state):
+        phases.mark("first_order", device)
 
 
 def make_train_step(cfg: ModelConfig, optimizer: GradientTransformation,
@@ -140,6 +152,8 @@ def make_train_step(cfg: ModelConfig, optimizer: GradientTransformation,
         optimizer's."""
         if view is None and optimizer.observe is not None:
             view = optimizer.observe(opt_state)
+        device = tree_leaves(params)[0].device
+        phases.mark("forward", device)
         # two-phase protocol: the precompute tick consumes only carried
         # state, so it runs before the gradients exist (synchronous
         # optimizers have no precompute)
@@ -148,9 +162,11 @@ def make_train_step(cfg: ModelConfig, optimizer: GradientTransformation,
             opt_state = optimizer.precompute(opt_state, params=params,
                                              view=view)
         (loss, aux), grads = value_and_grad(loss_fn, params, batch)
+        _mark_first_order(opt_state, device)
         updates, opt_state = optimizer.update(
             grads, opt_state, params=params, stats=aux["stats"], loss=loss,
             precomputed=precompute, scalars=scalars, view=view)
+        phases.mark("apply", device)
         params = firstorder.apply_updates(params, updates)
         metrics = {
             "loss": loss,
@@ -159,6 +175,7 @@ def make_train_step(cfg: ModelConfig, optimizer: GradientTransformation,
             "grad_norm": firstorder.global_norm(grads),
             "update_norm": firstorder.global_norm(updates),
         }
+        phases.mark("end", device)
         return params, opt_state, metrics
 
     train_step.plan = optimizer.plan
@@ -212,6 +229,8 @@ def make_dist_step_fn(grads_fn: Callable, optimizer: GradientTransformation,
                  for k, v in batch.items()}
         if view is None and optimizer.observe is not None:
             view = optimizer.observe(opt_state)
+        device = tree_leaves(params)[0].device
+        phases.mark("forward", device)
         precompute = optimizer.precompute is not None
         if precompute:
             opt_state = optimizer.precompute(opt_state, params=params,
@@ -225,9 +244,11 @@ def make_dist_step_fn(grads_fn: Callable, optimizer: GradientTransformation,
         stats = collectives.pmean_rank1_stats(
             stats, dist, payload_dtype=stats_payload_dtype)
         grads = collectives.flat_all_gather_tree(shard, spec, dist)
+        _mark_first_order(opt_state, device)
         updates, opt_state = optimizer.update(
             grads, opt_state, params=params, stats=stats, loss=loss,
             precomputed=precompute, scalars=scalars, view=view)
+        phases.mark("apply", device)
         params = firstorder.apply_updates(params, updates)
         metrics = {
             "loss": loss,
@@ -236,6 +257,7 @@ def make_dist_step_fn(grads_fn: Callable, optimizer: GradientTransformation,
             "grad_norm": firstorder.global_norm(grads),
             "update_norm": firstorder.global_norm(updates),
         }
+        phases.mark("end", device)
         return params, opt_state, metrics
 
     step.plan = optimizer.plan
@@ -308,6 +330,39 @@ def _host_leaf(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
+# The chunk runners' set-up counts, over every runner of the process:
+# graphs captured, eager warm-ups, host seconds in warm-ups and captures
+# (each ending in a synchronize), and the graph pool's growth in bytes
+# (the device's reserved bytes right after each capture less right after
+# the cache was emptied before it).  Read with :func:`runner_counts`.
+_RUNNER_COUNTS = dict(graphs=0, warm_ups=0, capture_s=0.0, pool_bytes=0)
+_RUNNER_BY_KEY: Dict = {}
+SPAN = "repro_torch.runner."      # the runner's profiler ranges
+
+
+def runner_counts(by_key: bool = False) -> Dict:
+    """The chunk runners' set-up counts (``graphs``, ``warm_ups``,
+    ``capture_s``, ``pool_bytes``) since the last reset; with ``by_key``,
+    the same counts for each graph key (the optimizer's plan key).  The
+    CPU's eager steps count nothing."""
+    if by_key:
+        return {k: dict(v) for k, v in _RUNNER_BY_KEY.items()}
+    return dict(_RUNNER_COUNTS)
+
+
+def reset_runner_counts() -> None:
+    for k in _RUNNER_COUNTS:
+        _RUNNER_COUNTS[k] = 0
+    _RUNNER_BY_KEY.clear()
+
+
+def _count_setup(key, **add) -> None:
+    row = _RUNNER_BY_KEY.setdefault(key, dict.fromkeys(_RUNNER_COUNTS, 0))
+    for k, v in add.items():
+        _RUNNER_COUNTS[k] += v
+        row[k] += v
+
+
 class _Graph:
     """One captured step: the graph, the host counts' change per step, the
     kernel launches (and GEMM cores) and the wire records its capture
@@ -343,7 +398,11 @@ class ChunkRunner:
     outside a graph are allocated outside the pool.  A capture that fails
     raises :class:`GraphCaptureError`; nothing carries on eagerly.  Each
     replay is credited with the kernel launches its capture recorded.  The
-    metrics come to the host once per chunk.
+    metrics come to the host once per chunk.  The step's ``end`` phase
+    mark follows the write-back (``training/phases.py``); while a profiler
+    runs, the runner's parts show as ranges ``repro_torch.runner.<part>``
+    (bind, observe, batch_to_device, plan, replay, fetch, warm_up,
+    capture); :func:`runner_counts` counts the warm-ups and captures.
 
     On the CPU (a device the caller asked for), or with ``capture=False``
     (a step whose collectives a graph cannot hold: gloo staged through the
@@ -489,14 +548,15 @@ class ChunkRunner:
         for k, t in self._scalars.items():
             t.fill_(float(values[k]))
 
-    def _warm_up(self, host_values, device) -> List[int]:
+    def _warm_up(self, host_values, device, key) -> List[int]:
         """The first step of a key: run it eagerly on a side stream (the
         warm-up a capture needs; its result is the step's, written into the
         static buffers).  Returns its change of the host counts."""
+        t0 = time.perf_counter()
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(current)
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), phases.runner_step(device):
             out = self.step_fn(*self._tree_at(host_values), self._batch,
                                scalars=self._scalars, **self._view)
             if self._keys is None:
@@ -507,23 +567,28 @@ class ChunkRunner:
             delta = [o - h for o, h in zip(self._write_back(*out),
                                            host_values)]
         current.wait_stream(side)
+        torch.cuda.synchronize(device)
+        _count_setup(key, warm_ups=1, capture_s=time.perf_counter() - t0)
         return delta
 
-    def _capture(self, host_values, delta) -> _Graph:
+    def _capture(self, host_values, delta, device, key) -> _Graph:
         """Capture the step of a key whose warm-up ran before (its host
         counts' change ``delta``), from the host state at hand; the capture
         runs nothing, so the static buffers stay as they were.  The cached
         blocks of the eager steps go back to the device first: a capture
         cannot free cached memory when it runs short."""
+        t0 = time.perf_counter()
         current = torch.cuda.current_stream()
         torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         mark = build.count_mark()
         wire = collectives.wire_mark()
         try:
-            with torch.cuda.graph(graph, pool=self.pool):
+            with torch.cuda.graph(graph, pool=self.pool), \
+                    phases.runner_step(device):
                 out = self.step_fn(*self._tree_at(host_values), self._batch,
                                    scalars=self._scalars, **self._view)
                 captured = [o - h for o, h in zip(self._write_back(*out),
@@ -540,6 +605,10 @@ class ChunkRunner:
             raise GraphCaptureError(
                 f"the captured step moves the host counts by {captured}, "
                 f"the eager step by {delta}")
+        grown = torch.cuda.memory_reserved(device) - reserved
+        torch.cuda.synchronize(device)
+        _count_setup(key, graphs=1, capture_s=time.perf_counter() - t0,
+                     pool_bytes=grown)
         return _Graph(graph, delta, counts, collectives.wire_rewind(wire))
 
     def _replay(self, g: _Graph) -> None:
@@ -552,30 +621,39 @@ class ChunkRunner:
         if plan is None:
             raise ValueError("a CUDA chunk runner needs step_fn.plan (the "
                              "optimizer's plan: make_train_step sets it)")
-        host = self.host = self._bind(params, opt_state, stacked, device)
-        self._observe(self._tree_at(host)[1])
-        batches = batch_to_device(stacked, device)   # one copy a chunk
+        with phases.span(SPAN + "bind"):
+            host = self.host = self._bind(params, opt_state, stacked, device)
+        with phases.span(SPAN + "observe"):
+            self._observe(self._tree_at(host)[1])
+        with phases.span(SPAN + "batch_to_device"):
+            batches = batch_to_device(stacked, device)   # one copy a chunk
         rows = None
         for k in range(n):
-            key, values = plan(self._tree_at(host)[1], **self._view)
-            for name, buf in self._batch.items():
-                buf.copy_(batches[name][k])
-            self._write_scalars(values, device)
+            with phases.span(SPAN + "plan"):
+                key, values = plan(self._tree_at(host)[1], **self._view)
+                for name, buf in self._batch.items():
+                    buf.copy_(batches[name][k])
+                self._write_scalars(values, device)
             g = self.graphs.get(key)
             if g is None and key in self._warmed:
-                g = self.graphs[key] = self._capture(host,
-                                                     self._warmed.pop(key))
+                with phases.span(SPAN + "capture"):
+                    g = self.graphs[key] = self._capture(
+                        host, self._warmed.pop(key), device, key)
             if g is None:
-                delta = self._warmed[key] = self._warm_up(host, device)
+                with phases.span(SPAN + "warm_up"):
+                    delta = self._warmed[key] = self._warm_up(host, device,
+                                                              key)
             else:
-                self._replay(g)
+                with phases.span(SPAN + "replay"):
+                    self._replay(g)
                 delta = g.delta
             host = self.host = [h + d for h, d in zip(host, delta)]
             if rows is None:
                 rows = torch.empty((n, len(self._keys)), dtype=torch.float32,
                                    device=device)
             rows[k].copy_(self._metrics)
-        rows = rows.cpu()                                # one fetch a chunk
+        with phases.span(SPAN + "fetch"):
+            rows = rows.cpu()                            # one fetch a chunk
         params, opt_state = self._tree_at(host)
         if not self.donate:
             params, opt_state = tree_map(

@@ -903,6 +903,51 @@ def test_cuda_chunk_runner_replays_equal_eager(cuda_device, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["kernels-rank1", "kernels-rank2-staleness1",
+                                  "lamb"])
+def test_cuda_phase_marks_once_a_replay_in_order(cuda_device, case):
+    """Each graph key captured by the chunk runner (warm-up, capture and a
+    replay each), then three replays under ``torch.profiler``: each phase
+    mark kernel once a replay, in step order (``second_order`` under MKOR
+    only), and the runner's counts: one graph and one warm-up a key seen,
+    host seconds and pool bytes above 0.  A trace that drops events is
+    retaken (at most three times); none may show a mark too many."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.training import loop as t_loop
+    from repro_torch.training import phases
+    kw = CAPTURE_CASES[case]
+    keys = 1 if kw is None else 3
+    step, params, state, batches = _graph_setup(cuda_device, kw,
+                                                max(2 * keys, 3))
+    t_loop.reset_runner_counts()
+    runner = t_loop.make_chunk_runner(step)
+    params, state, _ = t_loop.train_epoch(
+        step, params, state, batches[:2 * keys], chunk=2 * keys,
+        runner=runner)
+    order = [phases.KERNEL.format(p) for p in phases.PHASES
+             if kw is not None or p != "second_order"]
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            params, state, _ = t_loop.train_epoch(
+                step, params, state, batches[:3], chunk=3, runner=runner)
+            torch.cuda.synchronize()
+        events = sorted((e.time_range.start, e.name) for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and e.name.startswith("repro_mark_"))
+        names = [n for _, n in events]
+        assert len(names) <= 3 * len(order), names
+        if names == order * 3:
+            break
+    assert names == order * 3
+    counts = t_loop.runner_counts()
+    assert counts["graphs"] == len(runner.graphs) == keys
+    assert counts["warm_ups"] == keys
+    assert counts["capture_s"] > 0 and counts["pool_bytes"] > 0
+    assert set(t_loop.runner_counts(by_key=True)) == set(runner.graphs)
+
+
+@pytest.mark.cuda
 def test_cuda_capture_failure_names_the_op(cuda_device):
     """A step that reads a device value on the host cannot be captured: the
     runner raises GraphCaptureError naming the line, and the device works
